@@ -1,29 +1,44 @@
 #!/usr/bin/env python3
-"""Chip smoke of nerrf_tpu_torch, the PyTorch/CUDA port of NERRF detection.
+"""Chip smoke of nerrf_tpu_torch, the PyTorch/CUDA port of NERRF detection and
+training.
 
 Run from the root of the repository, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's three CUDA kernels from ``nerrf_tpu_torch/ops/csrc/``
-(``nvcc``, ``sm_90a``, on first use), holds each against its plain PyTorch
-version on the card at the main path's shapes (float32 and bfloat16, plus
-masked edges, empty segments, skewed bands and empty inputs), then drives
-``model_detect`` with the full-width ``NerrfNet`` (28-layer GraphSAGE-T of
-width 160, 2×256 BiLSTM, bfloat16, random weights from a seed) over a
-simulated trace whose windows land on the 4096-node / 4096-edge /
-4096-sequence rung.  The launch counters must show every kernel on that
-run; the forward is compared with the same forward on the plain versions,
-and a small float32 detection on the card with the same detection on the
-CPU.  Each kernel is then checked and timed on the inputs the main path
-gives it (the first batch's edge views and sequence routing), beside its
-plain version, one PyTorch library call and its bound.
+It builds the port's five CUDA kernels from ``nerrf_tpu_torch/ops/csrc/``
+(``nvcc``, ``sm_90a``, one process per source, all started together) and
+holds each against its plain PyTorch version on the card (float32 and
+bfloat16; masked edges, empty segments, skewed bands, bands past the end,
+out-of-range ids, empty inputs), and each op's backward (an autograd
+Function whose backward is the adjoint kernel) against the plain version's
+gradient.  Then it drives the two paths the port has, each with the launch
+counters set to 0 just before it and read just after:
+
+* ``model_detect`` with the full-width ``NerrfNet`` (28-layer GraphSAGE-T of
+  width 160, 2x256 BiLSTM, bfloat16, random weights from a seed) over a
+  simulated trace whose windows land on the 4096-node / 4096-edge /
+  4096-sequence rung (``fused`` aggregation);
+* ``train_nerrfnet`` at the ``configs/joint-100h.json`` rung (the same
+  model with dropout 0.1, batches of 8 graphs of 1024 nodes / 2048 edges and
+  128 sequences of 100 steps, AdamW on the warmup-cosine schedule) in the
+  ``segment`` aggregation mode, for 20 steps over ``make_corpus`` cut to 2
+  traces.
+
+The counters must show the launches derived from the model's structure on
+each.  One training step's gradients are compared, kernels against plain
+versions, in ``segment`` and ``fused`` modes; a small float32 detection and
+a small float32 training run on the card are compared with the same runs on
+the CPU.  Each kernel is then checked and timed at its call sites on the
+inputs each path gives it (its first batch's edge views and sequence
+routing), beside its plain version, one PyTorch library call and its bound;
+the result line holds each kernel at its main call site on its own path.
 
 Prints the card's name and power limit, one JSON line with each kernel's
-launches, error, times and bound, the detection rate, the steady run's
-breakdown and the card's busy share from a profiler trace, and as its last line
-``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line, when
-a phase fails or there is no card.
+launches, error, times and bound, the detection rate, the training rate and
+its breakdown, the card's busy share from profiler traces, and as its last
+line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
+line, when a phase fails or there is no card.
 """
 
 from __future__ import annotations
@@ -56,9 +71,35 @@ LOGIT_ATOL = 0.25
 # small float32 detection, card (kernels) vs CPU (plain versions)
 DETECT_ATOL = 1e-4
 
+# the training rung: configs/joint-100h.json, its corpus cut to 2 traces (1
+# attack, 1 benign, 600 s each) and its 12000 steps to 20; the loss is read
+# every 5 steps (the config logs every 500)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TRAIN_CONFIG = os.path.join(ROOT, "configs", "joint-100h.json")
+TRAIN_TRACES = 2
+TRAIN_STEPS = 20
+TRAIN_LOG_EVERY = 5
+TRAIN_RUNG = (1024, 2048, 128, 100)     # nodes, edges, sequences, steps
+# one full-width step's gradients, kernels vs plain versions, per parameter:
+# ‖Δg‖ ≤ GRAD_RTOL[mode]·‖g‖ (the measured values are in PERF.md).
+# segment: kernels and plain versions sum each row in f32 and round once to
+# bf16, and every run on the H100 read 0, plain vs plain 0 too.  fused: the
+# precompute's scatter_add_ atomics put 3.4e-3 to 8.0e-3 between two plain
+# runs (bf16 forwards one ulp apart after an op, carried through 28 residual
+# layers and back), and kernels vs plain read up to 9.7e-3
+GRAD_RTOL = {"segment": 1e-3, "fused": 0.05}
+# small float32 training (3 steps), card vs CPU: relative loss difference
+SMALL_TRAIN_RTOL = 1e-4
+
 
 def _fail(msg: str) -> None:
     raise AssertionError(msg)
+
+
+def _sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
 
 
 def _smi() -> str:
@@ -82,6 +123,23 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def round_robin_ms(fns: dict, rounds: int = 15, warmup: int = 2) -> dict:
+    """Median ms of each ``fns`` entry on the host clock, synced before and
+    after each call, the entries run in turn round after round."""
+    import statistics
+
+    times = {name: [] for name in fns}
+    for r in range(warmup + rounds):
+        for name, fn in fns.items():
+            _sync()
+            t0 = time.perf_counter()
+            fn()
+            _sync()
+            if r >= warmup:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(v) for name, v in times.items()}
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -109,14 +167,12 @@ def _close(name, got, want, dtype_name, scale=None):
 
 def _both(fn, *args, **kw):
     """``fn`` on the kernels, then on the plain versions, same inputs."""
-    import torch
-
     from nerrf_tpu_torch.ops import plain_ops
 
     got = fn(*args, **kw)
     with plain_ops():
         want = fn(*args, **kw)
-    torch.cuda.synchronize()
+    _sync()
     return got, want
 
 
@@ -210,7 +266,7 @@ def check_kernels() -> dict:
         e0 = [torch.zeros(B, 0, dtype=torch.int32, device=dev)] * 4
         w0 = [torch.zeros(B, 0, device=dev)] * 4
         got = ops.sage_aggregate(torch.randn(B, 64, F, device=dev).to(dt), *e0, *w0, 64)
-        torch.cuda.synchronize()
+        _sync()
         if got.shape != (B, 64, F) or float(got.abs().max()) != 0.0:
             _fail("sage_aggregate: E=0 must give zeros")
     report["sage_aggregate"] = errs
@@ -253,13 +309,13 @@ def check_kernels() -> dict:
         sparse = torch.zeros(1, 3, dtype=torch.int32, device=dev)
         sparse[0, 2] = 3
         got = ops.segment_sum(torch.ones(1, 3, 4, device=dev).to(dt), sparse, 6)
-        torch.cuda.synchronize()
+        _sync()
         if float(got[0, 0, 0]) != 2.0 or float(got[0, 3, 0]) != 1.0 \
                 or float(got[0, [1, 2, 4, 5]].abs().max()) != 0.0:
             _fail("segment_sum: empty segments are not exactly zero")
         got = ops.segment_sum(torch.zeros(B, 0, SEQ_F, device=dev).to(dt),
                               torch.zeros(B, 0, dtype=torch.int32, device=dev), 5)
-        torch.cuda.synchronize()
+        _sync()
         if got.shape != (B, 5, SEQ_F) or float(got.abs().max()) != 0.0:
             _fail("segment_sum: S=0 must give zeros")
     report["segment_sum"] = errs
@@ -291,19 +347,22 @@ def sage_library_ms(msg, edges, N):
         return None
 
 
-def time_kernels(batch: dict, report: dict) -> dict:
-    """Each kernel on the inputs the main path gives it (the first batch of
-    8 windows of the main-path trace: its edge views, its sequence routing;
-    random activations of the model's widths and types): the kernel against
-    its plain version, and the times of the kernel, the plain version (the
-    same call under ``plain_ops``; it ignores the precomputed row pointers) and
+def time_kernels(batch: dict, report: dict, tag: str) -> dict:
+    """Each kernel on the inputs a path gives it (the first batch of 8
+    windows of that path: its edge views, its sequence routing; random
+    activations of the model's widths and types): the kernel against its
+    plain version, and the times of the kernel, the plain version (the same
+    call under ``plain_ops``; it ignores the precomputed row pointers) and
     one PyTorch library call computing the same function, beside the bound
-    of the work these inputs need."""
+    of the work these inputs need.  One entry per call site, named by its
+    kernel where that is the kernel's main call site on the training path.
+    ``tag`` names the inputs in ``report``."""
     import torch
 
     from nerrf_tpu_torch.models.graphsage import fused_edge_views
-    from nerrf_tpu_torch.ops import gather_rows, plain_ops, sage_aggregate
-    from nerrf_tpu_torch.ops import sage_row_ptrs, segment_sum
+    from nerrf_tpu_torch.ops import (
+        gather_rows, gather_rows_sorted, plain_ops, sage_aggregate,
+        sage_row_ptrs, segment_sum, segment_sum_sorted)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(99)
@@ -311,18 +370,22 @@ def time_kernels(batch: dict, report: dict) -> dict:
     B, N = t["node_mask"].shape
     E = t["edge_mask"].shape[1]
     F, elt = MAIN_F, 2                           # bf16 activations
+    offsets = torch.arange(B, device=dev)[:, None]
 
-    def timed(name, call, library, nbytes, ops, scale=None):
+    def timed(name, call, library, nbytes, ops, scale=None, case=""):
         got, want = _both(call)
         dtype_name = str(got.dtype).split(".")[1]
-        report[name][f"mainpath/{dtype_name}"] = _close(
-            f"{name} mainpath", got, want, dtype_name, scale)
+        report[name][f"{tag}{case}/{dtype_name}"] = _close(
+            f"{name} {tag}{case}", got, want, dtype_name, scale)
         ms = cuda_ms(call)
         with plain_ops():
             plain_ms = cuda_ms(call, iters=10)
         b_ms, b_by = bound_ms(nbytes, ops)
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=library())
+
+    def longest_run(ids, n):
+        return int(torch.bincount((ids.long() + offsets * n).reshape(-1)).max())
 
     # sage_aggregate: the model's edge views; every layer launches on them
     w32 = (t["edge_feat"][..., 12] + 0.1) * t["edge_mask"].float()
@@ -345,28 +408,70 @@ def time_kernels(batch: dict, report: dict) -> dict:
     # gather_rows: the edge head's h[src] (h[dst] is the same work)
     h = torch.randn(B, N, F, generator=gen).to(dev, torch.bfloat16)
     idx = t["edge_src"]
-    flat_idx = (idx.long() + torch.arange(B, device=dev)[:, None] * N).reshape(-1)
+    flat_idx = (idx.long() + offsets * N).reshape(-1)
     rows = sum(int(torch.unique(idx[b]).numel()) for b in range(B))
     out["gather_rows"] = timed(
         "gather_rows", lambda: gather_rows(h, idx),
         lambda: cuda_ms(lambda: torch.index_select(h.reshape(B * N, F), 0, flat_idx)),
         rows * F * elt + idx.numel() * 4 + B * E * F * elt, 0)
 
-    # segment_sum: the fusion's float32 rows into N + 1 slots, unmatched
-    # sequences routed to slot N
+    # segment_sum, two call sites.  The backward of a layer's gather (h[src]):
+    # a [B, E, H] bf16 cotangent summed by the unsorted edge_src into N rows,
+    # the padding tail's rows all on the last node; 58 of a segment-mode
+    # training step's 59 launches are such backwards
+    src = t["edge_src"]
+    flat_src = (src.long() + offsets * N).reshape(-1)
+    gsrc = torch.randn(B, E, F, generator=gen).to(dev, torch.bfloat16)
+    out["segment_sum"] = timed(
+        "segment_sum", lambda: segment_sum(gsrc, src, N),
+        lambda: cuda_ms(lambda: torch.zeros(B * N, F, dtype=gsrc.dtype, device=dev)
+                        .index_add_(0, flat_src, gsrc.reshape(-1, F))),
+        gsrc.numel() * elt + src.numel() * 4 + B * N * F * elt, gsrc.numel(),
+        _segment_scale(gsrc, src, N), case="-gather-backward")
+    out["segment_sum"]["longest_run"] = longest_run(src, N)
+    # the fusion: float32 rows into N + 1 slots, unmatched sequences routed to
+    # slot N (the detection path's one call, once per training forward)
     sni = t["seq_node_idx"]
     ids = torch.where(sni >= 0, sni, N).to(torch.int32)
     S = ids.shape[1]
     data = torch.randn(B, S, SEQ_F, generator=gen).to(dev)
-    flat = (ids.long() + torch.arange(B, device=dev)[:, None] * (N + 1)).reshape(-1)
-    longest_run = int(torch.bincount(flat).max())
-    out["segment_sum"] = timed(
+    flat = (ids.long() + offsets * (N + 1)).reshape(-1)
+    out["segment_sum_fusion"] = timed(
         "segment_sum", lambda: segment_sum(data, ids, N + 1),
         lambda: cuda_ms(lambda: torch.zeros(B * (N + 1), SEQ_F, device=dev)
                         .index_add_(0, flat, data.reshape(-1, SEQ_F))),
         data.numel() * 4 + ids.numel() * 4 + B * (N + 1) * SEQ_F * 4,
-        data.numel(), _segment_scale(data, ids, N + 1))
-    out["segment_sum"]["longest_run"] = longest_run
+        data.numel(), _segment_scale(data, ids, N + 1), case="-fusion")
+    out["segment_sum_fusion"]["longest_run"] = longest_run(ids, N + 1)
+
+    # segment_sum_sorted: a segment-mode layer's weighted messages (data·w,
+    # [B, E, H] bf16) onto the dst-sorted ids, and its weight denominator
+    # (w, [B, E, 1]); every band includes the padding edges (weight 0)
+    dst = t["edge_dst"]
+    flat_dst = (dst.long() + offsets * N).reshape(-1)
+    wmsg = torch.randn(B, E, F, generator=gen).to(dev, torch.bfloat16)
+    w1 = w32.to(torch.bfloat16)[..., None]
+    for key, d in (("segment_sum_sorted", wmsg), ("segment_sum_sorted_f1", w1)):
+        Fd = d.shape[-1]
+        out[key] = timed(
+            "segment_sum_sorted", lambda d=d: segment_sum_sorted(d, dst, N),
+            lambda d=d, Fd=Fd: cuda_ms(
+                lambda: torch.zeros(B * N, Fd, dtype=d.dtype, device=dev)
+                .index_add_(0, flat_dst, d.reshape(-1, Fd))),
+            d.numel() * elt + dst.numel() * 4 + B * N * Fd * elt, d.numel(),
+            _segment_scale(d, dst, N), case="" if Fd == F else "-f1")
+    src_sorted = torch.sort(t["edge_src"], dim=1)[0]
+    out["segment_sum_sorted"]["longest_band"] = [
+        longest_run(dst, N), longest_run(src_sorted, N)]
+
+    # gather_rows_sorted: the backward of that sum, a [B, N, H] bf16
+    # cotangent gathered by the dst-sorted ids
+    g = torch.randn(B, N, F, generator=gen).to(dev, torch.bfloat16)
+    rows = sum(int(torch.unique(dst[b]).numel()) for b in range(B))
+    out["gather_rows_sorted"] = timed(
+        "gather_rows_sorted", lambda: gather_rows_sorted(g, dst),
+        lambda: cuda_ms(lambda: torch.index_select(g.reshape(B * N, F), 0, flat_dst)),
+        rows * F * elt + dst.numel() * 4 + B * E * F * elt, 0)
     return out
 
 
@@ -386,7 +491,7 @@ def run_main_path() -> dict:
     from nerrf_tpu_torch.train.data import DatasetConfig, windows_of_trace
 
     cfg = JointConfig()
-    model = build_nerrfnet(cfg, seed=0)
+    model = build_nerrfnet(cfg, seed=0, device="cuda")
     trace = simulate_trace(SimConfig(duration_sec=120.0, benign_rate_hz=200.0,
                                      num_target_files=48, seed=5))
     ds = fit_capacity(trace, DatasetConfig())
@@ -397,26 +502,27 @@ def run_main_path() -> dict:
     if rung != (4096, 4096, 4096):
         _fail(f"the trace landed on rung {rung}, not 4096n/4096e/4096s")
 
-    torch.cuda.synchronize()
+    _sync()
     reset_launches()
     t0 = time.perf_counter()
-    det = model_detect(trace, model)
-    torch.cuda.synchronize()
+    det = model_detect(trace, model, device="cuda")
+    _sync()
     first_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     windows = [s.args["windows"] for s in tracing.records()
                if s.name == "bucket_pad"][-1]
     batches = math.ceil(windows / 8)
     want = {"sage_aggregate": cfg.gnn.num_layers * batches,
-            "gather_rows": 2 * batches, "segment_sum": batches}
+            "gather_rows": 2 * batches, "segment_sum": batches,
+            "segment_sum_sorted": 0, "gather_rows_sorted": 0}
     print(f"launches {launches}, expected {want} ({windows} windows, "
           f"{batches} batches)")
     if launches != want:
         _fail(f"launch counts {launches} != {want}")
 
     t0 = time.perf_counter()
-    det2 = model_detect(trace, model)
-    torch.cuda.synchronize()
+    det2 = model_detect(trace, model, device="cuda")
+    _sync()
     steady_s = time.perf_counter() - t0
     scores = np.array(list(det.file_scores.values()))
     if not len(scores) or not np.all(np.isfinite(scores)) \
@@ -448,7 +554,7 @@ def run_main_path() -> dict:
     lower_s = [s.dur for s in spans if s.name == "bucket_pad"][-1]
     score_s = sum(s.dur for s in [s for s in spans
                                   if s.name == "detect_score"][-batches:])
-    args = [torch.from_numpy(np.ascontiguousarray(batch[k])).cuda()
+    args = [torch.from_numpy(np.ascontiguousarray(batch[k])).to("cuda")
             for k in MODEL_INPUTS]
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model(*args), iters=3, warmup=1)
@@ -457,7 +563,8 @@ def run_main_path() -> dict:
           f"{score_s:.3f} s over {batches} batches; one batch on the card: "
           f"forward {fwd_ms:.1f} ms, of which LSTM {lstm_ms:.1f} ms, GNN + "
           f"fusion {fwd_ms - lstm_ms:.1f} ms")
-    device_busy_share(lambda: model_detect(trace, model), steady_s)
+    device_busy_share("the steady model_detect run",
+                      lambda: model_detect(trace, model, device="cuda"), steady_s)
     return dict(windows=windows, batches=batches, launches=launches,
                 first_s=first_s, steady_s=steady_s,
                 windows_per_s=windows / steady_s,
@@ -466,18 +573,17 @@ def run_main_path() -> dict:
                 batch=batch)
 
 
-def device_busy_share(run, wall_s: float) -> None:
+def device_busy_share(what: str, run, wall_s: float) -> None:
     """Kernel and copy time on the card during ``run()`` (a profiler trace,
     summed over the device's own events: not over the host-side operators
     and spans, which carry their kernels' time again), over ``wall_s``, the
     same run's unprofiled wall time; and the kernels that took the most."""
-    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
-        torch.cuda.synchronize()
+        _sync()
     self_us = lambda e: getattr(e, "self_device_time_total",
                                 getattr(e, "self_cuda_time_total", 0.0))
     evts = sorted((e for e in prof.key_averages()
@@ -492,7 +598,7 @@ def device_busy_share(run, wall_s: float) -> None:
         return
     top = ", ".join(f"{e.key[:60]} {self_us(e) / 1e3:.1f} ms x{e.count}"
                     for e in evts[:8])
-    print(f"device busy share of the steady run {busy_s / wall_s:.3f} "
+    print(f"device busy share of {what} {busy_s / wall_s:.3f} "
           f"({busy_s:.3f} s of kernels in {wall_s:.3f} s); top kernels: {top}")
 
 
@@ -513,7 +619,7 @@ def check_small_detect() -> float:
                       lstm=LSTMConfig(hidden=32, num_layers=2,
                                       dtype=torch.float32))
     cpu = build_nerrfnet(cfg, seed=3, device="cpu")
-    gpu = build_nerrfnet(cfg, seed=3)
+    gpu = build_nerrfnet(cfg, seed=3, device="cuda")
     tr = simulate_trace(SimConfig(duration_sec=60.0, attack=True,
                                   attack_start_sec=20.0, num_target_files=4,
                                   benign_rate_hz=20.0, seed=2))
@@ -521,12 +627,441 @@ def check_small_detect() -> float:
                                          max_nodes=64, max_edges=128),
                        seq_len=24, max_seqs=32)
     a = model_detect(tr, cpu, ds, device="cpu").file_scores
-    b = model_detect(tr, gpu, ds).file_scores
+    b = model_detect(tr, gpu, ds, device="cuda").file_scores
     if a.keys() != b.keys():
         _fail("small detection: CPU and card score different files")
     err = max(abs(a[k] - b[k]) for k in a)
     if err > DETECT_ATOL:
         _fail(f"small detection: card vs CPU file scores max |Δ| {err}")
+    return err
+
+
+# --- the banded pair and every op's backward -----------------------------------
+
+
+def sorted_ids(B, N, E, gen, device, n_valid=None, lo=0, hi=None):
+    """Nondecreasing [B, E] int32 ids in [lo, hi); with ``n_valid`` the
+    builder's layout: a sorted prefix of live edges, then the padding tail on
+    the last node."""
+    import torch
+
+    ids = torch.randint(lo, N if hi is None else hi, (B, E), generator=gen)
+    if n_valid is not None:
+        ids[:, :n_valid] = torch.randint(0, N - 1, (B, n_valid), generator=gen)
+        ids[:, n_valid:] = N - 1
+    return torch.sort(ids, dim=1)[0].to(torch.int32).to(device)
+
+
+def check_banded_kernels() -> dict:
+    """``segment_sum_sorted`` (F = 160 and F = 1) and ``gather_rows_sorted``
+    against their plain versions on the card, float32 and bfloat16, at the
+    training rung's shapes: the builder's padding layout, a skewed band,
+    bands past the end, ids out of range, sparse spread, E = 0."""
+    import torch
+
+    from nerrf_tpu_torch.ops import segment as ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4321)
+    N, E = TRAIN_RUNG[:2]
+    B, F = 8, MAIN_F
+    pad = E - 1190                      # the rung's typical live edge count
+    report = {"segment_sum_sorted": {}, "gather_rows_sorted": {}}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        cases = {
+            "padding": sorted_ids(B, N, E, gen, dev, n_valid=pad),
+            "skewed": torch.full((B, E), 131, dtype=torch.int32, device=dev),
+            "past_end": sorted_ids(B, N, E, gen, dev, hi=60),
+            "out_of_range": sorted_ids(B, N, E, gen, dev, lo=-40, hi=N + 40),
+        }
+        for Fc in (F, 1):
+            for case, ids in cases.items():
+                data = torch.randn(B, E, Fc, generator=gen).to(dev, dt)
+                got, want = _both(ops.segment_sum_sorted, data, ids, N)
+                report["segment_sum_sorted"][f"{case}/F{Fc}/{name}"] = _close(
+                    f"segment_sum_sorted {case} F={Fc}", got, want, name,
+                    _segment_scale(data, ids, N))
+                if case == "padding" and not torch.equal(
+                        got, ops.segment_sum_sorted(data, ids, N)):
+                    _fail("segment_sum_sorted: two runs on the same inputs differ")
+            got = ops.segment_sum_sorted(torch.zeros(B, 0, Fc, device=dev).to(dt),
+                                         torch.zeros(B, 0, dtype=torch.int32,
+                                                     device=dev), N)
+            _sync()
+            if got.shape != (B, N, Fc) or float(got.abs().max()) != 0.0:
+                _fail("segment_sum_sorted: E=0 must give zeros")
+        table = torch.randn(B, N, F, generator=gen).to(dev, dt)
+        for case, idx in (("padding", cases["padding"]),
+                          ("spread", sorted_ids(B, N, 256, gen, dev)),
+                          ("out_of_range", cases["out_of_range"])):
+            got, want = _both(ops.gather_rows_sorted, table, idx)
+            report["gather_rows_sorted"][f"{case}/{name}"] = _close(
+                f"gather_rows_sorted {case}", got, want, name)
+            bad = (idx < 0) | (idx >= N)
+            if bad.any() and float(got[bad].abs().max()) != 0.0:
+                _fail("gather_rows_sorted: out-of-range ids must give zero rows")
+    return report
+
+
+def _vjp(fn, x, cot):
+    """d⟨fn(x), cot⟩/dx through the op's autograd Function."""
+    import torch
+
+    x = x.detach().requires_grad_(True)
+    out = fn(x)
+    if out.grad_fn is None:
+        _fail(f"{fn}: the output carries no grad_fn")
+    (g,) = torch.autograd.grad(out, x, cot)
+    return g
+
+
+def check_backward(report: dict) -> None:
+    """Each op's backward on the card (the adjoint kernel) against the plain
+    version's gradient, for a fixed random cotangent, at the training rung's
+    shapes; and the launches each backward makes (its adjoint's kernel)."""
+    import torch
+
+    from nerrf_tpu_torch.ops import (
+        LAUNCHES, plain_ops, reset_launches, sage_row_ptrs)
+    from nerrf_tpu_torch.ops import segment as ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(777)
+    N, E = TRAIN_RUNG[:2]
+    B, F, S = 8, MAIN_F, TRAIN_RUNG[2]
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev, dt)
+        edges = sage_graph(B, N, E, gen, dev, n_valid=E - 1190)
+        ptrs = sage_row_ptrs(edges[0], edges[2], N)
+        # the adjoint's weights: (wr_d, ·, wf_s, ·) in the forward's slots
+        adj = (*edges[:4], edges[7], edges[6], edges[5], edges[4])
+        unsorted = torch.randint(-3, N + 3, (B, E), generator=gen).to(torch.int32).to(dev)
+        fusion = torch.randint(-1, N + 1, (B, S), generator=gen).to(torch.int32).to(dev)
+        banded = sorted_ids(B, N, E, gen, dev, n_valid=E - 1190)
+        cases = {   # op: (fn, x, cotangent, Σ|terms| of the adjoint, launches)
+            "sage_aggregate": (
+                lambda m: ops.sage_aggregate(m, *edges, N, row_ptrs=ptrs),
+                rnd(B, N, F), rnd(B, N, F), lambda c: _sage_scale(c, adj, N),
+                {"sage_aggregate": 2}),
+            "segment_sum": (
+                lambda d: ops.segment_sum(d, fusion, N + 1), rnd(B, S, SEQ_F),
+                rnd(B, N + 1, SEQ_F), None, {"segment_sum": 1, "gather_rows": 1}),
+            "gather_rows": (
+                lambda t: ops.gather_rows(t, unsorted), rnd(B, N, F), rnd(B, E, F),
+                lambda c: _segment_scale(c, unsorted, N),
+                {"gather_rows": 1, "segment_sum": 1}),
+            "segment_sum_sorted": (
+                lambda d: ops.segment_sum_sorted(d, banded, N), rnd(B, E, F),
+                rnd(B, N, F), None,
+                {"segment_sum_sorted": 1, "gather_rows_sorted": 1}),
+            "gather_rows_sorted": (
+                lambda t: ops.gather_rows_sorted(t, banded), rnd(B, N, F),
+                rnd(B, E, F), lambda c: _segment_scale(c, banded, N),
+                {"gather_rows_sorted": 1, "segment_sum_sorted": 1}),
+        }
+        for op, (fn, x, cot, scale, launched) in cases.items():
+            reset_launches()
+            got = _vjp(fn, x, cot)
+            moved = {k: v for k, v in LAUNCHES.items() if v}
+            if moved != launched:
+                _fail(f"{op} forward + backward launched {moved}, not {launched}")
+            with plain_ops():
+                want = _vjp(fn, x, cot)
+            _sync()
+            report[op][f"backward/{name}"] = _close(
+                f"{op} backward", got, want, name,
+                None if scale is None else scale(cot))
+
+
+# --- the training path ----------------------------------------------------------
+
+
+def train_rung():
+    """The training rung: ``configs/joint-100h.json``'s corpus cut to
+    TRAIN_TRACES traces, its dataset config (1024n/2048e graphs, 128
+    sequences of 100 steps), its model (bf16, dropout 0.1) in ``segment``
+    mode and its optimizer settings with TRAIN_STEPS steps."""
+    import torch
+
+    from nerrf_tpu_torch.data import make_corpus
+    from nerrf_tpu_torch.graph import GraphConfig
+    from nerrf_tpu_torch.models import GraphSAGEConfig, JointConfig, LSTMConfig
+    from nerrf_tpu_torch.train.data import DatasetConfig, build_dataset
+    from nerrf_tpu_torch.train.loop import TrainConfig
+
+    with open(TRAIN_CONFIG) as f:
+        exp = json.load(f)
+    c, d, t = exp["corpus"], exp["dataset"], exp["train"]
+    traces = make_corpus(TRAIN_TRACES, attack_fraction=c["attack_fraction"],
+                         base_seed=c["base_seed"], duration_sec=c["duration_sec"],
+                         num_target_files=c["num_target_files"],
+                         benign_rate_hz=c["benign_rate_hz"])
+    ds_cfg = DatasetConfig(graph=GraphConfig(**d["graph"]), seq_len=d["seq_len"],
+                           max_seqs=d["max_seqs"], min_events=d["min_events"])
+    ds = build_dataset(traces, ds_cfg)
+    dtype = lambda name: {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+    g, lstm = t["model"]["gnn"], t["model"]["lstm"]
+    model = JointConfig(
+        gnn=GraphSAGEConfig(hidden=g["hidden"], num_layers=g["num_layers"],
+                            dropout=g["dropout"], dtype=dtype(g["dtype"]),
+                            aggregation="segment"),
+        lstm=LSTMConfig(hidden=lstm["hidden"], num_layers=lstm["num_layers"],
+                        dropout=lstm["dropout"], dtype=dtype(lstm["dtype"])),
+        fuse=t["model"]["fuse"])
+    keep = ("batch_size", "learning_rate", "warmup_steps", "weight_decay",
+            "edge_loss_weight", "node_loss_weight", "seq_loss_weight",
+            "pos_weight", "seed")
+    cfg = TrainConfig(model=model, num_steps=TRAIN_STEPS,
+                      eval_every=TRAIN_LOG_EVERY, **{k: t[k] for k in keep})
+    return traces, ds, cfg
+
+
+def train_launches(num_layers: int, steps: int, eval_batches: int) -> dict:
+    """Kernel launches of a segment-mode ``train_nerrfnet`` run, derived from
+    the model's structure.  A training step's forward launches, per layer, 2
+    ``gather_rows`` (messages from src and from dst) and 4
+    ``segment_sum_sorted`` (each direction's weighted sum and its weight
+    denominator); outside the layers the edge head's 2 ``gather_rows`` and
+    the fusion's 1 ``segment_sum``.  Its backward launches, for each
+    ``gather_rows`` one ``segment_sum``, for each F = H
+    ``segment_sum_sorted`` one ``gather_rows_sorted``, and for the fusion's
+    ``segment_sum`` one ``gather_rows``; the weight denominators carry no
+    gradient.  The final evaluation runs the forward once per batch."""
+    L = num_layers
+    fwd = {"sage_aggregate": 0, "gather_rows": 2 * L + 2, "segment_sum": 1,
+           "segment_sum_sorted": 4 * L, "gather_rows_sorted": 0}
+    bwd = {"sage_aggregate": 0, "gather_rows": 1, "segment_sum": 2 * L + 2,
+           "segment_sum_sorted": 0, "gather_rows_sorted": 2 * L}
+    return {k: steps * (fwd[k] + bwd[k]) + eval_batches * fwd[k] for k in fwd}
+
+
+def step_launches(mode: str, num_layers: int) -> dict:
+    """Kernel launches of one training step's forward and backward in
+    ``mode``.  A ``fused`` step launches one ``sage_aggregate`` per layer and
+    one more for its adjoint, the edge head's 2 ``gather_rows`` and the
+    fusion's ``segment_sum``, each with its adjoint's kernel."""
+    if mode == "segment":
+        return train_launches(num_layers, 1, 0)
+    return {"sage_aggregate": 2 * num_layers, "gather_rows": 3,
+            "segment_sum": 3, "segment_sum_sorted": 0, "gather_rows_sorted": 0}
+
+
+def run_train_path(traces, ds, cfg) -> dict:
+    """``train_nerrfnet`` on the training rung with the counters from 0: the
+    launches it must make, finite losses, params that moved, steps/s; then
+    one step's forward and backward times with the LSTM's share and the
+    card's busy share over a few steps."""
+    import numpy as np
+    import torch
+
+    from nerrf_tpu_torch.models import build_nerrfnet
+    from nerrf_tpu_torch.ops import LAUNCHES, reset_launches
+    from nerrf_tpu_torch.train.data import padding_waste_fractions
+    from nerrf_tpu_torch.train.loop import (
+        batch_to_device, clip_by_global_norm_, make_loss_fn, make_train_step,
+        train_nerrfnet)
+
+    a = ds.arrays
+    rung = (a["node_feat"].shape[1], a["edge_src"].shape[1],
+            a["seq_feat"].shape[1], a["seq_feat"].shape[2])
+    print(f"training path: {len(traces)} traces "
+          f"({sum(t.events.num_valid for t in traces)} events), {len(ds)} "
+          f"windows, rung {rung[0]}n/{rung[1]}e/{rung[2]}s x {rung[3]} steps, "
+          f"padding waste {padding_waste_fractions(a)}, "
+          f"{cfg.model.gnn.resolved_aggregation()} mode, batch {cfg.batch_size}, "
+          f"{cfg.num_steps} steps")
+    if rung != TRAIN_RUNG:
+        _fail(f"the training set landed on rung {rung}, not {TRAIN_RUNG}")
+
+    _sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = train_nerrfnet(ds, cfg=cfg, log=print, device="cuda")
+    _sync()
+    wall_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    eval_batches = math.ceil(len(ds) / cfg.batch_size)
+    want = train_launches(cfg.model.gnn.num_layers, cfg.num_steps, eval_batches)
+    per_step = train_launches(cfg.model.gnn.num_layers, 1, 0)
+    print(f"training launches {launches}, expected {want} ({cfg.num_steps} steps "
+          f"of {per_step}, and {eval_batches} evaluation batches)")
+    if launches != want:
+        _fail(f"training launch counts {launches} != {want}")
+    losses = [h["loss"] for h in res.history]
+    if not losses or not np.all(np.isfinite(losses)):
+        _fail(f"training losses are not finite: {res.history}")
+    if not all(np.isfinite(v) for v in res.metrics.values()):
+        _fail(f"training metrics are not finite: {res.metrics}")
+    model = res.state.model
+    init = build_nerrfnet(cfg.model, seed=cfg.seed, device="cuda").state_dict()
+    still = [n for n, p in model.named_parameters() if torch.equal(p, init[n])]
+    if still:
+        _fail(f"{len(still)} params did not change in training: {still[:5]}")
+
+    # one step on the card: forward, forward + backward, and the LSTM's part
+    # of each (its own forward, and its backward from its two outputs)
+    batch = batch_to_device(a, np.arange(cfg.batch_size), "cuda")
+    loss_fn = make_loss_fn(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        loss_fn(batch, gen)[0].backward()
+
+    def lstm_fwd():
+        return model.lstm(batch["seq_feat"], batch["seq_mask"], gen)
+
+    def lstm_fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        out = lstm_fwd()
+        (out["seq_logit"].sum() + out["seq_emb"].sum()).backward()
+
+    def clip_adamw():   # on the gradients fwd_bwd just left
+        clip_by_global_norm_([p.grad for p in model.parameters()], 1.0)
+        state.optimizer.step()
+
+    # host-bound work (launches dominate), so each part is timed on the host
+    # clock between syncs, the parts in turn (clip_adamw right after
+    # fwd_bwd) for 15 rounds after 2 warm-up rounds, and the medians kept:
+    # drifts of the shared host hit all alike
+    step = make_train_step(model, cfg)
+    state = res.state
+    ms = round_robin_ms({"step": lambda: step(state, batch, gen),
+                         "fwd_bwd": fwd_bwd, "clip_adamw": clip_adamw,
+                         "fwd": lambda: loss_fn(batch, gen),
+                         "lstm_fwd_bwd": lstm_fwd_bwd, "lstm_fwd": lstm_fwd})
+    step_ms, fb_ms, f_ms = ms["step"], ms["fwd_bwd"], ms["fwd"]
+    lf_ms, lfb_ms = ms["lstm_fwd"], ms["lstm_fwd_bwd"]
+    print(f"training step on the card (batch of {cfg.batch_size}, medians of 15): "
+          f"whole step {step_ms:.1f} ms; forward {f_ms:.1f} ms, of which LSTM "
+          f"{lf_ms:.1f} ms ({lf_ms / f_ms:.2f}); backward {fb_ms - f_ms:.1f} ms, "
+          f"of which LSTM {lfb_ms - lf_ms:.1f} ms "
+          f"({(lfb_ms - lf_ms) / (fb_ms - f_ms):.2f}); clip and AdamW "
+          f"{ms['clip_adamw']:.1f} ms")
+
+    def steps(k=3):
+        for _ in range(k):
+            step(state, batch, gen)
+        _sync()
+
+    t0 = time.perf_counter()
+    steps()
+    device_busy_share("3 training steps", steps, time.perf_counter() - t0)
+    return dict(launches=launches, per_step=per_step, wall_s=wall_s,
+                steps_per_sec=res.steps_per_sec, history=res.history,
+                metrics=res.metrics, step_ms=step_ms, fwd_ms=f_ms,
+                opt_ms=ms["clip_adamw"],
+                bwd_ms=fb_ms - f_ms, lstm_fwd_ms=lf_ms,
+                lstm_bwd_ms=lfb_ms - lf_ms,
+                batch={k: v[:cfg.batch_size] for k, v in a.items()})
+
+
+def check_step_grads(ds, cfg) -> dict:
+    """One full-width training step's gradients, kernels against plain
+    versions, in ``segment`` and ``fused`` modes: the same params, batch and
+    dropout masks (a generator seeded alike), per parameter relative to its
+    gradient norm.  A second plain run gives the spread the plain versions'
+    own atomics (``index_add_``, ``scatter_add_``) put between two runs.  The
+    counters show that the first run launched the step's kernels and the
+    plain runs none."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nerrf_tpu_torch.models import build_nerrfnet
+    from nerrf_tpu_torch.ops import LAUNCHES, plain_ops, reset_launches
+    from nerrf_tpu_torch.train.loop import batch_to_device, make_loss_fn
+
+    batch = batch_to_device(ds.arrays, np.arange(cfg.batch_size), "cuda")
+    out = {}
+    for mode in ("segment", "fused"):
+        mcfg = dataclasses.replace(cfg.model, gnn=dataclasses.replace(
+            cfg.model.gnn, aggregation=mode))
+        model = build_nerrfnet(mcfg, seed=cfg.seed, device="cuda").train()
+        loss_fn = make_loss_fn(model, dataclasses.replace(cfg, model=mcfg))
+
+        def grads():
+            model.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(batch, torch.Generator(device="cuda").manual_seed(5))
+            loss.backward()
+            return loss.item(), {n: p.grad.detach().float().clone()
+                                 for n, p in model.named_parameters()}
+
+        reset_launches()
+        lk, gk = grads()
+        launched, want = dict(LAUNCHES), step_launches(mode, mcfg.gnn.num_layers)
+        reset_launches()
+        with plain_ops():
+            lp, gp = grads()
+            _, gp2 = grads()
+        if launched != want or any(LAUNCHES.values()):
+            _fail(f"{mode} gradients: the kernel run launched {launched} (want "
+                  f"{want}), the plain runs {dict(LAUNCHES)}")
+        rel = lambda a, b: {n: float((a[n] - b[n]).norm() / b[n].norm().clamp_min(1e-30))
+                            for n in b}
+        err, spread = rel(gk, gp), rel(gp2, gp)
+        worst = max(err, key=err.get)
+        out[mode] = dict(loss_kernels=lk, loss_plain=lp, max_rel=err[worst],
+                         worst=worst, median_rel=float(np.median(list(err.values()))),
+                         plain_spread=max(spread.values()))
+        print(f"one step's gradients, {mode} mode, kernels ({launched}) vs "
+              f"plain: loss {lk:.6f} vs {lp:.6f}; per-parameter ‖Δg‖/‖g‖ max {err[worst]:.3e} "
+              f"({worst}), median {out[mode]['median_rel']:.3e}; plain vs plain "
+              f"max {out[mode]['plain_spread']:.3e}")
+        if not (np.isfinite(lk) and err[worst] <= GRAD_RTOL[mode]):
+            _fail(f"{mode} gradients: kernels vs plain {err[worst]} > "
+                  f"{GRAD_RTOL[mode]} ({worst})")
+    return out
+
+
+def check_small_train() -> float:
+    """A small float32 training run (``JointConfig().small``, segment mode,
+    dropout 0: the CPU's and the card's generators draw different masks), 3
+    steps on the card (kernels) and on the CPU (plain versions), from the same
+    init and batches: the relative difference of the losses."""
+    import dataclasses
+
+    import torch
+
+    from nerrf_tpu_torch.data import make_corpus
+    from nerrf_tpu_torch.graph import GraphConfig
+    from nerrf_tpu_torch.models import JointConfig
+    from nerrf_tpu_torch.ops import LAUNCHES, reset_launches
+    from nerrf_tpu_torch.train.data import DatasetConfig, build_dataset
+    from nerrf_tpu_torch.train.loop import TrainConfig, train_nerrfnet
+
+    small = JointConfig().small
+    model = dataclasses.replace(
+        small, gnn=dataclasses.replace(small.gnn, dtype=torch.float32, dropout=0.0,
+                                       aggregation="segment"),
+        lstm=dataclasses.replace(small.lstm, dtype=torch.float32, dropout=0.0))
+    ds = build_dataset(
+        make_corpus(2, duration_sec=60.0, num_target_files=4, benign_rate_hz=20.0,
+                    base_seed=3),
+        DatasetConfig(graph=GraphConfig(window_sec=45.0, stride_sec=20.0,
+                                        max_nodes=64, max_edges=128),
+                      seq_len=24, max_seqs=32))
+    cfg = TrainConfig(model=model, batch_size=4, num_steps=3, warmup_steps=1,
+                      eval_every=1)
+    reset_launches()
+    cpu = train_nerrfnet(ds, cfg=cfg, device="cpu")
+    if any(LAUNCHES.values()):
+        _fail(f"small training on the CPU launched kernels: {LAUNCHES}")
+    card = train_nerrfnet(ds, cfg=cfg, device="cuda")
+    launched = dict(LAUNCHES)
+    a = [h["loss"] for h in cpu.history]
+    b = [h["loss"] for h in card.history]
+    err = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    print(f"small f32 training, card ({launched}) vs CPU: losses {b} vs {a}")
+    path = ("gather_rows", "segment_sum", "segment_sum_sorted", "gather_rows_sorted")
+    if not all(launched[k] for k in path):
+        _fail(f"small training on the card did not launch every kernel of "
+              f"its path: {launched}")
+    if len(a) != 3 or err > SMALL_TRAIN_RTOL:
+        _fail(f"small training: card vs CPU losses differ by {err} (relative)")
     return err
 
 
@@ -564,9 +1099,16 @@ def main() -> int:
                     if "registers" in line or "spill" in line:
                         print(f"ptxas {name}: {line.strip()}")
         errors = check_kernels()
+        errors.update(check_banded_kernels())
+        check_backward(errors)
         main_path = run_main_path()
-        timing = time_kernels(main_path["batch"], errors)
+        detect_timing = time_kernels(main_path["batch"], errors, "detect")
         small_err = check_small_detect()
+        traces, train_ds, train_cfg = train_rung()
+        train = run_train_path(traces, train_ds, train_cfg)
+        grads = check_step_grads(train_ds, train_cfg)
+        small_train_err = check_small_train()
+        timing = time_kernels(train["batch"], errors, "train")
     except Exception as e:  # any failed phase fails the smoke
         import traceback
 
@@ -578,23 +1120,43 @@ def main() -> int:
         "sage_aggregate": "nerrf_tpu/ops/pallas_segment.py:440",
         "gather_rows": "nerrf_tpu/ops/pallas_segment.py:325",
         "segment_sum": "nerrf_tpu/ops/pallas_segment.py:91",
+        "segment_sum_sorted": "nerrf_tpu/ops/pallas_segment.py:156",
+        "gather_rows_sorted": "nerrf_tpu/ops/pallas_segment.py:241",
     }
+    # each kernel on the path it runs on: its launches from that path's run,
+    # its times on that path's inputs at its main call site.  The fused
+    # sage_aggregate runs on the detection path only; the others on the
+    # training path, segment_sum timed as the gathers' backward
+    path = {name: "model_detect" if name == "sage_aggregate" else "train_nerrfnet"
+            for name in kernels.KERNELS}
+    runs = {"model_detect": (main_path, detect_timing),
+            "train_nerrfnet": (train, timing)}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"nerrf_tpu_torch/ops/csrc/{name}.cu",
          "replaces": replaces[name],
-         "launches": main_path["launches"][name],
+         "path": path[name],
+         "launches": runs[path[name]][0]["launches"][name],
          "max_abs_err": max(errors[name].values()),
-         **{k: timing[name][k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}}
+         **{k: runs[path[name]][1][name][k] for k in keys}}
         for name in kernels.KERNELS]}
     print("kernel errors by case: " + json.dumps(errors))
-    print(f"sage_aggregate on the main path: "
-          f"{timing['sage_aggregate']['live_edges_per_window']:.1f} weighted "
-          f"edges per window in both views, of {2 * MAIN_E} slots; longest "
-          f"band (dst view, src view) {timing['sage_aggregate']['longest_band']} "
-          f"live edges; segment_sum's longest run "
-          f"{timing['segment_sum']['longest_run']} rows")
+    for tag, tm in (("detection rung (4096n/4096e/4096s)", detect_timing),
+                    ("training rung (1024n/2048e/128s)", timing)):
+        print(f"kernel times at the {tag}, by call site: " + json.dumps(
+            {site: {k: tm[site][k] for k in keys} for site in tm}))
+    for tag, tm, E in (("detection", detect_timing, MAIN_E),
+                       ("training", timing, TRAIN_RUNG[1])):
+        print(f"{tag} rung: sage_aggregate "
+              f"{tm['sage_aggregate']['live_edges_per_window']:.1f} weighted "
+              f"edges per window in both views, of {2 * E} slots; longest live "
+              f"band (dst view, src view) {tm['sage_aggregate']['longest_band']}; "
+              f"segment_sum_sorted's longest band, padding included (dst, src) "
+              f"{tm['segment_sum_sorted']['longest_band']} rows; segment_sum's "
+              f"longest run {tm['segment_sum']['longest_run']} rows as the "
+              f"gathers' backward, {tm['segment_sum_fusion']['longest_run']} "
+              f"in the fusion")
     print(f"model_detect 4096n/4096e/4096s: {main_path['windows']} windows in "
           f"{main_path['batches']} batches; first run {main_path['first_s']:.3f} s "
           f"({main_path['first_windows_per_s']:.3f} windows/s), steady "
@@ -602,6 +1164,17 @@ def main() -> int:
           f"windows/s); {main_path['files']} files scored, "
           f"{main_path['flagged']} flagged; small f32 detection card vs CPU "
           f"max |Δ| {small_err:.2e}; on {smi}")
+    print(f"train_nerrfnet {TRAIN_RUNG[0]}n/{TRAIN_RUNG[1]}e/{TRAIN_RUNG[2]}s "
+          f"segment mode: {train_cfg.num_steps} steps, "
+          f"{train['steps_per_sec']:.3f} steps/s (after step 0), "
+          f"{train['wall_s']:.1f} s with set-up and evaluation; losses "
+          f"{[round(h['loss'], 4) for h in train['history']]}; launches per step "
+          f"{train['per_step']}; step {train['step_ms']:.1f} ms, forward "
+          f"{train['fwd_ms']:.1f} ms (LSTM {train['lstm_fwd_ms']:.1f}), backward "
+          f"{train['bwd_ms']:.1f} ms (LSTM {train['lstm_bwd_ms']:.1f}); "
+          f"gradients kernels vs plain max ‖Δg‖/‖g‖ segment "
+          f"{grads['segment']['max_rel']:.3e}, fused {grads['fused']['max_rel']:.3e}; "
+          f"small f32 training card vs CPU {small_train_err:.2e}; on {smi}")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -766,3 +766,69 @@ def simulate_trace(cfg: SimConfig, name: str = "") -> Trace:
         # detection keys and ground-truth keys cannot drift
         victim_paths=frozenset(ino_final[i] for i in victim_inos),
     )
+
+
+# The adversarial attack variants a hard-scenario corpus draws from, and
+# the fraction of attack traces they collectively take (split evenly).
+ATTACK_VARIANTS = ("slow-drip", "benign-comm", "multi-process",
+                   "inplace-stealth", "partial-encrypt",
+                   "interleaved-backup", "exfil-encrypt")
+
+
+def make_corpus(
+    n_traces: int,
+    attack_fraction: float = 0.5,
+    base_seed: int = 0,
+    duration_sec: float = 240.0,
+    num_target_files: int | tuple[int, int] = 12,
+    benign_rate_hz: float | tuple[float, float] = 40.0,
+    hard_scenarios: bool = False,
+) -> List[Trace]:
+    """A corpus of independent runs (the upstream ROADMAP.md:50 corpus, scaled
+    by args).
+
+    `num_target_files` / `benign_rate_hz` may be (lo, hi) ranges, drawn per
+    trace, so corpus traces vary structurally and not just by sim seed.
+
+    ``hard_scenarios`` draws ~49% of attack traces from ATTACK_VARIANTS and
+    ~20% of benign traces from the two hard negatives.  Off by default: unit
+    tests assume the standard scenario's structure."""
+    out = []
+    for i in range(n_traces):
+        # Bresenham-spread attack traces through the corpus so any contiguous
+        # train/eval split keeps both classes
+        attack = round((i + 1) * attack_fraction) - round(i * attack_fraction) == 1
+        rng = np.random.default_rng(base_seed + i)
+        files = (
+            int(rng.integers(num_target_files[0], num_target_files[1]))
+            if isinstance(num_target_files, tuple) else num_target_files
+        )
+        rate = (
+            float(rng.uniform(benign_rate_hz[0], benign_rate_hz[1]))
+            if isinstance(benign_rate_hz, tuple) else benign_rate_hz
+        )
+        scenario = "standard"
+        if hard_scenarios:
+            u = rng.random()
+            if attack:
+                idx = int(u // (0.49 / len(ATTACK_VARIANTS)))
+                if idx < len(ATTACK_VARIANTS):
+                    scenario = ATTACK_VARIANTS[idx]
+            elif u < 0.1:
+                scenario = "benign-mass-rename"
+            elif u < 0.2:
+                scenario = "benign-atomic-rewrite"
+        cfg = SimConfig(
+            duration_sec=duration_sec,
+            attack=attack,
+            attack_start_sec=duration_sec * float(rng.uniform(0.2, 0.6)),
+            num_target_files=files,
+            min_file_bytes=64 * 1024,
+            max_file_bytes=256 * 1024,
+            chunk_bytes=32 * 1024,
+            benign_rate_hz=rate,
+            seed=base_seed + i,
+            scenario=scenario,
+        )
+        out.append(simulate_trace(cfg, name=f"corpus-{i}-{'atk' if attack else 'benign'}"))
+    return out

@@ -6,24 +6,30 @@ destination) and returns ``edge_logit`` [B, E], ``node_logit`` [B, N] and
 ``node_emb`` [B, N, H].  Compute runs in ``cfg.dtype`` (bfloat16) over
 float32 params, LayerNorm statistics in float32, as the reference does.
 
-Two aggregation modes, each a per-forward precompute plus ONE op per layer:
+Three aggregation modes:
 
-* ``fused``: :func:`nerrf_tpu_torch.ops.sage_aggregate` over the
-  pre-normalized dst-sorted and src-sorted edge views (the CUDA kernel on
-  the card);
-* ``dense_adj``: one [N, N] @ [N, H] matmul per layer against the normalized
-  adjacency (``torch.matmul``, as the reference leaves it to XLA).
+* ``fused``: a per-forward precompute, then ONE op per layer,
+  :func:`nerrf_tpu_torch.ops.sage_aggregate` over the pre-normalized
+  dst-sorted and src-sorted edge views (the CUDA kernel on the card);
+* ``dense_adj``: the same precompute, then one [N, N] @ [N, H] matmul per
+  layer against the normalized adjacency (``torch.matmul``, as the
+  reference leaves it to XLA);
+* ``segment``: the reference's per-layer gather + banded segment mean: two
+  :func:`~nerrf_tpu_torch.ops.gather_rows` and two weighted
+  :func:`~nerrf_tpu_torch.ops.segment_mean` (``sorted_ids=True``, the
+  banded kernel) per layer, over the dst-sorted edges and a src-sorted view
+  taken once per forward.
 
-``auto`` resolves to ``fused`` for every bucket, so the kernel runs on every
+``auto`` resolves to ``fused`` for every bucket, so that kernel runs on every
 forward; the reference's ``DENSE_ADJ_MAX_NODES`` crossover was measured on
-the CPU and the TPU and does not carry over.  The reference's ``segment``
-mode (per-layer gather + banded segment mean) is not ported yet.
+the CPU and the TPU and does not carry over.  Dropout after ``final_ln``
+runs only when the forward is given a ``torch.Generator`` (training).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -33,16 +39,18 @@ from nerrf_tpu_torch.graph.builder import (
     EDGE_FEATURE_DIM,
     NODE_FEATURE_DIM,
 )
-from nerrf_tpu_torch.models.layers import Dense, Embed, LayerNorm, gelu
-from nerrf_tpu_torch.ops import gather_rows, sage_aggregate, sage_row_ptrs
+from nerrf_tpu_torch.models.layers import Dense, Embed, LayerNorm, dropout, gelu
+from nerrf_tpu_torch.ops import (
+    gather_rows, sage_aggregate, sage_row_ptrs, segment_mean)
 
-AGGREGATIONS = ("fused", "dense_adj")
+AGGREGATIONS = ("fused", "dense_adj", "segment")
 
 
 @dataclasses.dataclass(frozen=True)
 class GraphSAGEConfig:
     hidden: int = 160
     num_layers: int = 28
+    dropout: float = 0.1
     dtype: torch.dtype = torch.bfloat16
     aggregation: str = "auto"
 
@@ -55,7 +63,8 @@ class GraphSAGEConfig:
             return "fused"
         if self.aggregation not in AGGREGATIONS:
             raise ValueError(f"unknown aggregation {self.aggregation!r}; "
-                             "expected 'auto', 'fused' or 'dense_adj'")
+                             "expected 'auto', 'fused', 'dense_adj' or "
+                             "'segment'")
         return self.aggregation
 
 
@@ -101,6 +110,45 @@ def fused_edge_views(edge_src, edge_dst, w32, num_nodes):
     return edges, d_fwd, d_rev, inv_f, inv_r
 
 
+def _segment_view(edge_src, edge_dst, e_emb, edge_w):
+    """The ``segment`` mode's per-forward view: the dst-sorted edges as the
+    builder gives them, plus a src-sorted view (a stable argsort per
+    window) of the ids, the message sources, ``e_emb`` and the weights,
+    shared by every layer (the reference's ``rev_view``)."""
+    src_order = torch.argsort(edge_src, dim=1, stable=True)
+    take = lambda t: torch.gather(t, 1, src_order)
+    e_emb_s = torch.gather(
+        e_emb, 1, src_order[..., None].expand(-1, -1, e_emb.shape[-1]))
+    return (edge_src, edge_dst, e_emb, edge_w,
+            take(edge_src),          # nondecreasing segment ids
+            take(edge_dst),          # message source per edge
+            e_emb_s, take(edge_w))
+
+
+def _precomputed_view(mode, edge_src, edge_dst, e_emb, w32, n, dt):
+    """The ``fused`` and ``dense_adj`` modes' per-forward aggregation state,
+    shared by all layers, so each layer costs ONE op (the fused kernel or
+    one matmul): the layer-invariant e_emb term folds into c_sum, and
+    s_f/s_r carry the empty-segment zeroing."""
+    edges, d_fwd, d_rev, inv_f, inv_r = fused_edge_views(
+        edge_src, edge_dst, w32, n)
+    we = w32[..., None] * e_emb.float()
+    c_f = _segment_sum_rows(we, edge_dst, n)
+    c_r = _segment_sum_rows(we, edge_src, n)
+    c_sum = (c_f * inv_f[..., None] + c_r * inv_r[..., None]).to(dt)
+    s_f = (d_fwd * inv_f).to(dt)
+    s_r = (d_rev * inv_r).to(dt)
+    if mode == "fused":
+        return (edges, sage_row_ptrs(edges[0], edges[2], n), c_sum, s_f, s_r)
+    # one [E] → [N·N] scatter builds the raw weighted adjacency whose
+    # normalized form serves every layer as one matmul
+    flat = edge_dst.long() * n + edge_src.long()
+    w_raw = _segment_sum_rows(w32, flat, n * n).view(-1, n, n)
+    adj = (w_raw * inv_f[..., None]
+           + w_raw.transpose(1, 2) * inv_r[..., None]).to(dt)
+    return (adj, c_sum, s_f, s_r)
+
+
 class SageBlock(nn.Module):
     """One residual GraphSAGE block: pre-LN, bidirectional weighted-mean
     aggregation with shared message weights plus a per-direction bias."""
@@ -121,9 +169,24 @@ class SageBlock(nn.Module):
         hn = self.ln(h)
         msg = self.w_msg(hn)
         dir_bias = self.dir_bias.to(self.dtype)
+        n = msg.shape[1]
+        if mode == "segment":
+            # src→dst messages land on dst (builder-sorted ids: the banded
+            # kernel); dst→src messages ride the src-sorted view, so that
+            # direction is banded too
+            (edge_src, edge_dst, e_emb, edge_w,
+             src_sorted, dst_srcorder, e_emb_s, w_s) = view
+            m_fwd = gather_rows(msg, edge_src) + e_emb + dir_bias[0]
+            agg_fwd = segment_mean(m_fwd, edge_dst, n, weights=edge_w,
+                                   sorted_ids=True)
+            m_rev = gather_rows(msg, dst_srcorder) + e_emb_s + dir_bias[1]
+            agg_rev = segment_mean(m_rev, src_sorted, n, weights=w_s,
+                                   sorted_ids=True)
+            upd = self.w_self(torch.cat([hn, agg_fwd + agg_rev], dim=-1))
+            return h + gelu(upd)
         if mode == "fused":
             edges, row_ptrs, c_sum, s_f, s_r = view
-            agg = sage_aggregate(msg, *edges, msg.shape[1], row_ptrs=row_ptrs)
+            agg = sage_aggregate(msg, *edges, n, row_ptrs=row_ptrs)
         else:
             adj, c_sum, s_f, s_r = view
             agg = torch.matmul(adj, msg)
@@ -150,7 +213,9 @@ class GraphSAGET(nn.Module):
         self.edge_head_2 = Dense(H, 1, torch.float32)
 
     def forward(self, node_feat, node_type, node_aux, node_mask,
-                edge_src, edge_dst, edge_feat, edge_mask) -> Dict[str, torch.Tensor]:
+                edge_src, edge_dst, edge_feat, edge_mask,
+                dropout_gen: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         dt = cfg.dtype
         n = node_feat.shape[1]
@@ -164,34 +229,16 @@ class GraphSAGET(nn.Module):
         # causality weight (edge_feat[..., 12]) gates messages; masked edges → 0
         w32 = (edge_feat[..., 12] + 0.1) * edge_mask.to(torch.float32)
 
-        # per-forward aggregation state shared by all layers: each layer then
-        # costs ONE op (the fused kernel or one matmul); the layer-invariant
-        # e_emb term folds into c_sum, and s_f/s_r carry the empty-segment
-        # zeroing
         mode = cfg.resolved_aggregation()
-        edges, d_fwd, d_rev, inv_f, inv_r = fused_edge_views(
-            edge_src, edge_dst, w32, n)
-        we = w32[..., None] * e_emb.float()
-        c_f = _segment_sum_rows(we, edge_dst, n)
-        c_r = _segment_sum_rows(we, edge_src, n)
-        c_sum = (c_f * inv_f[..., None] + c_r * inv_r[..., None]).to(dt)
-        s_f = (d_fwd * inv_f).to(dt)
-        s_r = (d_rev * inv_r).to(dt)
-        if mode == "fused":
-            view = (edges, sage_row_ptrs(edges[0], edges[2], n), c_sum, s_f, s_r)
+        if mode == "segment":
+            view = _segment_view(edge_src, edge_dst, e_emb, w32.to(dt))
         else:
-            # one [E] → [N·N] scatter builds the raw weighted adjacency whose
-            # normalized form serves every layer as one matmul
-            flat = edge_dst.long() * n + edge_src.long()
-            w_raw = _segment_sum_rows(w32, flat, n * n).view(-1, n, n)
-            adj = (w_raw * inv_f[..., None]
-                   + w_raw.transpose(1, 2) * inv_r[..., None]).to(dt)
-            view = (adj, c_sum, s_f, s_r)
+            view = _precomputed_view(mode, edge_src, edge_dst, e_emb, w32, n, dt)
 
         for block in self.blocks:
             h = block(h, view, mode) * nmask
 
-        h = self.final_ln(h)
+        h = dropout(self.final_ln(h), cfg.dropout, dropout_gen)
         node_logit = self.node_head(h)[..., 0]
         h_src = gather_rows(h, edge_src)
         h_dst = gather_rows(h, edge_dst)

@@ -5,12 +5,17 @@ Each per-file LSTM embedding is projected to node-feature width and summed
 into its file node's features *before* message passing.  Sequence→node
 routing (``seq_node_idx``) comes from the host; -1 routes a sequence to the
 dummy slot ``n``, which the slice ``[:n]`` drops.
+
+A training forward passes ``dropout_gen``, a ``torch.Generator`` on the
+model's device (the counterpart of flax's ``rngs={"dropout": ...}``): the
+LSTM's pooled embedding and the GNN's final hidden state then take dropout
+masks from it, in that order.  Without it the forward is deterministic.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -48,8 +53,9 @@ class NerrfNet(nn.Module):
 
     def forward(self, node_feat, node_type, node_aux, node_mask, edge_src,
                 edge_dst, edge_feat, edge_mask, seq_feat, seq_mask,
-                seq_node_idx) -> Dict[str, torch.Tensor]:
-        lstm_out = self.lstm(seq_feat, seq_mask)
+                seq_node_idx, dropout_gen: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        lstm_out = self.lstm(seq_feat, seq_mask, dropout_gen)
         if self.seq_to_node is not None:
             n = node_feat.shape[1]
             h_seq = self.seq_to_node(lstm_out["seq_emb"])
@@ -60,7 +66,8 @@ class NerrfNet(nn.Module):
                                 n + 1)[:, :n]
             node_feat = node_feat + fused
         gnn_out = self.gnn(node_feat, node_type, node_aux, node_mask,
-                           edge_src, edge_dst, edge_feat, edge_mask)
+                           edge_src, edge_dst, edge_feat, edge_mask,
+                           dropout_gen)
         return {**gnn_out, **lstm_out}
 
 

@@ -9,7 +9,10 @@ over float32 params, so converted weights give the reference's outputs:
   1e-6 (PyTorch's default is 1e-5), scale and shift in float32, the result
   cast to the compute type;
 * ``Embed``: the table cast to the compute type, then a row lookup;
-* ``gelu``: the tanh approximation (flax's default; PyTorch's is exact).
+* ``gelu``: the tanh approximation (flax's default; PyTorch's is exact);
+* ``dropout``: flax's ``nn.Dropout`` in training: keep with probability
+  1 − rate, scale kept values by 1/(1 − rate), the mask drawn from an
+  explicit ``torch.Generator`` (no global RNG state, no ``nn.Dropout``).
 
 ``init_`` draws each layer's params as flax's default initializers do
 (``lecun_normal`` kernels, zero biases, unit LayerNorm scales, normal
@@ -19,6 +22,7 @@ embeddings with std 1/sqrt(features)), from an explicit ``torch.Generator``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +33,20 @@ LN_EPS = 1e-6
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """``x`` with each element kept with probability ``1 - rate`` and scaled
+    by ``1 / (1 - rate)``, the rest zero; an identity when ``gen`` is None
+    (inference) or ``rate`` is 0.  The mask comes from ``gen``, which lies
+    on ``x``'s device."""
+    if gen is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:

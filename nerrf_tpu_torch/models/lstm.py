@@ -10,33 +10,38 @@ the reference's fused path:
 * each layer runs both directions in one batched time loop: the backward
   direction reads each sequence reversed within its valid prefix
   (``_flip_valid``), and its outputs are flipped back; gates in the order
-  i, f, g, o, the bias on the recurrent side only (``bias_ih`` is zero, kept
-  for PyTorch's LSTM layout); ``c`` and ``h`` carried in the compute type;
+  i, f, g, o, the bias on the recurrent side only (``bias_ih`` is a zero
+  buffer, kept for PyTorch's LSTM layout and never trained); ``c`` and ``h``
+  carried in the compute type;
 * per layer, ``merge_i`` Dense + gelu over [fwd, bwd], masked;
-* a mask-aware mean pool, ``pool_ln`` and a float32 ``head``.
+* a mask-aware mean pool, ``pool_ln``, dropout (training only) and a
+  float32 ``head``; ``seq_emb`` is the pooled embedding *after* dropout, as
+  the reference returns it (it feeds the fusion).
 
 The recurrence is a plain PyTorch loop over time (the reference's
 ``lax.scan``, not a Pallas kernel), not ``torch.nn.LSTM``: the loop keeps
-the reference's masking, flips and rounding points exactly.  Dropout is an
-identity at inference and is not applied.
+the reference's masking, flips and rounding points exactly.  Dropout runs
+only when the forward is given a ``torch.Generator`` (a training forward).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from nerrf_tpu_torch.data.sequences import SEQ_FEATURE_DIM
-from nerrf_tpu_torch.models.layers import Dense, LayerNorm, gelu, lecun_normal_
+from nerrf_tpu_torch.models.layers import (
+    Dense, LayerNorm, dropout, gelu, lecun_normal_)
 
 
 @dataclasses.dataclass(frozen=True)
 class LSTMConfig:
     hidden: int = 256
     num_layers: int = 2
+    dropout: float = 0.1
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -46,13 +51,14 @@ class LSTMConfig:
 
 class LSTMCell(nn.Module):
     """One direction of one layer: ``weight_ih`` [4H, in], ``weight_hh``
-    [4H, H], ``bias_ih`` (zero) and ``bias_hh`` [4H], gates i, f, g, o."""
+    [4H, H], ``bias_ih`` (a zero buffer: the reference has no input-side
+    bias) and ``bias_hh`` [4H], gates i, f, g, o."""
 
     def __init__(self, in_features: int, hidden: int) -> None:
         super().__init__()
         self.weight_ih = nn.Parameter(torch.empty(4 * hidden, in_features))
         self.weight_hh = nn.Parameter(torch.empty(4 * hidden, hidden))
-        self.bias_ih = nn.Parameter(torch.zeros(4 * hidden))
+        self.register_buffer("bias_ih", torch.zeros(4 * hidden))
         self.bias_hh = nn.Parameter(torch.zeros(4 * hidden))
 
     def init_(self, gen: torch.Generator) -> None:
@@ -118,8 +124,9 @@ class ImpactLSTM(nn.Module):
         hs = hs.permute(1, 2, 0, 3)                                     # [2,R,T,H]
         return hs[0], _flip_valid(hs[1], lengths)
 
-    def forward(self, seq_feat: torch.Tensor,
-                seq_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, seq_feat: torch.Tensor, seq_mask: torch.Tensor,
+                dropout_gen: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         dt = self.cfg.dtype
         lead = seq_feat.shape[:-2]
         T = seq_feat.shape[-2]
@@ -135,7 +142,7 @@ class ImpactLSTM(nn.Module):
             fwd, bwd = self._bilayer(x, lengths, i)
             x = gelu(merge(torch.cat([fwd, bwd], dim=-1))) * mask_pf
         pooled = (x * mask_pf).sum(-2) / torch.clamp_min(mask_pf.sum(-2), 1.0)
-        pooled = self.pool_ln(pooled)
+        pooled = dropout(self.pool_ln(pooled), self.cfg.dropout, dropout_gen)
         logit = self.head(pooled)[..., 0]
         return {"seq_logit": logit.reshape(lead),
                 "seq_emb": pooled.float().reshape(*lead, -1)}

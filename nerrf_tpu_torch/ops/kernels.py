@@ -30,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("sage_aggregate", "gather_rows", "segment_sum")
+KERNELS = ("sage_aggregate", "gather_rows", "segment_sum",
+           "segment_sum_sorted", "gather_rows_sorted")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +43,10 @@ _ARGTYPES = {
     "gather_rows": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
     # data, dtype, ptr, perm, B, N, S, F, out, stream
     "segment_sum": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    # data, dtype, ptr, B, N, E, F, out, stream
+    "segment_sum_sorted": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
+    # table, dtype, idx, B, N, E, F, out, stream
+    "gather_rows_sorted": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the warp-per-row kernels hold a row in registers: 32 lanes x kMaxChunks
@@ -164,3 +169,17 @@ def launch_segment_sum(data, ptr, perm, num_segments, out) -> None:
     _launch("segment_sum", data.device, data.data_ptr(), dtype_code(data),
             ptr.data_ptr(), perm.data_ptr(), B, num_segments, S, F,
             out.data_ptr())
+
+
+def launch_segment_sum_sorted(data, ptr, num_segments, out) -> None:
+    B, E, F = data.shape
+    _check_row_width("segment_sum_sorted", F)
+    _launch("segment_sum_sorted", data.device, data.data_ptr(), dtype_code(data),
+            ptr.data_ptr(), B, num_segments, E, F, out.data_ptr())
+
+
+def launch_gather_rows_sorted(table, idx, out) -> None:
+    B, N, F = table.shape
+    E = idx.shape[1]
+    _launch("gather_rows_sorted", table.device, table.data_ptr(),
+            dtype_code(table), idx.data_ptr(), B, N, E, F, out.data_ptr())

@@ -1,5 +1,5 @@
 """Sparse neighbour-aggregation ops: the port's counterpart of
-``nerrf_tpu/ops/segment.py`` and the three TPU kernels behind it.
+``nerrf_tpu/ops/segment.py`` and the five TPU kernels behind it.
 
 Each op takes one window (2-D operands) or a batch of windows (a leading
 batch dimension) and has two versions:
@@ -13,6 +13,17 @@ batch dimension) and has two versions:
 There is no fallback between them: a CUDA operand launches the kernel or
 raises.  :func:`plain_ops` runs the plain versions on the card on purpose,
 for comparing a forward against its kernels.
+
+Every op is a ``torch.autograd.Function`` on both devices, differentiable in
+its data operand (``data``/``table``/``msg``) only: ids and weights are graph
+structure, as in the reference's ``custom_vjp``s.  Its backward calls the
+adjoint *op*, which dispatches the same way, so the CPU runs the same
+pairing as the card:
+
+* ``segment_sum`` ↔ ``gather_rows`` (each other's adjoint);
+* ``segment_sum_sorted`` ↔ ``gather_rows_sorted`` (the banded pair);
+* ``sage_aggregate`` → ``sage_aggregate`` with the two directions' weights
+  exchanged across the two sorted views, over the same row pointers.
 
 Source notes (the kernels' own files say more):
 
@@ -30,6 +41,16 @@ Source notes (the kernels' own files say more):
     row's band in both sorted edge views, with row pointers taken once per
     forward (:func:`sage_row_ptrs`), skips weight-0 edges (the builder's
     padding) and sums in f32 registers.
+``segment_sum_sorted``
+    replaces ``pallas_segment._segment_sum_sorted_call``.  Bound by bytes.
+    The ids are nondecreasing (a contract), so the wrapper takes row pointers
+    with one ``searchsorted`` and no sort; one warp per segment sums its
+    contiguous run in f32, lanes over features, or over rows when the rows
+    are 16 features wide or less.
+``gather_rows_sorted``
+    replaces ``pallas_segment._gather_sorted_call``, the banded sum's
+    adjoint.  Bound by bytes; a coalesced element-per-thread copy whose
+    sorted indices keep neighbouring reads on the same rows.
 """
 
 from __future__ import annotations
@@ -45,7 +66,8 @@ from nerrf_tpu_torch.ops import kernels
 # Kernel launches per op since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else.
 LAUNCHES: Dict[str, int] = {"sage_aggregate": 0, "gather_rows": 0,
-                            "segment_sum": 0}
+                            "segment_sum": 0, "segment_sum_sorted": 0,
+                            "gather_rows_sorted": 0}
 _FORCE_PLAIN = False
 
 
@@ -57,7 +79,7 @@ def reset_launches() -> None:
 @contextlib.contextmanager
 def plain_ops():
     """Run the plain PyTorch versions on CUDA operands too, inside the block
-    (to compare a forward with its kernels)."""
+    (to compare a forward, or a backward, with its kernels)."""
     global _FORCE_PLAIN
     prev, _FORCE_PLAIN = _FORCE_PLAIN, True
     try:
@@ -101,6 +123,16 @@ def _window_offsets(B: int, n: int, device) -> torch.Tensor:
     return (torch.arange(B, device=device, dtype=torch.int64) * n)[:, None]
 
 
+def _row_ptrs(sorted_ids: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """[B, num_rows + 1] int32 pointers into nondecreasing [B, E] ids: row
+    n's entries are ``[ptr[n], ptr[n+1])``; ids outside [0, num_rows) fall
+    outside every row."""
+    B = sorted_ids.shape[0]
+    rows = torch.arange(num_rows + 1, dtype=torch.int32,
+                        device=sorted_ids.device).expand(B, -1).contiguous()
+    return torch.searchsorted(_int32(sorted_ids), rows, out_int32=True)
+
+
 # --- segment_sum -------------------------------------------------------------
 
 
@@ -121,33 +153,41 @@ def segment_sum_plain(data: torch.Tensor, segment_ids: torch.Tensor,
     return out.view(B, num_segments, F).to(data.dtype)
 
 
-def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """Sum rows of ``data`` ([S, F], or [B, S, F] per window) into
-    ``num_segments`` buckets by ``segment_ids``; order-independent, ids
-    outside [0, num_segments) dropped."""
-    single, (data, segment_ids) = _batched(data, segment_ids)
-    if _use_kernel("segment_sum", data, segment_ids):
-        out = _segment_sum_cuda(data, segment_ids, num_segments)
-    else:
-        out = segment_sum_plain(data, segment_ids, num_segments)
-    return out[0] if single else out
-
-
 def _segment_sum_cuda(data, segment_ids, num_segments):
     B, S, F = data.shape
     data = data.contiguous()
     kernels.dtype_code(data)
     sorted_ids, perm = torch.sort(_int32(segment_ids), dim=1, stable=True)
-    ptr = torch.searchsorted(
-        sorted_ids,
-        torch.arange(num_segments + 1, dtype=torch.int32, device=data.device)
-        .expand(B, -1).contiguous(), out_int32=True)
+    ptr = _row_ptrs(sorted_ids, num_segments)
     out = torch.empty(B, num_segments, F, dtype=data.dtype, device=data.device)
     if out.numel():
         kernels.launch_segment_sum(data, ptr, _int32(perm), num_segments, out)
         LAUNCHES["segment_sum"] += 1
     return out
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments):
+        ctx.save_for_backward(segment_ids)
+        if _use_kernel("segment_sum", data, segment_ids):
+            return _segment_sum_cuda(data, segment_ids, num_segments)
+        return segment_sum_plain(data, segment_ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        (segment_ids,) = ctx.saved_tensors
+        return gather_rows(g, segment_ids), None, None
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Sum rows of ``data`` ([S, F], or [B, S, F] per window) into
+    ``num_segments`` buckets by ``segment_ids``; order-independent, ids
+    outside [0, num_segments) dropped.  Backward: :func:`gather_rows`."""
+    single, (data, segment_ids) = _batched(data, segment_ids)
+    out = _SegmentSum.apply(data, segment_ids, num_segments)
+    return out[0] if single else out
 
 
 # --- gather_rows -------------------------------------------------------------
@@ -167,20 +207,125 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                                         device=table.device))
 
 
+def _gather_cuda(name: str, launch, table, idx):
+    table = table.contiguous()
+    kernels.dtype_code(table)
+    out = torch.empty(table.shape[0], idx.shape[1], table.shape[2],
+                      dtype=table.dtype, device=table.device)
+    if out.numel():
+        launch(table, _int32(idx), out)
+        LAUNCHES[name] += 1
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = table.shape[1]
+        if _use_kernel("gather_rows", table, idx):
+            return _gather_cuda("gather_rows", kernels.launch_gather_rows,
+                                table, idx)
+        return gather_rows_plain(table, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return segment_sum(g, idx, ctx.num_rows), None
+
+
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Row gather ``table[idx]`` ([N, F] / [E], or batched per window)."""
+    """Row gather ``table[idx]`` ([N, F] / [E], or batched per window);
+    out-of-range idx gives a zero row.  Backward: :func:`segment_sum`."""
     single, (table, idx) = _batched(table, idx)
-    if _use_kernel("gather_rows", table, idx):
-        table = table.contiguous()
-        kernels.dtype_code(table)
-        out = torch.empty(table.shape[0], idx.shape[1], table.shape[2],
-                          dtype=table.dtype, device=table.device)
-        if out.numel():
-            kernels.launch_gather_rows(table, _int32(idx), out)
-            LAUNCHES["gather_rows"] += 1
-    else:
-        out = gather_rows_plain(table, idx)
+    out = _GatherRows.apply(table, idx)
     return out[0] if single else out
+
+
+# --- segment_sum_sorted / gather_rows_sorted (the banded pair) ---------------
+
+
+def _segment_sum_sorted_cuda(data, segment_ids, num_segments):
+    B, E, F = data.shape
+    data = data.contiguous()
+    kernels.dtype_code(data)
+    ptr = _row_ptrs(segment_ids, num_segments)
+    out = torch.empty(B, num_segments, F, dtype=data.dtype, device=data.device)
+    if out.numel():
+        kernels.launch_segment_sum_sorted(data, ptr, num_segments, out)
+        LAUNCHES["segment_sum_sorted"] += 1
+    return out
+
+
+class _SegmentSumSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments):
+        ctx.save_for_backward(segment_ids)
+        if _use_kernel("segment_sum_sorted", data, segment_ids):
+            return _segment_sum_sorted_cuda(data, segment_ids, num_segments)
+        return segment_sum_plain(data, segment_ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        (segment_ids,) = ctx.saved_tensors
+        return gather_rows_sorted(g, segment_ids), None, None
+
+
+def segment_sum_sorted(data: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """:func:`segment_sum` for ``segment_ids`` nondecreasing per window (the
+    builder's dst-sorted edges, or the src-sorted view): the banded kernel.
+    Sortedness is a contract, not a hint: on unsorted ids the kernel drops
+    rows (the plain version does not care).  Backward:
+    :func:`gather_rows_sorted`."""
+    single, (data, segment_ids) = _batched(data, segment_ids)
+    out = _SegmentSumSorted.apply(data, segment_ids, num_segments)
+    return out[0] if single else out
+
+
+class _GatherRowsSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = table.shape[1]
+        if _use_kernel("gather_rows_sorted", table, idx):
+            return _gather_cuda("gather_rows_sorted",
+                                kernels.launch_gather_rows_sorted, table, idx)
+        return gather_rows_plain(table, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return segment_sum_sorted(g, idx, ctx.num_rows), None
+
+
+def gather_rows_sorted(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """:func:`gather_rows` for ``idx`` nondecreasing per window: the banded
+    sum's adjoint.  Backward: :func:`segment_sum_sorted`."""
+    single, (table, idx) = _batched(table, idx)
+    out = _GatherRowsSorted.apply(table, idx)
+    return out[0] if single else out
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int, weights: Optional[torch.Tensor] = None,
+                 *, sorted_ids: bool = False) -> torch.Tensor:
+    """(Weighted) mean aggregation, safe for empty segments: the reference's
+    ``segment_mean``.  ``weights`` is [E] / [B, E] (or with a trailing 1);
+    the numerator sums ``data · w`` and the denominator ``w``, each one
+    segment sum.  ``sorted_ids=True`` routes both to
+    :func:`segment_sum_sorted` (its contract), the default to the
+    order-independent :func:`segment_sum`."""
+    sum_fn = segment_sum_sorted if sorted_ids else segment_sum
+    if weights is not None:
+        w = weights[..., None] if weights.dim() == segment_ids.dim() else weights
+        total = sum_fn(data * w, segment_ids, num_segments)
+        denom = sum_fn(w, segment_ids, num_segments)
+    else:
+        total = sum_fn(data, segment_ids, num_segments)
+        denom = sum_fn(torch.ones(data.shape[:-1] + (1,), dtype=data.dtype,
+                                  device=data.device), segment_ids, num_segments)
+    return total / torch.clamp_min(denom, 1e-6)
 
 
 # --- sage_aggregate ----------------------------------------------------------
@@ -193,11 +338,7 @@ def sage_row_ptrs(dst_ids: torch.Tensor, src_ids: torch.Tensor,
     outside [0, num_nodes) fall outside every row (the TPU kernel's
     ``_band_ptrs`` convention).  Graph structure: take them once per
     forward and pass them to every layer's :func:`sage_aggregate`."""
-    B = dst_ids.shape[0]
-    nodes = torch.arange(num_nodes + 1, dtype=torch.int32,
-                         device=dst_ids.device).expand(B, -1).contiguous()
-    return (torch.searchsorted(_int32(dst_ids), nodes, out_int32=True),
-            torch.searchsorted(_int32(src_ids), nodes, out_int32=True))
+    return _row_ptrs(dst_ids, num_nodes), _row_ptrs(src_ids, num_nodes)
 
 
 def sage_aggregate_plain(msg, dst_ids, src_by_dst, src_ids, dst_by_src,
@@ -216,6 +357,57 @@ def sage_aggregate_plain(msg, dst_ids, src_by_dst, src_ids, dst_by_src,
     return (fwd + rev).to(msg.dtype)
 
 
+def _sage_cuda(msg, dst_ids, src_by_dst, src_ids, dst_by_src, wf_d, wr_s,
+               num_nodes, row_ptrs):
+    if msg.shape[1] != num_nodes:
+        raise ValueError(f"sage_aggregate: msg has {msg.shape[1]} rows, "
+                         f"num_nodes is {num_nodes}")
+    msg = msg.contiguous()
+    kernels.dtype_code(msg)
+    ptr_f, ptr_r = (_int32(p) for p in row_ptrs)
+    out = torch.empty_like(msg)
+    if out.numel():
+        kernels.launch_sage_aggregate(
+            msg, ptr_f, _int32(src_by_dst), wf_d.float().contiguous(),
+            ptr_r, _int32(dst_by_src), wr_s.float().contiguous(), out)
+        LAUNCHES["sage_aggregate"] += 1
+    return out
+
+
+class _SageAggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, msg, dst_ids, src_by_dst, src_ids, dst_by_src,
+                wf_d, wf_s, wr_s, wr_d, num_nodes, ptr_f, ptr_r):
+        if _use_kernel("sage_aggregate", msg, dst_ids, src_ids, wf_d, wr_s):
+            if ptr_f is None:
+                ptr_f, ptr_r = sage_row_ptrs(dst_ids, src_ids, num_nodes)
+            out = _sage_cuda(msg, dst_ids, src_by_dst, src_ids, dst_by_src,
+                             wf_d, wr_s, num_nodes, (ptr_f, ptr_r))
+        else:
+            out = sage_aggregate_plain(msg, dst_ids, src_by_dst, src_ids,
+                                       dst_by_src, wf_d, wf_s, wr_s, wr_d,
+                                       num_nodes)
+        ctx.save_for_backward(dst_ids, src_by_dst, src_ids, dst_by_src,
+                              wf_d, wf_s, wr_s, wr_d, ptr_f, ptr_r)
+        ctx.num_nodes = num_nodes
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst_ids, src_by_dst, src_ids, dst_by_src, wf_d, wf_s, wr_s, wr_d,
+         ptr_f, ptr_r) = ctx.saved_tensors
+        # (Wf + Wr)ᵀ g: Wfᵀ scatters to src, the src-sorted band with the
+        # forward weights (wf_s); Wrᵀ scatters to dst, the dst-sorted band
+        # with the reverse weights (wr_d).  The same op with the weights
+        # exchanged across the views (the exchanged slots carry wf_d/wr_s,
+        # so the adjoint's adjoint is the forward again)
+        row_ptrs = None if ptr_f is None else (ptr_f, ptr_r)
+        gmsg = sage_aggregate(g, dst_ids, src_by_dst, src_ids, dst_by_src,
+                              wr_d, wr_s, wf_s, wf_d, ctx.num_nodes,
+                              row_ptrs=row_ptrs)
+        return (gmsg,) + (None,) * 11
+
+
 def sage_aggregate(msg, dst_ids, src_by_dst, src_ids, dst_by_src,
                    wf_d, wf_s, wr_s, wr_d, num_nodes: int, *,
                    row_ptrs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
@@ -231,27 +423,12 @@ def sage_aggregate(msg, dst_ids, src_by_dst, src_ids, dst_by_src,
     An edge of weight 0 adds nothing (the kernel skips it; the plain version
     adds 0·msg, the same for finite ``msg``).
     ``row_ptrs`` are :func:`sage_row_ptrs` of the two id vectors, taken here
-    when not given."""
+    when not given.  Differentiable in ``msg``: the backward is this op with
+    the weights exchanged (the reference's ``_sage_bwd``)."""
     single, (msg, dst_ids, src_by_dst, src_ids, dst_by_src,
              wf_d, wf_s, wr_s, wr_d) = _batched(
         msg, dst_ids, src_by_dst, src_ids, dst_by_src, wf_d, wf_s, wr_s, wr_d)
-    if not _use_kernel("sage_aggregate", msg, dst_ids, src_ids, wf_d, wr_s):
-        out = sage_aggregate_plain(msg, dst_ids, src_by_dst, src_ids,
-                                   dst_by_src, wf_d, wf_s, wr_s, wr_d,
-                                   num_nodes)
-        return out[0] if single else out
-    if msg.shape[1] != num_nodes:
-        raise ValueError(f"sage_aggregate: msg has {msg.shape[1]} rows, "
-                         f"num_nodes is {num_nodes}")
-    msg = msg.contiguous()
-    kernels.dtype_code(msg)
-    if row_ptrs is None:
-        row_ptrs = sage_row_ptrs(dst_ids, src_ids, num_nodes)
-    ptr_f, ptr_r = (_int32(p) for p in row_ptrs)
-    out = torch.empty_like(msg)
-    if out.numel():
-        kernels.launch_sage_aggregate(
-            msg, ptr_f, _int32(src_by_dst), wf_d.float().contiguous(),
-            ptr_r, _int32(dst_by_src), wr_s.float().contiguous(), out)
-        LAUNCHES["sage_aggregate"] += 1
+    ptr_f, ptr_r = (None, None) if row_ptrs is None else row_ptrs
+    out = _SageAggregate.apply(msg, dst_ids, src_by_dst, src_ids, dst_by_src,
+                               wf_d, wf_s, wr_s, wr_d, num_nodes, ptr_f, ptr_r)
     return out[0] if single else out

@@ -1,13 +1,14 @@
 """Dataset assembly: traces → padded window samples.
 
-(Copied from ``nerrf_tpu/train/data.py``, the part detection runs, so the port
-needs nothing of the JAX package; keep the two identical: the parity tests
-compare their arrays.)
+(Copied from ``nerrf_tpu/train/data.py``, the parts detection and training
+run, so the port needs nothing of the JAX package; keep the two identical:
+the parity tests compare their arrays.)
 
 One sample = one sliding-window graph (`GraphBatch`) plus the per-file event
 sequences inside that window (`SequenceBatch`), with a host-computed
 ``seq_node_idx`` routing each sequence to its file node (inode match).  All
-samples of one config share one static shape.
+samples of one config share one static shape, so a dataset stacks into flat
+[B, ...] arrays (`WindowDataset`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from nerrf_tpu_torch.graph.builder import (
     GraphConfig,
     NODE_TYPE_FILE,
     build_window_graph,
+    measure_window,
     snapshot_windows,
 )
 
@@ -36,6 +38,32 @@ class DatasetConfig:
     max_seqs: int = 128
     # windows with fewer events than this are skipped (no signal, all padding)
     min_events: int = 4
+
+
+@dataclasses.dataclass
+class WindowDataset:
+    """Flat [B, ...] arrays ready for device transfer."""
+
+    arrays: dict[str, np.ndarray]
+
+    def __len__(self) -> int:
+        return len(self.arrays["node_feat"])
+
+    def take(self, idx: np.ndarray) -> "WindowDataset":
+        return WindowDataset({k: v[idx] for k, v in self.arrays.items()})
+
+    def split(self, frac: float, seed: int = 0) -> tuple["WindowDataset", "WindowDataset"]:
+        n = len(self)
+        order = np.random.default_rng(seed).permutation(n)
+        k = int(n * (1 - frac))
+        return self.take(order[:k]), self.take(order[k:])
+
+    @staticmethod
+    def concatenate(parts: List["WindowDataset"]) -> "WindowDataset":
+        keys = parts[0].arrays.keys()
+        return WindowDataset(
+            {k: np.concatenate([p.arrays[k] for p in parts]) for k in keys}
+        )
 
 
 def _seq_node_index(g: GraphBatch, seqs: SequenceBatch) -> np.ndarray:
@@ -102,3 +130,45 @@ def windows_of_trace(trace: Trace, cfg: DatasetConfig,
             stats_out.append(stats)
         out.append(sample)
     return out
+
+
+def padding_waste_fractions(arrays) -> dict[str, float]:
+    """Fraction of padded capacity carrying no real data, per dimension.
+
+    Static shapes mean a padded slot costs exactly as much device compute
+    as a real one, so this IS the step-time attribution for bucket sizing."""
+    masks = (("node", "node_mask"), ("edge", "edge_mask"),
+             ("seq", "seq_valid"))
+    return {kind: round(float(1.0 - np.asarray(arrays[key]).mean()), 4)
+            for kind, key in masks if key in arrays}
+
+
+def fit_dataset_config(traces: List[Trace],
+                       cfg: Optional[DatasetConfig] = None) -> DatasetConfig:
+    """A DatasetConfig whose graph capacities fit every window of ``traces``
+    with zero drops (GraphConfig.fit_counts bucket policy, corpus-wide max).
+    Evaluation datasets must use this: scoring a model on windows that
+    silently truncate the attack burst measures the truncation, not the
+    model."""
+    cfg = cfg or DatasetConfig()
+    max_n = max_e = 0
+    for tr in traces:
+        ev = tr.events
+        if ev.num_valid == 0:
+            continue
+        ts = ev.ts_ns[ev.valid]
+        for lo, hi in snapshot_windows(int(ts.min()), int(ts.max()), cfg.graph):
+            n, e = measure_window(ev, lo, hi)
+            max_n, max_e = max(max_n, n), max(max_e, e)
+    return dataclasses.replace(cfg, graph=cfg.graph.fit_counts(max_n, max_e))
+
+
+def build_dataset(traces: List[Trace], cfg: Optional[DatasetConfig] = None) -> WindowDataset:
+    cfg = cfg or DatasetConfig()
+    samples: List[dict[str, np.ndarray]] = []
+    for tr in traces:
+        samples.extend(windows_of_trace(tr, cfg))
+    if not samples:
+        raise ValueError("no window samples produced — traces empty?")
+    keys = samples[0].keys()
+    return WindowDataset({k: np.stack([s[k] for s in samples]) for k in keys})

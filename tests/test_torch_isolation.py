@@ -46,7 +46,7 @@ def test_importing_the_port_loads_no_jax_module():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import nerrf_tpu_torch.pipeline, nerrf_tpu_torch.convert\n"
-        "import nerrf_tpu_torch.ops.kernels\n"
+        "import nerrf_tpu_torch.ops.kernels, nerrf_tpu_torch.train.loop\n"
         f"bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n")
@@ -71,6 +71,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                      seed=1))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pipeline.model_detect(trace, model)
+
+
+def test_training_raises_without_cuda(monkeypatch):
+    from nerrf_tpu_torch.train.data import WindowDataset
+    from nerrf_tpu_torch.train.loop import TrainConfig, train_nerrfnet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = WindowDataset({"node_feat": torch.zeros(1, 4, 24).numpy()})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_nerrfnet(ds, cfg=TrainConfig(model=JointConfig().small, num_steps=1))
 
 
 def test_entry_points_take_only_cuda_or_cpu():

@@ -9,7 +9,10 @@ the JAX package.  Tolerances:
   the same arithmetic, summed in another order);
 * bfloat16: atol 0.1 (measured max |Δ| about 0.035 on logits of magnitude
   ≤ 2 — bf16 keeps 8 bits, and XLA and PyTorch round at different points
-  of the same ops, e.g. elementwise chains XLA rounds per op).
+  of the same ops, e.g. elementwise chains XLA rounds per op);
+* loss gradients (float32, dropout 0): per parameter, ‖Δg‖ ≤ 1e-4·‖g‖ +
+  1e-7 (measured at most 8.6e-7 relative: the same adjoints, summed
+  in another order).
 """
 
 import dataclasses
@@ -29,6 +32,8 @@ from nerrf_tpu.models.joint import NerrfNet as JNerrfNet
 from nerrf_tpu.models.lstm import ImpactLSTM as JImpactLSTM
 from nerrf_tpu.models.lstm import LSTMConfig as JLSTMConfig
 from nerrf_tpu.train.data import DatasetConfig, windows_of_trace
+from nerrf_tpu.train.loop import TrainConfig as JTrainConfig
+from nerrf_tpu.train.loop import make_loss_fn as j_make_loss_fn
 from nerrf_tpu_torch.convert import (
     flax_to_state_dict, load_flax_params, lstm_state_dict)
 from nerrf_tpu_torch.models import (
@@ -36,15 +41,18 @@ from nerrf_tpu_torch.models import (
     build_nerrfnet)
 from nerrf_tpu_torch.models.layers import LayerNorm, gelu
 from nerrf_tpu_torch.pipeline import MODEL_INPUTS
+from nerrf_tpu_torch.train.loop import TrainConfig, make_loss_fn
 
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_ATOL = 0.1
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-7
+TRAIN_KEYS = MODEL_INPUTS + ("edge_label", "node_label", "seq_label",
+                             "seq_valid")
 _DT = {"float32": (jnp.float32, torch.float32),
        "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
-@pytest.fixture(scope="module")
-def batch():
+def _windows(keys):
     tr = simulate_trace(SimConfig(duration_sec=60.0, attack=True,
                                   attack_start_sec=20.0, num_target_files=4,
                                   benign_rate_hz=20.0, seed=2))
@@ -53,7 +61,18 @@ def batch():
                           max_nodes=64, max_edges=128),
         seq_len=24, max_seqs=32))
     assert len(samples) >= 2
-    return {k: np.stack([s[k] for s in samples]) for k in MODEL_INPUTS}
+    return {k: np.stack([s[k] for s in samples]) for k in keys}
+
+
+@pytest.fixture(scope="module")
+def batch():
+    return _windows(MODEL_INPUTS)
+
+
+@pytest.fixture(scope="module")
+def train_batch():
+    """The same windows with the labels and masks the loss reads."""
+    return _windows(TRAIN_KEYS)
 
 
 def _configs(mode, dtype, lstm_layers=None):
@@ -99,7 +118,7 @@ def _run_both(jcfg, tcfg, batch, params=None):
             {k: v.float().numpy() for k, v in got.items()})
 
 
-@pytest.mark.parametrize("mode", ["fused", "dense_adj"])
+@pytest.mark.parametrize("mode", ["fused", "dense_adj", "segment"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_nerrfnet_matches_reference(batch, small_params, mode, dtype):
     want, got = _run_both(*_configs(mode, dtype), batch, small_params)
@@ -237,3 +256,85 @@ def test_init_draws_flax_kinds_from_generator():
     w = sa["gnn.blocks.0.w_msg.weight"]  # lecun_normal: var 1/fan_in, |x| ≤ 2σ
     assert abs(float(w.var()) * w.shape[1] - 1.0) < 0.25
     assert float(w.abs().max()) <= 2.0 / 0.8796 / w.shape[1] ** 0.5 + 1e-6
+
+
+# --- training: gradients, the autograd repair, dropout ----------------------
+
+
+def _no_dropout(jc, tc):
+    jc = dataclasses.replace(
+        jc, gnn=dataclasses.replace(jc.gnn, dropout=0.0),
+        lstm=dataclasses.replace(jc.lstm, dropout=0.0))
+    tc = dataclasses.replace(
+        tc, gnn=dataclasses.replace(tc.gnn, dropout=0.0),
+        lstm=dataclasses.replace(tc.lstm, dropout=0.0))
+    return jc, tc
+
+
+def _torch_batch(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+@pytest.mark.parametrize("mode", ["segment", "fused"])
+def test_loss_gradients_match_reference(train_batch, small_params, mode):
+    # the port's loss and its gradient through every op's autograd Function
+    # against jax.grad of the reference's make_loss_fn, compared by the
+    # converter's names
+    jc, tc = _no_dropout(*_configs(mode, "float32"))
+    jloss = j_make_loss_fn(JNerrfNet(jc), JTrainConfig(model=jc))
+    jb = {k: jnp.asarray(v) for k, v in train_batch.items()}
+    (want_loss, _), jgrads = jax.value_and_grad(
+        lambda p: jloss(p, jb, jax.random.PRNGKey(0)), has_aux=True)(small_params)
+    want = flax_to_state_dict(jax.device_get(jgrads))
+    tm = load_flax_params(NerrfNet(tc), jax.device_get(small_params))
+    loss, _ = make_loss_fn(tm, TrainConfig(model=tc))(_torch_batch(train_batch))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    for name, p in tm.named_parameters():
+        g, w = p.grad.numpy(), want[name].numpy()
+        err = np.linalg.norm(g - w)
+        assert err <= GRAD_RTOL * np.linalg.norm(w) + GRAD_ATOL, (
+            f"{name}: |Δg| {err} vs |g| {np.linalg.norm(w)}")
+
+
+@pytest.mark.parametrize("mode", ["segment", "fused"])
+def test_backward_reaches_every_parameter(train_batch, mode):
+    # every op wrapper is an autograd Function: loss.backward() gives every
+    # parameter of NerrfNet a gradient, at the flagship's compute type and
+    # with dropout on
+    tc = _configs(mode, "bfloat16")[1]
+    tm = build_nerrfnet(tc, seed=5, device="cpu").train()
+    loss, _ = make_loss_fn(tm, TrainConfig(model=tc))(
+        _torch_batch(train_batch), torch.Generator().manual_seed(0))
+    loss.backward()
+    missing = [n for n, p in tm.named_parameters() if p.grad is None]
+    assert not missing, missing
+    zero = [n for n, p in tm.named_parameters()
+            if not float(p.grad.abs().sum()) > 0]
+    assert not zero, zero
+    assert "lstm.cells.0.bias_ih" not in dict(tm.named_parameters())
+
+
+def test_training_forward_dropout(batch):
+    # flax's Dropout: keep with probability 1 - rate, scale by 1/(1 - rate),
+    # masks from the generator alone; seq_emb is the pooled embedding after
+    # dropout, the one the head (and the fusion) reads
+    tc = _configs("fused", "float32")[1]
+    tc = dataclasses.replace(
+        tc, gnn=dataclasses.replace(tc.gnn, dropout=0.5),
+        lstm=dataclasses.replace(tc.lstm, dropout=0.5))
+    tm = build_nerrfnet(tc, seed=1, device="cpu")
+    args = [torch.from_numpy(batch[k]) for k in MODEL_INPUTS]
+    with torch.no_grad():
+        o0 = tm(*args)
+        o1 = tm(*args, dropout_gen=torch.Generator().manual_seed(7))
+        o2 = tm(*args, dropout_gen=torch.Generator().manual_seed(7))
+        head = tm.lstm.head(o1["seq_emb"])[..., 0]
+    for k in ("edge_logit", "node_logit", "seq_logit", "seq_emb"):
+        assert torch.equal(o1[k], o2[k]), k
+    assert not torch.equal(o0["node_logit"], o1["node_logit"])
+    emb, ref = o1["seq_emb"], o0["seq_emb"]
+    kept = emb != 0
+    assert 0.4 < float(kept.float().mean()) < 0.6
+    torch.testing.assert_close(emb[kept], ref[kept] / 0.5)
+    torch.testing.assert_close(head, o1["seq_logit"])

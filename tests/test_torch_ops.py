@@ -214,3 +214,156 @@ def test_cpu_impls_are_plain_and_plain_ops_restores():
     with ops.plain_ops():
         assert ops._FORCE_PLAIN
     assert not ops._FORCE_PLAIN
+
+
+# --- the banded pair: segment_sum_sorted / gather_rows_sorted ----------------
+
+
+def _sorted_case(case):
+    """(data [E, F], nondecreasing ids [E], N) for the banded kernel's cases
+    of the JAX package's tests (tests/test_pallas_ops.py), plus F = 1 (the
+    weight denominators of segment_mean)."""
+    rng = np.random.default_rng(21)
+    if case == "skewed":            # every edge on one segment
+        E, N, F = 400, 257, 9
+        ids = np.full(E, 131)
+    elif case == "builder_padding":  # sorted prefix, padding on the last node
+        N, E, F = 64, 128, 12
+        ids = np.concatenate([np.sort(rng.integers(0, 50, size=90)),
+                              np.full(38, N - 1)])
+    elif case == "band_past_end":   # upper segments' bands past the last edge
+        E, N, F = 128, 257, 7
+        ids = np.sort(rng.integers(0, 60, E))
+    else:
+        E, N, F = case
+        ids = np.sort(rng.integers(0, N, size=E))
+    return _rand((len(ids), F), 22), ids.astype(np.int32), N
+
+
+@pytest.mark.parametrize("case", [(37, 11, 5), (300, 300, 64), (512, 40, 130),
+                                  (300, 50, 1), "skewed", "builder_padding",
+                                  "band_past_end"], ids=str)
+def test_segment_sum_sorted_matches_pallas(case):
+    data, ids, N = _sorted_case(case)
+    want = pallas_segment.segment_sum_sorted(jnp.asarray(data),
+                                             jnp.asarray(ids), N, True)
+    got = ops.segment_sum_sorted(torch.from_numpy(data), torch.from_numpy(ids), N)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_segment_sum_sorted_drops_out_of_range_and_takes_empty():
+    # sorted ids may start below 0 and end at or past N: those rows drop
+    N, F = 12, 4
+    ids = np.array([-3, -1, 0, 0, 4, 11, 12, 30], np.int32)
+    data = _rand((len(ids), F), 3)
+    want = jax.ops.segment_sum(jnp.asarray(data), jnp.asarray(ids), num_segments=N)
+    got = ops.segment_sum_sorted(torch.from_numpy(data), torch.from_numpy(ids), N)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    empty = ops.segment_sum_sorted(torch.zeros(2, 0, 3),
+                                   torch.zeros(2, 0, dtype=torch.int32), 5)
+    assert empty.shape == (2, 5, 3) and float(empty.abs().sum()) == 0.0
+
+
+def test_gather_rows_sorted_matches_pallas_sparse_spread():
+    # sparse sorted ids: each 128-edge tile spans many 128-row table tiles
+    N, F, E = 2000, 10, 256
+    idx = np.sort(np.random.default_rng(33).integers(0, N, E)).astype(np.int32)
+    table = _rand((N, F), 34)
+    want = pallas_segment._gather_sorted_call(jnp.asarray(table),
+                                              jnp.asarray(idx), interpret=True)
+    got = ops.gather_rows_sorted(torch.from_numpy(table), torch.from_numpy(idx))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_gather_rows_sorted_out_of_range_gives_zero_rows():
+    table = _rand((16, 7), 4)
+    idx = np.array([-2, -1, 0, 3, 3, 15, 16, 200], np.int32)
+    got = ops.gather_rows_sorted(torch.from_numpy(table),
+                                 torch.from_numpy(idx)).numpy()
+    assert (got[[0, 1, 6, 7]] == 0).all()
+    np.testing.assert_array_equal(got[2:6], table[idx[2:6]])
+
+
+def test_segment_mean_matches_reference():
+    # the reference's weighted mean (numerator and denominator each one
+    # segment sum; empty segments 0), sorted and order-independent routes
+    from nerrf_tpu.ops import segment as jseg
+
+    E, N, F = 90, 20, 6
+    rng = np.random.default_rng(8)
+    ids = np.sort(rng.integers(0, N - 3, E)).astype(np.int32)
+    data = _rand((E, F), 9)
+    w = rng.uniform(0.0, 1.0, E).astype(np.float32)
+    want = jseg.segment_mean(jnp.asarray(data), jnp.asarray(ids), N,
+                             weights=jnp.asarray(w), sorted_ids=True)
+    for sorted_ids in (True, False):
+        got = ops.segment_mean(torch.from_numpy(data), torch.from_numpy(ids), N,
+                               weights=torch.from_numpy(w), sorted_ids=sorted_ids)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    want = jseg.segment_mean(jnp.asarray(data), jnp.asarray(ids), N)
+    got = ops.segment_mean(torch.from_numpy(data), torch.from_numpy(ids), N)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# --- gradients: each Function's backward against the reference's custom_vjp --
+
+
+def _grad_case(op):
+    """(port op, reference custom_vjp in interpret mode, data, graph args)
+    for one of the five Functions; the data operand comes first."""
+    rng = np.random.default_rng(50)
+    E, N, F = 160, 37, 11
+    ids = rng.integers(0, N, E).astype(np.int32)
+    sorted_ids = np.sort(ids)
+    if op == "sage_aggregate":
+        edges = _graph(E, N, seed=51, zero_frac=0.2)
+        return (lambda m: ops.sage_aggregate(m, *map(torch.from_numpy, edges), N),
+                lambda m: pallas_segment.sage_aggregate_fused(
+                    m, *map(jnp.asarray, edges), N, True),
+                _rand((N, F), 52))
+    if op == "segment_sum":
+        return (lambda d: ops.segment_sum(d, torch.from_numpy(ids), N),
+                lambda d: pallas_segment.segment_sum(d, jnp.asarray(ids), N, True),
+                _rand((E, F), 53))
+    if op == "segment_sum_sorted":
+        return (lambda d: ops.segment_sum_sorted(d, torch.from_numpy(sorted_ids), N),
+                lambda d: pallas_segment.segment_sum_sorted(
+                    d, jnp.asarray(sorted_ids), N, True),
+                _rand((E, F), 54))
+    if op == "gather_rows":
+        return (lambda t: ops.gather_rows(t, torch.from_numpy(ids)),
+                lambda t: pallas_segment.gather_rows(t, jnp.asarray(ids), True),
+                _rand((N, F), 55))
+    # gather_rows_sorted: the reference has no custom_vjp of its own for the
+    # banded gather (it is only ever an adjoint); its function is gather_rows
+    # on sorted indices
+    return (lambda t: ops.gather_rows_sorted(t, torch.from_numpy(sorted_ids)),
+            lambda t: pallas_segment.gather_rows(t, jnp.asarray(sorted_ids), True),
+            _rand((N, F), 56))
+
+
+@pytest.mark.parametrize("op", ["sage_aggregate", "segment_sum", "gather_rows",
+                                "segment_sum_sorted", "gather_rows_sorted"])
+def test_function_backward_matches_reference_vjp(op):
+    port, ref, x = _grad_case(op)
+    out_shape = np.asarray(ref(jnp.asarray(x))).shape
+    cot = _rand(out_shape, 60)
+    want = jax.grad(lambda v: jnp.sum(ref(v) * jnp.asarray(cot)))(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = port(xt)
+    assert out.grad_fn is not None
+    (got,) = torch.autograd.grad(out, xt, torch.from_numpy(cot))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_batched_backward_keeps_windows_apart():
+    # a batch of windows in one call: each window's gradient is its own
+    B, E, N, F = 2, 60, 17, 5
+    rng = np.random.default_rng(61)
+    ids = np.sort(rng.integers(0, N, (B, E)), axis=1).astype(np.int32)
+    data = torch.from_numpy(_rand((B, E, F), 62)).requires_grad_(True)
+    cot = torch.from_numpy(_rand((B, N, F), 63))
+    (g,) = torch.autograd.grad(
+        ops.segment_sum_sorted(data, torch.from_numpy(ids), N), data, cot)
+    for b in range(B):
+        np.testing.assert_array_equal(g[b].numpy(), cot[b].numpy()[ids[b]])
