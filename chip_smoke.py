@@ -10,9 +10,13 @@ It builds the port's five CUDA kernels from ``nerrf_tpu_torch/ops/csrc/``
 (``nvcc``, ``sm_90a``, one process per source, all started together) and
 holds each against its plain PyTorch version on the card (float32 and
 bfloat16; masked edges, empty segments, skewed bands, bands past the end,
-out-of-range ids, empty inputs), and each op's backward (an autograd
-Function whose backward is the adjoint kernel) against the plain version's
-gradient.  Then it drives the two paths the port has, each with the launch
+out-of-range ids, empty inputs; for the two chunked segment sums long
+segments at F = 160, 24 and 1: 4096 rows on one segment, the builder's
+padding tail at both rungs, fewer rows than a chunk), each result of the
+chunked sums bit-equal over two runs and with or without the ids' segment
+plan, and each op's backward (an autograd Function whose backward is the
+adjoint kernel) against the plain version's gradient, with and without a
+plan.  Then it drives the two paths the port has, each with the launch
 counters set to 0 just before it and read just after:
 
 * ``model_detect`` with the full-width ``NerrfNet`` (28-layer GraphSAGE-T of
@@ -32,7 +36,10 @@ a small float32 training run on the card are compared with the same runs on
 the CPU.  Each kernel is then checked and timed at its call sites on the
 inputs each path gives it (its first batch's edge views and sequence
 routing), beside its plain version, one PyTorch library call and its bound;
-the result line holds each kernel at its main call site on its own path.
+the chunked sums also with their structure built per call, and with the
+profiler's device time per launch on those inputs and on the same rows with
+the padding tail spread over distinct segments.  The result line holds each
+kernel at its main call site on its own path, as the path calls it.
 
 Prints the card's name and power limit, one JSON line with each kernel's
 launches, error, times and bound, the detection rate, the training rate and
@@ -123,6 +130,52 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_split(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """Device time of one ``fn()`` call by kernel, from a ``torch.profiler``
+    trace of ``iters`` calls after ``warmup``: {kernel name: ms per call},
+    the card's own events only (not the host-side operators)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        _sync()
+    self_us = lambda e: getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0))
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and self_us(e) > 0 \
+                and not getattr(e, "is_user_annotation", False):
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("<")[0].split("(")[0]
+            name = ("nerrf::" if "nerrf::" in e.key else "") + name.split("::")[-1][:48]
+            split[name] = split.get(name, 0.0) + self_us(e) / 1e3 / iters
+    return split
+
+
+def port_kernel_ms(split: dict) -> float:
+    """The port's own kernels' share of a :func:`device_split`."""
+    return sum(v for k, v in split.items() if k.startswith("nerrf::"))
+
+
+def host_us(fn, iters: int = 200, warmup: int = 10) -> float:
+    """Host time per ``fn()`` call in µs, not waiting for the card: the
+    enqueue cost that bounds a launch-bound loop of such calls."""
+    for _ in range(warmup):
+        fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    _sync()
+    return us
 
 
 def round_robin_ms(fns: dict, rounds: int = 15, warmup: int = 2) -> dict:
@@ -362,7 +415,7 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
     from nerrf_tpu_torch.models.graphsage import fused_edge_views
     from nerrf_tpu_torch.ops import (
         gather_rows, gather_rows_sorted, plain_ops, sage_aggregate,
-        sage_row_ptrs, segment_sum, segment_sum_sorted)
+        sage_row_ptrs, segment_plan, segment_sum, segment_sum_sorted)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(99)
@@ -372,7 +425,8 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
     F, elt = MAIN_F, 2                           # bf16 activations
     offsets = torch.arange(B, device=dev)[:, None]
 
-    def timed(name, call, library, nbytes, ops, scale=None, case=""):
+    def timed(name, call, library, nbytes, ops, scale=None, case="",
+              per_call=None, band_free=None):
         got, want = _both(call)
         dtype_name = str(got.dtype).split(".")[1]
         report[name][f"{tag}{case}/{dtype_name}"] = _close(
@@ -381,8 +435,19 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
         with plain_ops():
             plain_ms = cuda_ms(call, iters=10)
         b_ms, b_by = bound_ms(nbytes, ops)
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=library())
+        res = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=library())
+        if per_call is not None:
+            # the chunked sums: ms with the structure built per call (no
+            # plan, as the ops ran before plans existed), the host's enqueue
+            # time of both calls, and from the profiler the device time per
+            # launch of the path's call and of the same rows with the
+            # padding tail spread over distinct segments (band-free)
+            res["per_call_ms"] = cuda_ms(per_call)
+            res["host_us"] = [host_us(call), host_us(per_call)]
+            res["device_ms"] = port_kernel_ms(device_split(call))
+            res["band_free_device_ms"] = port_kernel_ms(device_split(band_free))
+        return res
 
     def longest_run(ids, n):
         return int(torch.bincount((ids.long() + offsets * n).reshape(-1)).max())
@@ -415,25 +480,40 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
         lambda: cuda_ms(lambda: torch.index_select(h.reshape(B * N, F), 0, flat_idx)),
         rows * F * elt + idx.numel() * 4 + B * E * F * elt, 0)
 
+    # the padding tail (edge_mask false) spread over distinct segments: the
+    # band-free ids the chunked sums are also timed on
+    live = t["edge_mask"]
+    spread = (torch.arange(E, device=dev) % N).expand(B, -1)
+    band_free = lambda ids: torch.where(live, ids, spread).to(torch.int32)
+
     # segment_sum, two call sites.  The backward of a layer's gather (h[src]):
     # a [B, E, H] bf16 cotangent summed by the unsorted edge_src into N rows,
     # the padding tail's rows all on the last node; 58 of a segment-mode
-    # training step's 59 launches are such backwards
+    # training step's 59 launches are such backwards, each over the plan the
+    # forward took once
     src = t["edge_src"]
     flat_src = (src.long() + offsets * N).reshape(-1)
     gsrc = torch.randn(B, E, F, generator=gen).to(dev, torch.bfloat16)
+    plan_src = segment_plan(src, N)
+    src_free = band_free(src)
+    plan_free = segment_plan(src_free, N)
     out["segment_sum"] = timed(
-        "segment_sum", lambda: segment_sum(gsrc, src, N),
+        "segment_sum", lambda: segment_sum(gsrc, src, N, plan=plan_src),
         lambda: cuda_ms(lambda: torch.zeros(B * N, F, dtype=gsrc.dtype, device=dev)
                         .index_add_(0, flat_src, gsrc.reshape(-1, F))),
         gsrc.numel() * elt + src.numel() * 4 + B * N * F * elt, gsrc.numel(),
-        _segment_scale(gsrc, src, N), case="-gather-backward")
+        _segment_scale(gsrc, src, N), case="-gather-backward",
+        per_call=lambda: segment_sum(gsrc, src, N),
+        band_free=lambda: segment_sum(gsrc, src_free, N, plan=plan_free))
     out["segment_sum"]["longest_run"] = longest_run(src, N)
     # the fusion: float32 rows into N + 1 slots, unmatched sequences routed to
-    # slot N (the detection path's one call, once per training forward)
+    # slot N (the detection path's one call, once per training forward; the
+    # path passes no plan, so the call builds its own)
     sni = t["seq_node_idx"]
     ids = torch.where(sni >= 0, sni, N).to(torch.int32)
     S = ids.shape[1]
+    ids_free = torch.where(sni >= 0, sni, torch.arange(S, device=dev) % (N + 1)
+                           ).to(torch.int32)
     data = torch.randn(B, S, SEQ_F, generator=gen).to(dev)
     flat = (ids.long() + offsets * (N + 1)).reshape(-1)
     out["segment_sum_fusion"] = timed(
@@ -441,25 +521,35 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
         lambda: cuda_ms(lambda: torch.zeros(B * (N + 1), SEQ_F, device=dev)
                         .index_add_(0, flat, data.reshape(-1, SEQ_F))),
         data.numel() * 4 + ids.numel() * 4 + B * (N + 1) * SEQ_F * 4,
-        data.numel(), _segment_scale(data, ids, N + 1), case="-fusion")
+        data.numel(), _segment_scale(data, ids, N + 1), case="-fusion",
+        per_call=lambda: segment_sum(data, ids, N + 1),
+        band_free=lambda: segment_sum(data, ids_free, N + 1))
     out["segment_sum_fusion"]["longest_run"] = longest_run(ids, N + 1)
 
     # segment_sum_sorted: a segment-mode layer's weighted messages (data·w,
     # [B, E, H] bf16) onto the dst-sorted ids, and its weight denominator
-    # (w, [B, E, 1]); every band includes the padding edges (weight 0)
+    # (w, [B, E, 1]); every band includes the padding edges (weight 0); both
+    # over the plan the forward took once
     dst = t["edge_dst"]
     flat_dst = (dst.long() + offsets * N).reshape(-1)
+    plan_dst = segment_plan(dst, N, sorted_ids=True)
+    dst_free = torch.sort(band_free(dst), dim=1)[0]
+    plan_dst_free = segment_plan(dst_free, N, sorted_ids=True)
     wmsg = torch.randn(B, E, F, generator=gen).to(dev, torch.bfloat16)
     w1 = w32.to(torch.bfloat16)[..., None]
     for key, d in (("segment_sum_sorted", wmsg), ("segment_sum_sorted_f1", w1)):
         Fd = d.shape[-1]
         out[key] = timed(
-            "segment_sum_sorted", lambda d=d: segment_sum_sorted(d, dst, N),
+            "segment_sum_sorted",
+            lambda d=d: segment_sum_sorted(d, dst, N, plan=plan_dst),
             lambda d=d, Fd=Fd: cuda_ms(
                 lambda: torch.zeros(B * N, Fd, dtype=d.dtype, device=dev)
                 .index_add_(0, flat_dst, d.reshape(-1, Fd))),
             d.numel() * elt + dst.numel() * 4 + B * N * Fd * elt, d.numel(),
-            _segment_scale(d, dst, N), case="" if Fd == F else "-f1")
+            _segment_scale(d, dst, N), case="" if Fd == F else "-f1",
+            per_call=lambda d=d: segment_sum_sorted(d, dst, N),
+            band_free=lambda d=d: segment_sum_sorted(d, dst_free, N,
+                                                     plan=plan_dst_free))
     src_sorted = torch.sort(t["edge_src"], dim=1)[0]
     out["segment_sum_sorted"]["longest_band"] = [
         longest_run(dst, N), longest_run(src_sorted, N)]
@@ -702,6 +792,103 @@ def check_banded_kernels() -> dict:
             if bad.any() and float(got[bad].abs().max()) != 0.0:
                 _fail("gather_rows_sorted: out-of-range ids must give zero rows")
     return report
+
+
+def check_long_bands(report: dict) -> None:
+    """``segment_sum`` (ids in random order) and ``segment_sum_sorted``
+    against their plain versions on long segments, float32 and bfloat16, at
+    F = 160, 24 and 1: a single segment of 4096 rows, the builder's padding
+    layout at the training rung (1192-row tail on the last of 1024 nodes)
+    and at the detection rung (3121 rows on the last of 4096), ids out of
+    range with most segments empty, and fewer rows than a chunk.  At F = 160
+    and 24 the rows also start one element past a 16-byte boundary (a view
+    into a flat buffer), which the kernels read element by element instead
+    of in 16-byte packs.  Each result is bit-equal over two runs, and with
+    the ids' plan given."""
+    import torch
+
+    from nerrf_tpu_torch.ops import kernels
+    from nerrf_tpu_torch.ops import segment as ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2468)
+    cases = {   # name: (B, N, S, sorted_ids options)
+        "single4096": (2, 1024, 4096, dict(lo=517, hi=518)),
+        "padding-train": (8, 1024, 2048, dict(n_valid=2048 - 1192)),
+        "padding-detect": (8, 4096, 4096, dict(n_valid=4096 - 3121)),
+        "empty-out-of-range": (8, 1024, 300, dict(lo=-40, hi=1064)),
+        "short": (8, 1024, 20, dict(lo=-3, hi=1027)),
+    }
+    for case, (B, N, S, opts) in cases.items():
+        ids = sorted_ids(B, N, S, gen, dev, **opts)
+        shuffled = torch.gather(ids, 1, torch.argsort(
+            torch.rand(B, S, generator=gen), dim=1).to(dev))
+        for op, op_ids, srt in ((ops.segment_sum, shuffled, False),
+                                (ops.segment_sum_sorted, ids, True)):
+            name = op.__name__
+            plan = ops.segment_plan(op_ids, N, sorted_ids=srt)
+            for dt in (torch.float32, torch.bfloat16):
+                dname = str(dt).split(".")[1]
+                for F, shift in ((MAIN_F, 0), (MAIN_F, 1), (SEQ_F, 0),
+                                 (SEQ_F, 1), (1, 0)):
+                    flat = torch.empty(B * S * F + shift, dtype=dt, device=dev)
+                    data = flat[shift:].view(B, S, F)
+                    data.copy_(torch.randn(B, S, F, generator=gen))
+                    fc = f"F{F}{'-misaligned' if shift else ''}"
+                    got, want = _both(op, data, op_ids, N)
+                    report[name][f"{case}/{fc}/{dname}"] = _close(
+                        f"{name} {case} {fc}", got, want, dname,
+                        _segment_scale(data, op_ids, N))
+                    if not torch.equal(got, op(data, op_ids, N)):
+                        _fail(f"{name} {case} {fc}: two runs differ")
+                    if not torch.equal(got, op(data, op_ids, N, plan=plan)):
+                        _fail(f"{name} {case} {fc}: the result with a plan "
+                              "differs from the one without")
+            _sync()
+            if any(bool(buf.any()) for (_, _, dt), buf in kernels._SCRATCH.items()
+                   if dt == torch.int32):
+                _fail(f"{name} {case}: the arrival counters were not reset")
+
+
+def check_plans() -> None:
+    """Forward and backward of the four ops that take a plan, with the ids'
+    plan and without, bit for bit, at the training rung's padding layout."""
+    import torch
+
+    from nerrf_tpu_torch.ops import segment as ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1357)
+    N, E = TRAIN_RUNG[:2]
+    B, F = 8, MAIN_F
+    ids = sorted_ids(B, N, E, gen, dev, n_valid=E - 1190)
+    shuffled = torch.gather(ids, 1, torch.argsort(
+        torch.rand(B, E, generator=gen), dim=1).to(dev))
+    for dt in (torch.float32, torch.bfloat16):
+        rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev, dt)
+        cases = {   # op: (fn(x, plan), x, cotangent, plan)
+            "segment_sum": (lambda d, p: ops.segment_sum(d, shuffled, N, plan=p),
+                            rnd(B, E, F), rnd(B, N, F), ops.segment_plan(shuffled, N)),
+            "gather_rows": (lambda t, p: ops.gather_rows(t, shuffled, plan=p),
+                            rnd(B, N, F), rnd(B, E, F), ops.segment_plan(shuffled, N)),
+            "segment_sum_sorted": (
+                lambda d, p: ops.segment_sum_sorted(d, ids, N, plan=p),
+                rnd(B, E, F), rnd(B, N, F), ops.segment_plan(ids, N, sorted_ids=True)),
+            "gather_rows_sorted": (
+                lambda t, p: ops.gather_rows_sorted(t, ids, plan=p),
+                rnd(B, N, F), rnd(B, E, F), ops.segment_plan(ids, N, sorted_ids=True)),
+        }
+        for op, (fn, x, cot, plan) in cases.items():
+            for with_plan in (None, plan):
+                xs = x.detach().requires_grad_(True)
+                out = fn(xs, with_plan)
+                (g,) = torch.autograd.grad(out, xs, cot)
+                if with_plan is None:
+                    want = (out.detach(), g)
+                elif not (torch.equal(out, want[0]) and torch.equal(g, want[1])):
+                    _fail(f"{op} [{dt}]: forward or backward with a plan "
+                          "differs from the one without")
+    _sync()
 
 
 def _vjp(fn, x, cot):
@@ -1096,11 +1283,14 @@ def main() -> int:
             log = kernels.library_path(name).with_suffix(".log")
             if log.exists():
                 for line in log.read_text().splitlines():
-                    if "registers" in line or "spill" in line:
+                    if "entry function" in line or "registers" in line \
+                            or "spill" in line:
                         print(f"ptxas {name}: {line.strip()}")
         errors = check_kernels()
         errors.update(check_banded_kernels())
+        check_long_bands(errors)
         check_backward(errors)
+        check_plans()
         main_path = run_main_path()
         detect_timing = time_kernels(main_path["batch"], errors, "detect")
         small_err = check_small_detect()
@@ -1142,10 +1332,15 @@ def main() -> int:
          **{k: runs[path[name]][1][name][k] for k in keys}}
         for name in kernels.KERNELS]}
     print("kernel errors by case: " + json.dumps(errors))
+    chunked = ("per_call_ms", "host_us", "device_ms", "band_free_device_ms")
     for tag, tm in (("detection rung (4096n/4096e/4096s)", detect_timing),
                     ("training rung (1024n/2048e/128s)", timing)):
-        print(f"kernel times at the {tag}, by call site: " + json.dumps(
-            {site: {k: tm[site][k] for k in keys} for site in tm}))
+        print(f"kernel times at the {tag}, by call site (ms: as the path calls "
+              f"it; per_call_ms: structure built per call; host_us: the host's "
+              f"enqueue time of both; device_ms and band_free_device_ms: the "
+              f"kernel's device time per launch, profiler): " + json.dumps(
+                  {site: {k: tm[site][k] for k in keys + chunked if k in tm[site]}
+                   for site in tm}))
     for tag, tm, E in (("detection", detect_timing, MAIN_E),
                        ("training", timing, TRAIN_RUNG[1])):
         print(f"{tag} rung: sage_aggregate "

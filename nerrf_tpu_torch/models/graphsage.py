@@ -18,7 +18,7 @@ Three aggregation modes:
   :func:`~nerrf_tpu_torch.ops.gather_rows` and two weighted
   :func:`~nerrf_tpu_torch.ops.segment_mean` (``sorted_ids=True``, the
   banded kernel) per layer, over the dst-sorted edges and a src-sorted view
-  taken once per forward.
+  taken once per forward, with the four id vectors' segment plans.
 
 ``auto`` resolves to ``fused`` for every bucket, so that kernel runs on every
 forward; the reference's ``DENSE_ADJ_MAX_NODES`` crossover was measured on
@@ -41,7 +41,7 @@ from nerrf_tpu_torch.graph.builder import (
 )
 from nerrf_tpu_torch.models.layers import Dense, Embed, LayerNorm, dropout, gelu
 from nerrf_tpu_torch.ops import (
-    gather_rows, sage_aggregate, sage_row_ptrs, segment_mean)
+    gather_rows, sage_aggregate, sage_row_ptrs, segment_mean, segment_plan)
 
 AGGREGATIONS = ("fused", "dense_adj", "segment")
 
@@ -110,19 +110,25 @@ def fused_edge_views(edge_src, edge_dst, w32, num_nodes):
     return edges, d_fwd, d_rev, inv_f, inv_r
 
 
-def _segment_view(edge_src, edge_dst, e_emb, edge_w):
+def _segment_view(edge_src, edge_dst, e_emb, edge_w, num_nodes):
     """The ``segment`` mode's per-forward view: the dst-sorted edges as the
     builder gives them, plus a src-sorted view (a stable argsort per
     window) of the ids, the message sources, ``e_emb`` and the weights,
-    shared by every layer (the reference's ``rev_view``)."""
+    shared by every layer (the reference's ``rev_view``); and the
+    :func:`~nerrf_tpu_torch.ops.segment_plan` of each id vector, graph
+    structure taken once for every layer's sums and gathers' backward."""
     src_order = torch.argsort(edge_src, dim=1, stable=True)
     take = lambda t: torch.gather(t, 1, src_order)
     e_emb_s = torch.gather(
         e_emb, 1, src_order[..., None].expand(-1, -1, e_emb.shape[-1]))
-    return (edge_src, edge_dst, e_emb, edge_w,
-            take(edge_src),          # nondecreasing segment ids
-            take(edge_dst),          # message source per edge
-            e_emb_s, take(edge_w))
+    src_sorted = take(edge_src)      # nondecreasing segment ids
+    dst_srcorder = take(edge_dst)    # message source per edge
+    plans = {"src": segment_plan(edge_src, num_nodes),
+             "dst_srcorder": segment_plan(dst_srcorder, num_nodes),
+             "dst": segment_plan(edge_dst, num_nodes, sorted_ids=True),
+             "src_sorted": segment_plan(src_sorted, num_nodes, sorted_ids=True)}
+    return (edge_src, edge_dst, e_emb, edge_w, src_sorted, dst_srcorder,
+            e_emb_s, take(edge_w), plans)
 
 
 def _precomputed_view(mode, edge_src, edge_dst, e_emb, w32, n, dt):
@@ -175,13 +181,15 @@ class SageBlock(nn.Module):
             # kernel); dst→src messages ride the src-sorted view, so that
             # direction is banded too
             (edge_src, edge_dst, e_emb, edge_w,
-             src_sorted, dst_srcorder, e_emb_s, w_s) = view
-            m_fwd = gather_rows(msg, edge_src) + e_emb + dir_bias[0]
+             src_sorted, dst_srcorder, e_emb_s, w_s, plans) = view
+            m_fwd = (gather_rows(msg, edge_src, plan=plans["src"]) + e_emb
+                     + dir_bias[0])
             agg_fwd = segment_mean(m_fwd, edge_dst, n, weights=edge_w,
-                                   sorted_ids=True)
-            m_rev = gather_rows(msg, dst_srcorder) + e_emb_s + dir_bias[1]
+                                   sorted_ids=True, plan=plans["dst"])
+            m_rev = (gather_rows(msg, dst_srcorder, plan=plans["dst_srcorder"])
+                     + e_emb_s + dir_bias[1])
             agg_rev = segment_mean(m_rev, src_sorted, n, weights=w_s,
-                                   sorted_ids=True)
+                                   sorted_ids=True, plan=plans["src_sorted"])
             upd = self.w_self(torch.cat([hn, agg_fwd + agg_rev], dim=-1))
             return h + gelu(upd)
         if mode == "fused":
@@ -231,17 +239,19 @@ class GraphSAGET(nn.Module):
 
         mode = cfg.resolved_aggregation()
         if mode == "segment":
-            view = _segment_view(edge_src, edge_dst, e_emb, w32.to(dt))
+            view = _segment_view(edge_src, edge_dst, e_emb, w32.to(dt), n)
+            plans = view[-1]
         else:
             view = _precomputed_view(mode, edge_src, edge_dst, e_emb, w32, n, dt)
+            plans = {}
 
         for block in self.blocks:
             h = block(h, view, mode) * nmask
 
         h = dropout(self.final_ln(h), cfg.dropout, dropout_gen)
         node_logit = self.node_head(h)[..., 0]
-        h_src = gather_rows(h, edge_src)
-        h_dst = gather_rows(h, edge_dst)
+        h_src = gather_rows(h, edge_src, plan=plans.get("src"))
+        h_dst = gather_rows(h, edge_dst, plan=plans.get("dst"))
         pair = torch.cat([h_src, h_dst, h_src * h_dst, e_emb], dim=-1)
         z = gelu(self.edge_head_1(pair))
         edge_logit = self.edge_head_2(z)[..., 0]

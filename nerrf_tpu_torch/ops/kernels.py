@@ -6,9 +6,10 @@ with a plain C interface, on first use, into ``_build/`` beside this file
 its header and the flags, so an edit rebuilds it.  The libraries are loaded
 with ``ctypes``: every pointer and the stream pass as ``c_void_p``, every
 C entry returns ``cudaGetLastError()`` and the launcher raises unless it is
-0.  Launchers allocate nothing and launch on the current stream; the
-wrappers in :mod:`nerrf_tpu_torch.ops.segment` check inputs, allocate the
-outputs and count the launches.
+0.  Launchers launch on the current stream and allocate nothing but the
+segment sums' scratch, kept per (device, stream) and reused; the wrappers
+in :mod:`nerrf_tpu_torch.ops.segment` check inputs, allocate the outputs
+and count the launches.
 
 Nothing here runs at import: the CPU build of PyTorch imports this module
 too, and has neither ``nvcc`` nor a card.
@@ -41,10 +42,10 @@ _ARGTYPES = {
     "sage_aggregate": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # table, dtype, idx, B, N, E, F, out, stream
     "gather_rows": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
-    # data, dtype, ptr, perm, B, N, S, F, out, stream
-    "segment_sum": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
-    # data, dtype, ptr, B, N, E, F, out, stream
-    "segment_sum_sorted": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
+    # data, dtype, perm (int64), ptr, B, N, S, F, partial, arrivals, out, stream
+    "segment_sum": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # data, dtype, ptr, B, N, E, F, partial, arrivals, out, stream
+    "segment_sum_sorted": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # table, dtype, idx, B, N, E, F, out, stream
     "gather_rows_sorted": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
 }
@@ -59,7 +60,7 @@ _FNS: Dict[str, object] = {}
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -124,12 +125,34 @@ def _fn(name: str):
     return fn
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(name: str, device: torch.device, *args, stream=None) -> None:
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _fn(name)(*args, stream)
+        err = _fn(name)(*args, _stream(device) if stream is None else stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+# The segment-sum kernels' scratch, one buffer of each kind per (device,
+# stream), grown as needed: the per-segment arrival counters (int32, zero,
+# and every launch leaves the counters it touched at 0 again: the last chunk
+# of a segment resets its own) and the chunks' f32 partials (no
+# initial value).  The launches of one stream run one after another, so
+# they share both.
+_SCRATCH: Dict[tuple, torch.Tensor] = {}
+
+
+def _scratch(device: torch.device, stream: int, dtype: torch.dtype, count: int) -> int:
+    key = (device, stream, dtype)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < count:
+        make = torch.zeros if dtype == torch.int32 else torch.empty
+        buf = _SCRATCH[key] = make(max(count, 1 << 16), dtype=dtype, device=device)
+    return buf.data_ptr()
 
 
 def dtype_code(t: torch.Tensor) -> int:
@@ -163,19 +186,21 @@ def launch_gather_rows(table, idx, out) -> None:
             idx.data_ptr(), B, N, E, F, out.data_ptr())
 
 
-def launch_segment_sum(data, ptr, perm, num_segments, out) -> None:
+def launch_segment_sum(name: str, data, plan, out) -> None:
+    """``segment_sum`` or ``segment_sum_sorted`` (``name``) of ``data``
+    [B, S, F] over ``plan`` (a :class:`~nerrf_tpu_torch.ops.segment.SegmentPlan`
+    of the ids; the sorted kernel takes no permutation) into ``out``."""
     B, S, F = data.shape
-    _check_row_width("segment_sum", F)
-    _launch("segment_sum", data.device, data.data_ptr(), dtype_code(data),
-            ptr.data_ptr(), perm.data_ptr(), B, num_segments, S, F,
-            out.data_ptr())
-
-
-def launch_segment_sum_sorted(data, ptr, num_segments, out) -> None:
-    B, E, F = data.shape
-    _check_row_width("segment_sum_sorted", F)
-    _launch("segment_sum_sorted", data.device, data.data_ptr(), dtype_code(data),
-            ptr.data_ptr(), B, num_segments, E, F, out.data_ptr())
+    _check_row_width(name, F)
+    N = plan.ptr.shape[1] - 1
+    stream = _stream(data.device)
+    scratch = (_scratch(data.device, stream, torch.float32, B * plan.num_chunk_slots * F),
+               _scratch(data.device, stream, torch.int32, B * N))
+    perm = () if name == "segment_sum_sorted" else (
+        None if plan.perm is None else plan.perm.data_ptr(),)
+    _launch(name, data.device, data.data_ptr(), dtype_code(data), *perm,
+            plan.ptr.data_ptr(), B, N, S, F, *scratch, out.data_ptr(),
+            stream=stream)
 
 
 def launch_gather_rows_sorted(table, idx, out) -> None:

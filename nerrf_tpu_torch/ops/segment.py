@@ -25,13 +25,31 @@ pairing as the card:
 * ``sage_aggregate`` → ``sage_aggregate`` with the two directions' weights
   exchanged across the two sorted views, over the same row pointers.
 
+Graph structure is taken once per forward: :func:`segment_plan` of an id
+vector holds its stable sort permutation (none for sorted ids) and its row
+pointers, from which the two segment-sum kernels take their chunk map on
+the card (:meth:`SegmentPlan.chunks` spells it out).  ``segment_sum``,
+``segment_sum_sorted``, ``gather_rows``, ``gather_rows_sorted`` and
+``segment_mean`` take it as ``plan=`` (a gather keeps it for its backward,
+the adjoint sum); without one the CUDA path builds it per call (a sort and
+a ``searchsorted``, or the ``searchsorted`` alone).  The plain versions
+ignore it.  L = :data:`CHUNK_ROWS` = 32 rows per chunk: one chunk map
+serves every row width, a chunk's 32 permuted row numbers are one coalesced
+load, and the longest segment costs one warp 32 rows plus the add of its
+partials, ceil(len / 32) + 1 rows of f32 at most.
+
 Source notes (the kernels' own files say more):
 
 ``segment_sum``
     replaces ``pallas_segment._segment_sum_call``.  Bound by bytes on the
-    H100 (data + ids + out over 3.35 TB/s).  The wrapper stable-sorts the ids
-    and takes row pointers; the kernel reduces each segment's run in f32 with
-    no atomics, so it is deterministic.
+    H100 (data + ids + out over 3.35 TB/s).  Design (``csrc/segment_chunks.cuh``):
+    the plan's stable sort permutation and row pointers make each segment a
+    contiguous run; every segment is cut into chunks of at most 32 rows,
+    one warp each, so no long segment (the builder's padding tail, the
+    fusion's slot N) is left to one warp; the chunks of a long segment
+    write f32 partials that the last chunk to arrive adds in chunk order
+    (one launch; a second launch for the combine measured slower on the
+    H100).  f32 sums in a fixed order, no atomics on values: deterministic.
 ``gather_rows``
     replaces ``pallas_segment._gather_call``.  Bound by bytes (touched table
     rows + idx + out); a coalesced element-per-thread copy.
@@ -43,10 +61,9 @@ Source notes (the kernels' own files say more):
     padding) and sums in f32 registers.
 ``segment_sum_sorted``
     replaces ``pallas_segment._segment_sum_sorted_call``.  Bound by bytes.
-    The ids are nondecreasing (a contract), so the wrapper takes row pointers
-    with one ``searchsorted`` and no sort; one warp per segment sums its
-    contiguous run in f32, lanes over features, or over rows when the rows
-    are 16 features wide or less.
+    The same chunked reduction with the identity permutation: the ids are
+    nondecreasing (a contract), so its plan has no sort.  Rows of 16
+    features or fewer (the F = 1 weight denominators) go lanes over rows.
 ``gather_rows_sorted``
     replaces ``pallas_segment._gather_sorted_call``, the banded sum's
     adjoint.  Bound by bytes; a coalesced element-per-thread copy whose
@@ -56,7 +73,8 @@ Source notes (the kernels' own files say more):
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -123,14 +141,98 @@ def _window_offsets(B: int, n: int, device) -> torch.Tensor:
     return (torch.arange(B, device=device, dtype=torch.int64) * n)[:, None]
 
 
+@functools.lru_cache(maxsize=32)
+def _row_numbers(B: int, num_rows: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(num_rows + 1, dtype=torch.int32,
+                        device=device).expand(B, -1).contiguous()
+
+
 def _row_ptrs(sorted_ids: torch.Tensor, num_rows: int) -> torch.Tensor:
     """[B, num_rows + 1] int32 pointers into nondecreasing [B, E] ids: row
     n's entries are ``[ptr[n], ptr[n+1])``; ids outside [0, num_rows) fall
     outside every row."""
-    B = sorted_ids.shape[0]
-    rows = torch.arange(num_rows + 1, dtype=torch.int32,
-                        device=sorted_ids.device).expand(B, -1).contiguous()
+    rows = _row_numbers(sorted_ids.shape[0], num_rows, sorted_ids.device)
     return torch.searchsorted(_int32(sorted_ids), rows, out_int32=True)
+
+
+# rows per chunk of the segment-sum kernels (kChunkRows, csrc/segment_chunks.cuh)
+CHUNK_ROWS = 32
+
+
+class SegmentPlan(NamedTuple):
+    """Graph structure of one [B, S] id vector over N segments, for the
+    segment-sum kernels and the gathers' backward.
+
+    ``perm`` [B, S] int64 is the stable sort order of the ids (``None`` when
+    they are nondecreasing); ``ptr`` [B, N + 1] int32 the row pointers over
+    the sorted ids (ids outside [0, N) fall outside every row), from which
+    the kernels take the chunk map (:meth:`chunks`)."""
+
+    perm: Optional[torch.Tensor]
+    ptr: torch.Tensor
+    num_rows: int
+
+    @property
+    def num_segments(self) -> int:
+        return self.ptr.shape[1] - 1
+
+    @property
+    def num_chunk_slots(self) -> int:
+        """N + ceil(S / CHUNK_ROWS): the kernels' grid, in warps per window."""
+        return self.num_segments + -(-self.num_rows // CHUNK_ROWS)
+
+    def chunks(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The chunk map the kernels derive from ``ptr``, as [B, K] tensors
+        (segment, lo, hi) per chunk slot, segment -1 where no segment owns
+        the slot.  The sorted rows are cut at multiples of CHUNK_ROWS and at
+        the segment boundaries, so segment n owns slots [n + ptr[n] //
+        CHUNK_ROWS, n + 1 + ptr[n + 1] // CHUNK_ROWS): the exclusive prefix
+        sum of its chunk counts, in closed form."""
+        L, N, K = CHUNK_ROWS, self.num_segments, self.num_chunk_slots
+        ptr = self.ptr.long()
+        start = torch.arange(N + 1, device=ptr.device) + ptr // L
+        k = torch.arange(K, device=ptr.device).expand(ptr.shape[0], -1)
+        n = torch.searchsorted(start.contiguous(), k.contiguous(), right=True) - 1
+        owned = (n >= 0) & (n < N)
+        n = n.clamp(0, max(N - 1, 0))
+        p0 = torch.gather(ptr, 1, n)
+        p1 = torch.gather(ptr, 1, n + 1) if N else p0
+        tile = p0 // L + (k - torch.gather(start, 1, n))
+        lo = torch.maximum(p0, tile * L)
+        hi = torch.minimum(p1, (tile + 1) * L)
+        return (torch.where(owned, n, -1), torch.where(owned, lo, 0),
+                torch.where(owned, hi, 0))
+
+
+def segment_plan(ids: torch.Tensor, num_segments: int, *,
+                 sorted_ids: bool = False) -> SegmentPlan:
+    """The :class:`SegmentPlan` of ``ids`` ([S], or [B, S] per window):
+    graph structure, so take it once per forward and pass it to every op
+    over the same ids.  ``sorted_ids=True`` asserts the ids are
+    nondecreasing per window (no sort; such a plan also serves
+    :func:`segment_sum` and :func:`gather_rows`).  Plain PyTorch, on the
+    ids' device, with no host synchronisation."""
+    ids = _int32(ids[None] if ids.dim() == 1 else ids)
+    perm, keys = None, ids
+    if not sorted_ids:
+        keys, perm = torch.sort(ids, dim=1, stable=True)
+    return SegmentPlan(perm=perm, ptr=_row_ptrs(keys, num_segments),
+                       num_rows=ids.shape[1])
+
+
+def _check_plan(op: str, plan: Optional[SegmentPlan], ids: torch.Tensor,
+                num_segments: int, *, sorted_only: bool = False) -> None:
+    if plan is None:
+        return
+    B, S = ids.shape
+    if tuple(plan.ptr.shape) != (B, num_segments + 1) or plan.num_rows != S:
+        raise ValueError(
+            f"{op}: the plan covers {plan.ptr.shape[0]} windows of "
+            f"{plan.num_rows} ids over {plan.num_segments} segments; the "
+            f"operands have {B} of {S} over {num_segments}")
+    if sorted_only and plan.perm is not None:
+        raise ValueError(f"{op}: takes the plan of nondecreasing ids "
+                         "(segment_plan(..., sorted_ids=True))")
 
 
 # --- segment_sum -------------------------------------------------------------
@@ -153,40 +255,47 @@ def segment_sum_plain(data: torch.Tensor, segment_ids: torch.Tensor,
     return out.view(B, num_segments, F).to(data.dtype)
 
 
-def _segment_sum_cuda(data, segment_ids, num_segments):
+def _segment_sum_cuda(name, data, segment_ids, num_segments, plan):
     B, S, F = data.shape
     data = data.contiguous()
     kernels.dtype_code(data)
-    sorted_ids, perm = torch.sort(_int32(segment_ids), dim=1, stable=True)
-    ptr = _row_ptrs(sorted_ids, num_segments)
+    if plan is None:
+        plan = segment_plan(segment_ids, num_segments,
+                            sorted_ids=name == "segment_sum_sorted")
     out = torch.empty(B, num_segments, F, dtype=data.dtype, device=data.device)
     if out.numel():
-        kernels.launch_segment_sum(data, ptr, _int32(perm), num_segments, out)
-        LAUNCHES["segment_sum"] += 1
+        kernels.launch_segment_sum(name, data, plan, out)
+        LAUNCHES[name] += 1
     return out
 
 
 class _SegmentSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, segment_ids, num_segments):
+    def forward(ctx, data, segment_ids, num_segments, plan):
         ctx.save_for_backward(segment_ids)
+        ctx.plan = plan
         if _use_kernel("segment_sum", data, segment_ids):
-            return _segment_sum_cuda(data, segment_ids, num_segments)
+            return _segment_sum_cuda("segment_sum", data, segment_ids,
+                                     num_segments, plan)
         return segment_sum_plain(data, segment_ids, num_segments)
 
     @staticmethod
     def backward(ctx, g):
         (segment_ids,) = ctx.saved_tensors
-        return gather_rows(g, segment_ids), None, None
+        return gather_rows(g, segment_ids, plan=ctx.plan), None, None, None
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+                num_segments: int, *,
+                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """Sum rows of ``data`` ([S, F], or [B, S, F] per window) into
     ``num_segments`` buckets by ``segment_ids``; order-independent, ids
-    outside [0, num_segments) dropped.  Backward: :func:`gather_rows`."""
+    outside [0, num_segments) dropped.  ``plan``: :func:`segment_plan` of
+    the ids (either kind), built here when not given.  Backward:
+    :func:`gather_rows`."""
     single, (data, segment_ids) = _batched(data, segment_ids)
-    out = _SegmentSum.apply(data, segment_ids, num_segments)
+    _check_plan("segment_sum", plan, segment_ids, num_segments)
+    out = _SegmentSum.apply(data, segment_ids, num_segments, plan)
     return out[0] if single else out
 
 
@@ -220,9 +329,10 @@ def _gather_cuda(name: str, launch, table, idx):
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, plan):
         ctx.save_for_backward(idx)
         ctx.num_rows = table.shape[1]
+        ctx.plan = plan
         if _use_kernel("gather_rows", table, idx):
             return _gather_cuda("gather_rows", kernels.launch_gather_rows,
                                 table, idx)
@@ -231,63 +341,62 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return segment_sum(g, idx, ctx.num_rows), None
+        return segment_sum(g, idx, ctx.num_rows, plan=ctx.plan), None, None
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor, *,
+                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """Row gather ``table[idx]`` ([N, F] / [E], or batched per window);
-    out-of-range idx gives a zero row.  Backward: :func:`segment_sum`."""
+    out-of-range idx gives a zero row.  Backward: :func:`segment_sum`, over
+    ``plan`` (:func:`segment_plan` of ``idx`` into N rows) when given."""
     single, (table, idx) = _batched(table, idx)
-    out = _GatherRows.apply(table, idx)
+    _check_plan("gather_rows", plan, idx, table.shape[1])
+    out = _GatherRows.apply(table, idx, plan)
     return out[0] if single else out
 
 
 # --- segment_sum_sorted / gather_rows_sorted (the banded pair) ---------------
 
 
-def _segment_sum_sorted_cuda(data, segment_ids, num_segments):
-    B, E, F = data.shape
-    data = data.contiguous()
-    kernels.dtype_code(data)
-    ptr = _row_ptrs(segment_ids, num_segments)
-    out = torch.empty(B, num_segments, F, dtype=data.dtype, device=data.device)
-    if out.numel():
-        kernels.launch_segment_sum_sorted(data, ptr, num_segments, out)
-        LAUNCHES["segment_sum_sorted"] += 1
-    return out
-
-
 class _SegmentSumSorted(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, segment_ids, num_segments):
+    def forward(ctx, data, segment_ids, num_segments, plan):
         ctx.save_for_backward(segment_ids)
+        ctx.plan = plan
         if _use_kernel("segment_sum_sorted", data, segment_ids):
-            return _segment_sum_sorted_cuda(data, segment_ids, num_segments)
+            return _segment_sum_cuda("segment_sum_sorted", data, segment_ids,
+                                     num_segments, plan)
         return segment_sum_plain(data, segment_ids, num_segments)
 
     @staticmethod
     def backward(ctx, g):
         (segment_ids,) = ctx.saved_tensors
-        return gather_rows_sorted(g, segment_ids), None, None
+        return (gather_rows_sorted(g, segment_ids, plan=ctx.plan),
+                None, None, None)
 
 
 def segment_sum_sorted(data: torch.Tensor, segment_ids: torch.Tensor,
-                       num_segments: int) -> torch.Tensor:
+                       num_segments: int, *,
+                       plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """:func:`segment_sum` for ``segment_ids`` nondecreasing per window (the
     builder's dst-sorted edges, or the src-sorted view): the banded kernel.
     Sortedness is a contract, not a hint: on unsorted ids the kernel drops
-    rows (the plain version does not care).  Backward:
-    :func:`gather_rows_sorted`."""
+    rows (the plain version does not care).  ``plan``: the ids'
+    ``segment_plan(..., sorted_ids=True)``, built here when not given.
+    Backward: :func:`gather_rows_sorted`."""
     single, (data, segment_ids) = _batched(data, segment_ids)
-    out = _SegmentSumSorted.apply(data, segment_ids, num_segments)
+    _check_plan("segment_sum_sorted", plan, segment_ids, num_segments,
+                sorted_only=True)
+    out = _SegmentSumSorted.apply(data, segment_ids, num_segments, plan)
     return out[0] if single else out
 
 
 class _GatherRowsSorted(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, plan):
         ctx.save_for_backward(idx)
         ctx.num_rows = table.shape[1]
+        ctx.plan = plan
         if _use_kernel("gather_rows_sorted", table, idx):
             return _gather_cuda("gather_rows_sorted",
                                 kernels.launch_gather_rows_sorted, table, idx)
@@ -296,35 +405,42 @@ class _GatherRowsSorted(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return segment_sum_sorted(g, idx, ctx.num_rows), None
+        return (segment_sum_sorted(g, idx, ctx.num_rows, plan=ctx.plan),
+                None, None)
 
 
-def gather_rows_sorted(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows_sorted(table: torch.Tensor, idx: torch.Tensor, *,
+                       plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """:func:`gather_rows` for ``idx`` nondecreasing per window: the banded
-    sum's adjoint.  Backward: :func:`segment_sum_sorted`."""
+    sum's adjoint.  Backward: :func:`segment_sum_sorted`, over ``plan``
+    (``segment_plan(idx, N, sorted_ids=True)``) when given."""
     single, (table, idx) = _batched(table, idx)
-    out = _GatherRowsSorted.apply(table, idx)
+    _check_plan("gather_rows_sorted", plan, idx, table.shape[1],
+                sorted_only=True)
+    out = _GatherRowsSorted.apply(table, idx, plan)
     return out[0] if single else out
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
                  num_segments: int, weights: Optional[torch.Tensor] = None,
-                 *, sorted_ids: bool = False) -> torch.Tensor:
+                 *, sorted_ids: bool = False,
+                 plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """(Weighted) mean aggregation, safe for empty segments: the reference's
     ``segment_mean``.  ``weights`` is [E] / [B, E] (or with a trailing 1);
     the numerator sums ``data · w`` and the denominator ``w``, each one
-    segment sum.  ``sorted_ids=True`` routes both to
+    segment sum over the same ``plan``.  ``sorted_ids=True`` routes both to
     :func:`segment_sum_sorted` (its contract), the default to the
     order-independent :func:`segment_sum`."""
     sum_fn = segment_sum_sorted if sorted_ids else segment_sum
     if weights is not None:
         w = weights[..., None] if weights.dim() == segment_ids.dim() else weights
-        total = sum_fn(data * w, segment_ids, num_segments)
-        denom = sum_fn(w, segment_ids, num_segments)
+        total = sum_fn(data * w, segment_ids, num_segments, plan=plan)
+        denom = sum_fn(w, segment_ids, num_segments, plan=plan)
     else:
-        total = sum_fn(data, segment_ids, num_segments)
+        total = sum_fn(data, segment_ids, num_segments, plan=plan)
         denom = sum_fn(torch.ones(data.shape[:-1] + (1,), dtype=data.dtype,
-                                  device=data.device), segment_ids, num_segments)
+                                  device=data.device), segment_ids,
+                       num_segments, plan=plan)
     return total / torch.clamp_min(denom, 1e-6)
 
 

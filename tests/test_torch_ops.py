@@ -367,3 +367,156 @@ def test_batched_backward_keeps_windows_apart():
         ops.segment_sum_sorted(data, torch.from_numpy(ids), N), data, cot)
     for b in range(B):
         np.testing.assert_array_equal(g[b].numpy(), cot[b].numpy()[ids[b]])
+
+
+# --- segment plans: graph structure taken once per forward -------------------
+
+
+def _plan_case(case):
+    """([B, S] int32 ids, N, sorted_ids) for segment_plan's cases."""
+    rng = np.random.default_rng(70)
+    if case == "unsorted":
+        return rng.integers(-3, 43, (3, 200)).astype(np.int32), 40, False
+    if case == "builder_padding":     # sorted live prefix, 300-row tail
+        ids = np.concatenate([np.sort(rng.integers(0, 63, (2, 212)), axis=1),
+                              np.full((2, 300), 63)], axis=1)
+        return ids.astype(np.int32), 64, True
+    if case == "out_of_range_sorted":
+        return np.sort(rng.integers(-50, 90, (2, 150)), axis=1).astype(np.int32), 40, True
+    if case == "fewer_rows_than_a_chunk":
+        return rng.integers(0, 9, (2, 7)).astype(np.int32), 9, False
+    if case == "one_segment":
+        return np.zeros((1, 100), np.int32), 1, True
+    return np.zeros((2, 0), np.int32), 5, False          # no rows
+
+
+@pytest.mark.parametrize("case", ["unsorted", "builder_padding",
+                                  "out_of_range_sorted", "fewer_rows_than_a_chunk",
+                                  "one_segment", "no_rows"])
+def test_segment_plan_invariants(case):
+    """The plan against numpy, and ``SegmentPlan.chunks()``, the chunk map
+    written out in PyTorch, against the map's invariants.  chunks() is the
+    spec of the kernels' own map (``Chunk::find`` in
+    csrc/segment_chunks.cuh), which runs only on the card: chip_smoke.py's
+    long-band and plan checks hold that one."""
+    ids, N, sorted_ids = _plan_case(case)
+    B, S = ids.shape
+    L = ops.CHUNK_ROWS
+    plan = ops.segment_plan(torch.from_numpy(ids), N, sorted_ids=sorted_ids)
+    order = np.argsort(ids, axis=1, kind="stable")
+    keys = np.take_along_axis(ids, order, 1)
+    if sorted_ids:
+        assert plan.perm is None
+    else:
+        np.testing.assert_array_equal(plan.perm.numpy(), order)
+    seg, lo, hi = (t.numpy() for t in plan.chunks())
+    K = N + -(-S // L)
+    assert seg.shape == (B, K) and plan.num_chunk_slots == K
+    for b in range(B):
+        ptr = np.searchsorted(keys[b], np.arange(N + 1))
+        np.testing.assert_array_equal(plan.ptr[b].numpy(), ptr)
+        owned = seg[b] >= 0
+        # every segment has at least one chunk, in segment order
+        assert np.array_equal(np.unique(seg[b, owned]), np.arange(N))
+        assert np.all(np.diff(seg[b, owned]) >= 0)
+        # chunks of at most L rows, each within its own segment
+        assert np.all(hi[b, owned] - lo[b, owned] <= L)
+        assert np.all(lo[b, owned] <= hi[b, owned])
+        for n, a, z in zip(seg[b, owned], lo[b, owned], hi[b, owned]):
+            assert np.all(keys[b, a:z] == n)
+        # the chunks cover every in-range row exactly once, in order, and
+        # no out-of-range one
+        rows = np.concatenate([np.arange(a, z) for a, z
+                               in zip(lo[b, owned], hi[b, owned])] + [[]])
+        in_range = np.flatnonzero((keys[b] >= 0) & (keys[b] < N))
+        np.testing.assert_array_equal(rows, in_range)
+        # within the static bound N + ceil(S / L), a segment of len rows in
+        # at most ceil(len / L) + 1 chunks
+        assert owned.sum() <= K
+        lens = np.diff(ptr)
+        counts = np.bincount(seg[b, owned], minlength=N)
+        assert np.all(counts <= np.maximum(1, -(-lens // L)) + 1)
+
+
+def _plan_op(op):
+    """(op(x, plan), x, the ids' plan) for the ops that take a plan."""
+    rng = np.random.default_rng(71)
+    B, E, N, F = 2, 96, 13, 6
+    ids = rng.integers(-1, N + 1, (B, E)).astype(np.int32)
+    sorted_ids = np.sort(ids, axis=1)
+    w = rng.uniform(0.0, 1.0, (B, E)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a)
+    if op == "segment_sum":
+        return (lambda d, p: ops.segment_sum(d, t(ids), N, plan=p),
+                _rand((B, E, F), 72), ops.segment_plan(t(ids), N))
+    if op == "gather_rows":
+        return (lambda m, p: ops.gather_rows(m, t(ids), plan=p),
+                _rand((B, N, F), 73), ops.segment_plan(t(ids), N))
+    if op == "segment_sum_sorted":
+        return (lambda d, p: ops.segment_sum_sorted(d, t(sorted_ids), N, plan=p),
+                _rand((B, E, F), 74), ops.segment_plan(t(sorted_ids), N, sorted_ids=True))
+    if op == "gather_rows_sorted":
+        return (lambda m, p: ops.gather_rows_sorted(m, t(sorted_ids), plan=p),
+                _rand((B, N, F), 75), ops.segment_plan(t(sorted_ids), N, sorted_ids=True))
+    return (lambda d, p: ops.segment_mean(d, t(sorted_ids), N, weights=t(w),
+                                          sorted_ids=True, plan=p),
+            _rand((B, E, F), 76), ops.segment_plan(t(sorted_ids), N, sorted_ids=True))
+
+
+@pytest.mark.parametrize("op", ["segment_sum", "gather_rows", "segment_sum_sorted",
+                                "gather_rows_sorted", "segment_mean"])
+def test_ops_with_a_plan_match_ops_without(op):
+    """Forward and backward with the ids' plan equal those without, bit for
+    bit.  On the CPU the plain versions ignore the plan, so this holds the
+    ops' plumbing (a gather hands its plan to its adjoint sum); that the
+    kernels give the same bits with and without a plan is checked on the
+    card by chip_smoke.py."""
+    fn, x, plan = _plan_op(op)
+    results = []
+    for p in (None, plan):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        out = fn(xt, p)
+        cot = torch.from_numpy(_rand(tuple(out.shape), 77))
+        (g,) = torch.autograd.grad(out, xt, cot)
+        results.append((out.detach().numpy(), g.numpy()))
+    np.testing.assert_array_equal(results[0][0], results[1][0])
+    np.testing.assert_array_equal(results[0][1], results[1][1])
+
+
+def test_a_plan_must_fit_its_operands():
+    ids = torch.from_numpy(np.sort(np.random.default_rng(78).integers(
+        0, 10, (2, 30))).astype(np.int32))
+    data = torch.ones(2, 30, 3)
+    with pytest.raises(ValueError):       # another number of segments
+        ops.segment_sum(data, ids, 12, plan=ops.segment_plan(ids, 10))
+    with pytest.raises(ValueError):       # the banded sum takes a sorted plan
+        ops.segment_sum_sorted(data, ids, 10, plan=ops.segment_plan(ids, 10))
+    sorted_plan = ops.segment_plan(ids, 10, sorted_ids=True)
+    np.testing.assert_array_equal(
+        ops.segment_sum(data, ids, 10, plan=sorted_plan).numpy(),
+        ops.segment_sum(data, ids, 10).numpy())
+
+
+@pytest.mark.parametrize("sorted_op", [False, True])
+def test_builder_padding_long_band_matches_pallas(sorted_op):
+    # the builder's layout: 212 live edges, then a 300-row padding tail on
+    # the last of 64 nodes (the band one warp walked before the chunked
+    # kernels); the order-independent sum gets the rows shuffled
+    rng = np.random.default_rng(79)
+    E, N, F = 512, 64, 24
+    ids = np.concatenate([np.sort(rng.integers(0, N - 1, E - 300)),
+                          np.full(300, N - 1)]).astype(np.int32)
+    if not sorted_op:
+        ids = rng.permutation(ids)
+    data = _rand((E, F), 80)
+    if sorted_op:
+        want = pallas_segment.segment_sum_sorted(jnp.asarray(data), jnp.asarray(ids),
+                                                 N, True)
+        got = ops.segment_sum_sorted(torch.from_numpy(data), torch.from_numpy(ids), N,
+                                     plan=ops.segment_plan(torch.from_numpy(ids), N,
+                                                           sorted_ids=True))
+    else:
+        want = pallas_segment.segment_sum(jnp.asarray(data), jnp.asarray(ids), N, True)
+        got = ops.segment_sum(torch.from_numpy(data), torch.from_numpy(ids), N,
+                              plan=ops.segment_plan(torch.from_numpy(ids), N))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
