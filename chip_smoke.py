@@ -12,11 +12,13 @@ holds each against its plain PyTorch version on the card (float32 and
 bfloat16; masked edges, empty segments, skewed bands, bands past the end,
 out-of-range ids, empty inputs; for the two chunked segment sums long
 segments at F = 160, 24 and 1: 4096 rows on one segment, the builder's
-padding tail at both rungs, fewer rows than a chunk), each result of the
-chunked sums bit-equal over two runs and with or without the ids' segment
-plan, and each op's backward (an autograd Function whose backward is the
-adjoint kernel) against the plain version's gradient, with and without a
-plan.  Then it drives the two paths the port has, each with the launch
+padding tail at both rungs, fewer rows than a chunk; for the two gathers,
+one row-copy kernel, bit for bit: F = 160, 24, 19, 7 and 1, tables off
+16-byte alignment, both rungs' padding tails, long runs of one id), each
+result of the chunked sums bit-equal over two runs and with or without the
+ids' segment plan, and each op's backward (an autograd Function whose
+backward is the adjoint kernel) against the plain version's gradient, with
+and without a plan.  Then it drives the two paths the port has, each with the launch
 counters set to 0 just before it and read just after:
 
 * ``model_detect`` with the full-width ``NerrfNet`` (28-layer GraphSAGE-T of
@@ -35,14 +37,18 @@ versions, in ``segment`` and ``fused`` modes; a small float32 detection and
 a small float32 training run on the card are compared with the same runs on
 the CPU.  Each kernel is then checked and timed at its call sites on the
 inputs each path gives it (its first batch's edge views and sequence
-routing), beside its plain version, one PyTorch library call and its bound;
-the chunked sums also with their structure built per call, and with the
-profiler's device time per launch on those inputs and on the same rows with
-the padding tail spread over distinct segments.  The result line holds each
-kernel at its main call site on its own path, as the path calls it.
+routing), beside its plain version, one PyTorch library call and its bound,
+with the host's enqueue time per call (with the launch's host path as it
+is, and untrimmed) and the profiler's device time per launch of the kernel
+and of the library call; the chunked sums also with their structure built
+per call, and on the same rows with the padding tail spread over distinct
+segments.  Where one gather call's host time goes is split step by step.
+The result line holds each kernel at its main call site on its own path, as
+the path calls it.
 
 Prints the card's name and power limit, one JSON line with each kernel's
-launches, error, times and bound, the detection rate, the training rate and
+launches, error, times (ms, host_us, device_ms, library_ms,
+library_device_ms) and bound, the detection rate, the training rate and
 its breakdown, the card's busy share from profiler traces, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, when a phase fails or there is no card.
@@ -178,6 +184,45 @@ def host_us(fn, iters: int = 200, warmup: int = 10) -> float:
     return us
 
 
+def _untrimmed_stream(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _untrimmed_launch(name: str, device, *args, stream=None) -> None:
+    """``kernels._launch`` before its host trims: the guard through the
+    ``torch.cuda.device`` context manager, the stream handle through a
+    ``torch.cuda.Stream`` object."""
+    import torch
+
+    from nerrf_tpu_torch.ops import kernels
+
+    with torch.cuda.device(device):
+        err = kernels._fn(name)(*args, _untrimmed_stream(device)
+                                if stream is None else stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def host_us_trimmed_untrimmed(fn) -> tuple:
+    """:func:`host_us` of ``fn`` as the port launches, and with the launch's
+    stream handle and device guard taken as before their trims; in turns
+    (trimmed, untrimmed, untrimmed, trimmed), each side's mean."""
+    from nerrf_tpu_torch.ops import kernels
+
+    def untrimmed():
+        launch, stream = kernels._launch, kernels._stream
+        kernels._launch, kernels._stream = _untrimmed_launch, _untrimmed_stream
+        try:
+            return host_us(fn)
+        finally:
+            kernels._launch, kernels._stream = launch, stream
+
+    a, b, c, d = host_us(fn), untrimmed(), untrimmed(), host_us(fn)
+    return (a + d) / 2, (b + c) / 2
+
+
 def round_robin_ms(fns: dict, rounds: int = 15, warmup: int = 2) -> dict:
     """Median ms of each ``fns`` entry on the host clock, synced before and
     after each call, the entries run in turn round after round."""
@@ -277,10 +322,11 @@ def sage_graph(B, N, E, gen, device, n_valid=None, zero_frac=0.0, dst_values=Non
 
 
 def check_kernels() -> dict:
-    """Each kernel against its plain version on the card, float32 and
-    bfloat16, on synthetic inputs at the main path's shapes and on the edge
-    cases (masked edges, empty rows, a skewed band, odd and empty shapes).
-    Returns the max |Δ| of each case, by kernel."""
+    """``sage_aggregate`` and ``segment_sum`` against their plain versions
+    on the card, float32 and bfloat16, on synthetic inputs at the detection
+    path's shapes and on the edge cases (masked edges, empty rows, a skewed
+    band, odd and empty shapes).  Returns the max |Δ| of each case, by
+    kernel."""
     import torch
 
     from nerrf_tpu_torch.ops import segment as ops
@@ -324,26 +370,6 @@ def check_kernels() -> dict:
             _fail("sage_aggregate: E=0 must give zeros")
     report["sage_aggregate"] = errs
 
-    # ---- gather_rows
-    errs = {}
-    for dt in (torch.float32, torch.bfloat16):
-        name = str(dt).split(".")[1]
-        table = torch.randn(B, N, F, generator=gen).to(dev, dt)
-        idx = torch.randint(0, N, (B, E), generator=gen)
-        idx[:, ::97] = -1          # out of range: zero rows
-        idx[:, 5::101] = N + 5
-        idx = idx.to(torch.int32).to(dev)
-        got, want = _both(ops.gather_rows, table, idx)
-        errs[f"main/{name}"] = _close("gather_rows", got, want, name)
-        odd_t = torch.randn(45, 19, generator=gen).to(dev, dt)
-        odd_i = torch.randint(0, 45, (130,), generator=gen).to(torch.int32).to(dev)
-        got, want = _both(ops.gather_rows, odd_t, odd_i)
-        errs[f"odd/{name}"] = _close("gather_rows odd", got, want, name)
-        got = ops.gather_rows(table, torch.zeros(B, 0, dtype=torch.int32, device=dev))
-        if got.shape != (B, 0, F):
-            _fail("gather_rows: E=0 must give an empty result")
-    report["gather_rows"] = errs
-
     # ---- segment_sum
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -375,10 +401,10 @@ def check_kernels() -> dict:
     return report
 
 
-def sage_library_ms(msg, edges, N):
+def sage_library(msg, edges, N):
     """One cuSPARSE product computing the same aggregation: the block-diagonal
-    [B·N, B·N] CSR matrix of both directions' weights times msg.  None when
-    this PyTorch has no CSR product for msg's type."""
+    [B·N, B·N] CSR matrix of both directions' weights times msg, as a
+    callable.  None when this PyTorch has no CSR product for msg's type."""
     import torch
 
     B, _, F = msg.shape
@@ -394,10 +420,11 @@ def sage_library_ms(msg, edges, N):
         mat = mat.to_sparse_csr()
     dense = msg.reshape(B * N, F)
     try:
-        return cuda_ms(lambda: torch.sparse.mm(mat, dense))
+        torch.sparse.mm(mat, dense)
     except (RuntimeError, NotImplementedError) as e:
         print(f"library_ms for sage_aggregate not measured: {e}".splitlines()[0])
         return None
+    return lambda: torch.sparse.mm(mat, dense)
 
 
 def time_kernels(batch: dict, report: dict, tag: str) -> dict:
@@ -407,9 +434,14 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
     plain version, and the times of the kernel, the plain version (the same
     call under ``plain_ops``; it ignores the precomputed row pointers) and
     one PyTorch library call computing the same function, beside the bound
-    of the work these inputs need.  One entry per call site, named by its
-    kernel where that is the kernel's main call site on the training path.
-    ``tag`` names the inputs in ``report``."""
+    of the work these inputs need; the host's enqueue time of the call
+    (``host_us``, and ``host_us_untrimmed`` with the launch's stream handle
+    and device guard as they were before their trims), and from the
+    profiler the device time per call of the port's kernel (``device_ms``)
+    and of the library call (``library_device_ms``, all its kernels).  One
+    entry per call site,
+    named by its kernel where that is the kernel's main call site on the
+    training path.  ``tag`` names the inputs in ``report``."""
     import torch
 
     from nerrf_tpu_torch.models.graphsage import fused_edge_views
@@ -436,16 +468,18 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
             plain_ms = cuda_ms(call, iters=10)
         b_ms, b_by = bound_ms(nbytes, ops)
         res = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=library())
+                   library_ms=None if library is None else cuda_ms(library),
+                   library_device_ms=None if library is None
+                   else sum(device_split(library).values()),
+                   device_ms=port_kernel_ms(device_split(call)))
+        res["host_us"], res["host_us_untrimmed"] = host_us_trimmed_untrimmed(call)
         if per_call is not None:
-            # the chunked sums: ms with the structure built per call (no
-            # plan, as the ops ran before plans existed), the host's enqueue
-            # time of both calls, and from the profiler the device time per
-            # launch of the path's call and of the same rows with the
+            # the chunked sums: ms and host enqueue time with the structure
+            # built per call (no plan, as the ops ran before plans existed),
+            # and the device time per launch of the same rows with the
             # padding tail spread over distinct segments (band-free)
             res["per_call_ms"] = cuda_ms(per_call)
-            res["host_us"] = [host_us(call), host_us(per_call)]
-            res["device_ms"] = port_kernel_ms(device_split(call))
+            res["per_call_host_us"] = host_us(per_call)
             res["band_free_device_ms"] = port_kernel_ms(device_split(band_free))
         return res
 
@@ -461,7 +495,7 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
     out = {"sage_aggregate": timed(
         "sage_aggregate",
         lambda: sage_aggregate(msg, *edges, N, row_ptrs=ptrs),
-        lambda: sage_library_ms(msg, edges, N),
+        sage_library(msg, edges, N),
         2 * B * N * F * elt + B * E * (4 * 4 + 2 * 4), 2 * F * live,
         _sage_scale(msg, edges, N))}
     out["sage_aggregate"]["live_edges_per_window"] = live / B
@@ -477,7 +511,7 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
     rows = sum(int(torch.unique(idx[b]).numel()) for b in range(B))
     out["gather_rows"] = timed(
         "gather_rows", lambda: gather_rows(h, idx),
-        lambda: cuda_ms(lambda: torch.index_select(h.reshape(B * N, F), 0, flat_idx)),
+        lambda: torch.index_select(h.reshape(B * N, F), 0, flat_idx),
         rows * F * elt + idx.numel() * 4 + B * E * F * elt, 0)
 
     # the padding tail (edge_mask false) spread over distinct segments: the
@@ -499,8 +533,8 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
     plan_free = segment_plan(src_free, N)
     out["segment_sum"] = timed(
         "segment_sum", lambda: segment_sum(gsrc, src, N, plan=plan_src),
-        lambda: cuda_ms(lambda: torch.zeros(B * N, F, dtype=gsrc.dtype, device=dev)
-                        .index_add_(0, flat_src, gsrc.reshape(-1, F))),
+        lambda: torch.zeros(B * N, F, dtype=gsrc.dtype, device=dev)
+        .index_add_(0, flat_src, gsrc.reshape(-1, F)),
         gsrc.numel() * elt + src.numel() * 4 + B * N * F * elt, gsrc.numel(),
         _segment_scale(gsrc, src, N), case="-gather-backward",
         per_call=lambda: segment_sum(gsrc, src, N),
@@ -518,8 +552,8 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
     flat = (ids.long() + offsets * (N + 1)).reshape(-1)
     out["segment_sum_fusion"] = timed(
         "segment_sum", lambda: segment_sum(data, ids, N + 1),
-        lambda: cuda_ms(lambda: torch.zeros(B * (N + 1), SEQ_F, device=dev)
-                        .index_add_(0, flat, data.reshape(-1, SEQ_F))),
+        lambda: torch.zeros(B * (N + 1), SEQ_F, device=dev)
+        .index_add_(0, flat, data.reshape(-1, SEQ_F)),
         data.numel() * 4 + ids.numel() * 4 + B * (N + 1) * SEQ_F * 4,
         data.numel(), _segment_scale(data, ids, N + 1), case="-fusion",
         per_call=lambda: segment_sum(data, ids, N + 1),
@@ -542,9 +576,8 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
         out[key] = timed(
             "segment_sum_sorted",
             lambda d=d: segment_sum_sorted(d, dst, N, plan=plan_dst),
-            lambda d=d, Fd=Fd: cuda_ms(
-                lambda: torch.zeros(B * N, Fd, dtype=d.dtype, device=dev)
-                .index_add_(0, flat_dst, d.reshape(-1, Fd))),
+            lambda d=d, Fd=Fd: torch.zeros(B * N, Fd, dtype=d.dtype, device=dev)
+            .index_add_(0, flat_dst, d.reshape(-1, Fd)),
             d.numel() * elt + dst.numel() * 4 + B * N * Fd * elt, d.numel(),
             _segment_scale(d, dst, N), case="" if Fd == F else "-f1",
             per_call=lambda d=d: segment_sum_sorted(d, dst, N),
@@ -560,9 +593,72 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
     rows = sum(int(torch.unique(dst[b]).numel()) for b in range(B))
     out["gather_rows_sorted"] = timed(
         "gather_rows_sorted", lambda: gather_rows_sorted(g, dst),
-        lambda: cuda_ms(lambda: torch.index_select(g.reshape(B * N, F), 0, flat_dst)),
+        lambda: torch.index_select(g.reshape(B * N, F), 0, flat_dst),
         rows * F * elt + dst.numel() * 4 + B * E * F * elt, 0)
     return out
+
+
+def gather_host_split(batch: dict) -> dict:
+    """Where the host's time of one gather call goes, at the training rung
+    (a layer's ``msg[edge_src]``, [8, 1024, 160] bf16 by [8, 2048] int32):
+    the enqueue time (µs per call, not waiting for the card) of the op call
+    whole, of each step of its chain on the same operands alone (the
+    ``ctypes`` call also on a dtype code the entry refuses before it
+    launches), and of the raw spellings of the launch's stream handle and
+    device guard; the whole call and the launcher also with the launch
+    untrimmed."""
+    import torch
+
+    from nerrf_tpu_torch.ops import gather_rows, kernels
+    from nerrf_tpu_torch.ops import segment as ops
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    idx = torch.from_numpy(batch["edge_src"]).to(dev)
+    B, E = idx.shape
+    N, F = batch["node_mask"].shape[1], MAIN_F
+    table = torch.randn(B, N, F, device=dev).to(torch.bfloat16)
+    out = torch.empty(B, E, F, dtype=table.dtype, device=dev)
+    fn = kernels._fn("gather_rows")
+    args = (table.data_ptr(), kernels.dtype_code(table), idx.data_ptr(), B, N, E,
+            F, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+
+    class Noop(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t, i, plan):
+            return t
+
+    def device_guard():
+        with torch.cuda.device(dev):
+            pass
+
+    def raw_guard():
+        torch._C._cuda_maybeExchangeDevice(torch._C._cuda_exchangeDevice(dev.index))
+
+    steps = {
+        "c_ctypes_call": lambda: fn(*args),
+        "c0_ctypes_call_no_launch": lambda: fn(args[0], -1, *args[2:]),
+        "d_current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "e_device_guard": device_guard,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "raw_device_exchange": raw_guard,
+        "function_apply_noop": lambda: Noop.apply(table, idx, None),
+        "use_kernel": lambda: ops._use_kernel("gather_rows", table, idx),
+        "table_contiguous": lambda: table.contiguous(),
+        "int32_idx": lambda: ops._int32(idx),
+        "torch_empty": lambda: torch.empty(B, E, F, dtype=table.dtype, device=dev),
+        "empty_call": lambda: None,
+    }
+    # 200 calls of a step that launches (the card's queue takes them all
+    # without the host waiting), 2000 of the others
+    split = {name: host_us(step, iters=200 if name == "c_ctypes_call" else 2000,
+                           warmup=50)
+             for name, step in steps.items()}
+    for name, step in (("a_gather_rows", lambda: gather_rows(table, idx)),
+                       ("b_launch_gather",
+                        lambda: kernels.launch_gather("gather_rows", table, idx, out))):
+        split[name], split[f"{name}_untrimmed"] = host_us_trimmed_untrimmed(step)
+    _sync()
+    return split
 
 
 # --- the main path ------------------------------------------------------------
@@ -743,10 +839,10 @@ def sorted_ids(B, N, E, gen, device, n_valid=None, lo=0, hi=None):
 
 
 def check_banded_kernels() -> dict:
-    """``segment_sum_sorted`` (F = 160 and F = 1) and ``gather_rows_sorted``
-    against their plain versions on the card, float32 and bfloat16, at the
-    training rung's shapes: the builder's padding layout, a skewed band,
-    bands past the end, ids out of range, sparse spread, E = 0."""
+    """``segment_sum_sorted`` (F = 160 and F = 1) against its plain version
+    on the card, float32 and bfloat16, at the training rung's shapes: the
+    builder's padding layout, a skewed band, bands past the end, ids out of
+    range, E = 0."""
     import torch
 
     from nerrf_tpu_torch.ops import segment as ops
@@ -756,7 +852,7 @@ def check_banded_kernels() -> dict:
     N, E = TRAIN_RUNG[:2]
     B, F = 8, MAIN_F
     pad = E - 1190                      # the rung's typical live edge count
-    report = {"segment_sum_sorted": {}, "gather_rows_sorted": {}}
+    report = {"segment_sum_sorted": {}}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
         cases = {
@@ -781,17 +877,64 @@ def check_banded_kernels() -> dict:
             _sync()
             if got.shape != (B, N, Fc) or float(got.abs().max()) != 0.0:
                 _fail("segment_sum_sorted: E=0 must give zeros")
-        table = torch.randn(B, N, F, generator=gen).to(dev, dt)
-        for case, idx in (("padding", cases["padding"]),
-                          ("spread", sorted_ids(B, N, 256, gen, dev)),
-                          ("out_of_range", cases["out_of_range"])):
-            got, want = _both(ops.gather_rows_sorted, table, idx)
-            report["gather_rows_sorted"][f"{case}/{name}"] = _close(
-                f"gather_rows_sorted {case}", got, want, name)
-            bad = (idx < 0) | (idx >= N)
-            if bad.any() and float(got[bad].abs().max()) != 0.0:
-                _fail("gather_rows_sorted: out-of-range ids must give zero rows")
     return report
+
+
+def check_gathers(report: dict) -> None:
+    """Both gathers (one row-copy kernel) against the plain version on the
+    card, bit for bit, float32 and bfloat16: ``gather_rows`` on ids in random
+    order, ``gather_rows_sorted`` on the same ids sorted per window.  The
+    cases: the main call sites' shapes (F = 160 at both rungs, the builder's
+    padding tail on the last node; the fusion's backward, [8, 1025, 24]
+    float32 by [8, 128] ids mostly on slot N), F = 1 and F = 7 (rows that
+    are no multiple of 16 bytes), a table one element off a 16-byte boundary
+    (the element-wise layouts), ids below 0 and at or past N (zero rows),
+    sparse ids, one window of 2-D operands, E = 0, and for the sorted gather
+    long runs of one id (runs of ~256, and one id for all 2048)."""
+    import torch
+
+    from nerrf_tpu_torch.ops import segment as ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(8642)
+    ids_of = lambda B, N, E, **kw: sorted_ids(B, N, E, gen, dev, **kw)
+    cases = {   # name: (table shape, float dtypes, nondecreasing ids [B, E], shift)
+        "train-padding": ((8, 1024, MAIN_F), None, ids_of(8, 1024, 2048, n_valid=2048 - 1192), 0),
+        "detect-padding": ((8, 4096, MAIN_F), None, ids_of(8, 4096, 4096, n_valid=4096 - 3121), 0),
+        "detect-out-of-range": ((8, 4096, MAIN_F), None,
+                                ids_of(8, 4096, 4096, lo=-40, hi=4096 + 40), 0),
+        "fusion-backward": ((8, 1025, SEQ_F), (torch.float32,),
+                            ids_of(8, 1025, 128, lo=900, hi=1025 + 300).clamp_max(1024), 0),
+        "F1": ((8, 1024, 1), None, ids_of(8, 1024, 2048, lo=-3, hi=1027), 0),
+        "F7": ((8, 1024, 7), None, ids_of(8, 1024, 2048, lo=-3, hi=1027), 0),
+        "misaligned": ((8, 1024, MAIN_F), None, ids_of(8, 1024, 2048, n_valid=2048 - 1192), 1),
+        "misaligned-F24": ((8, 1025, SEQ_F), None, ids_of(8, 1025, 128, lo=-2, hi=1027), 1),
+        "spread": ((8, 1024, MAIN_F), None, ids_of(8, 1024, 256), 0),
+        "one-window": ((1, 45, 19), None, ids_of(1, 45, 130, lo=-2, hi=47), 0),
+        "runs": ((8, 1024, MAIN_F), None, ids_of(8, 1024, 2048, lo=500, hi=508), 0),
+        "one-id": ((8, 1024, MAIN_F), None, torch.full((8, 2048), 131, dtype=torch.int32,
+                                                       device=dev), 0),
+        "E0": ((8, 1024, MAIN_F), None, torch.zeros(8, 0, dtype=torch.int32, device=dev), 0),
+    }
+    for case, (shape, dtypes, ids, shift) in cases.items():
+        B, N, F = shape
+        shuffled = torch.gather(ids, 1, torch.argsort(
+            torch.rand(ids.shape, generator=gen), dim=1).to(dev))
+        for dt in dtypes or (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            flat = torch.empty(B * N * F + shift, dtype=dt, device=dev)
+            table = flat[shift:].view(B, N, F)
+            table.copy_(torch.randn(B, N, F, generator=gen))
+            for op, op_ids in ((ops.gather_rows, shuffled), (ops.gather_rows_sorted, ids)):
+                t, i = (table[0], op_ids[0]) if case == "one-window" else (table, op_ids)
+                got, want = _both(op, t, i)
+                report[op.__name__][f"{case}/{name}"] = _close(
+                    f"{op.__name__} {case}", got, want, name)
+                if got.shape != (*i.shape, F):
+                    _fail(f"{op.__name__} {case}: result of shape {tuple(got.shape)}")
+                bad = (i < 0) | (i >= N)
+                if bool(got[bad].any()):
+                    _fail(f"{op.__name__} {case}: out-of-range ids must give zero rows")
 
 
 def check_long_bands(report: dict) -> None:
@@ -1288,6 +1431,8 @@ def main() -> int:
                         print(f"ptxas {name}: {line.strip()}")
         errors = check_kernels()
         errors.update(check_banded_kernels())
+        errors.update(gather_rows={}, gather_rows_sorted={})
+        check_gathers(errors)
         check_long_bands(errors)
         check_backward(errors)
         check_plans()
@@ -1299,6 +1444,7 @@ def main() -> int:
         grads = check_step_grads(train_ds, train_cfg)
         small_train_err = check_small_train()
         timing = time_kernels(train["batch"], errors, "train")
+        split = gather_host_split(train["batch"])
     except Exception as e:  # any failed phase fails the smoke
         import traceback
 
@@ -1321,7 +1467,9 @@ def main() -> int:
             for name in kernels.KERNELS}
     runs = {"model_detect": (main_path, detect_timing),
             "train_nerrfnet": (train, timing)}
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms", "host_us", "device_ms")
+    trims = ("host_us_untrimmed",)
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"nerrf_tpu_torch/ops/csrc/{name}.cu",
@@ -1332,15 +1480,21 @@ def main() -> int:
          **{k: runs[path[name]][1][name][k] for k in keys}}
         for name in kernels.KERNELS]}
     print("kernel errors by case: " + json.dumps(errors))
-    chunked = ("per_call_ms", "host_us", "device_ms", "band_free_device_ms")
+    chunked = ("per_call_ms", "per_call_host_us", "band_free_device_ms")
     for tag, tm in (("detection rung (4096n/4096e/4096s)", detect_timing),
                     ("training rung (1024n/2048e/128s)", timing)):
         print(f"kernel times at the {tag}, by call site (ms: as the path calls "
-              f"it; per_call_ms: structure built per call; host_us: the host's "
-              f"enqueue time of both; device_ms and band_free_device_ms: the "
-              f"kernel's device time per launch, profiler): " + json.dumps(
-                  {site: {k: tm[site][k] for k in keys + chunked if k in tm[site]}
+              f"it, CUDA events; host_us: the host's enqueue time of that call, "
+              f"host_us_untrimmed: the same with the launch untrimmed; "
+              f"device_ms: the kernel's device time per launch, and "
+              f"library_device_ms: the library call's, profiler; per_call_ms, "
+              f"per_call_host_us: structure built per call; band_free_device_ms: "
+              f"padding tail spread): " + json.dumps(
+                  {site: {k: tm[site][k] for k in keys + trims + chunked
+                          if k in tm[site]}
                    for site in tm}))
+    print("host split of one gather_rows call at the training rung (µs per "
+          "call, enqueue only): " + json.dumps(split))
     for tag, tm, E in (("detection", detect_timing, MAIN_E),
                        ("training", timing, TRAIN_RUNG[1])):
         print(f"{tag} rung: sage_aggregate "

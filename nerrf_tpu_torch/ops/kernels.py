@@ -126,13 +126,21 @@ def _fn(name: str):
 
 
 def _stream(device: torch.device) -> int:
-    """The handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of PyTorch's current stream on ``device``, read as
+    PyTorch's own generated launchers read it: ``current_stream(device)``
+    builds a ``torch.cuda.Stream`` first, 3-8 µs more per launch on the
+    H100 machines measured (PERF.md)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _launch(name: str, device: torch.device, *args, stream=None) -> None:
-    with torch.cuda.device(device):
+    # torch.cuda.device(device)'s guard, called directly: its context
+    # manager's Python layers cost 1.5-4 µs more per launch (PERF.md)
+    prev = torch._C._cuda_exchangeDevice(device.index)
+    try:
         err = _fn(name)(*args, _stream(device) if stream is None else stream)
+    finally:
+        torch._C._cuda_maybeExchangeDevice(prev)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -179,10 +187,19 @@ def launch_sage_aggregate(msg, ptr_f, gidx_f, w_f, ptr_r, gidx_r, w_r, out) -> N
             B, N, E, F, out.data_ptr())
 
 
-def launch_gather_rows(table, idx, out) -> None:
+def launch_gather(name: str, table, idx, out) -> None:
+    """``gather_rows`` or ``gather_rows_sorted`` (``name``, one row-copy
+    kernel, csrc/gather_rows.cuh) of ``table`` [B, N, F] by ``idx`` [B, E]
+    into ``out`` [B, E, F].  The kernel indexes in 32 bits and runs the
+    windows as its grid's y index: larger operands are refused."""
     B, N, F = table.shape
     E = idx.shape[1]
-    _launch("gather_rows", table.device, table.data_ptr(), dtype_code(table),
+    if max(N, E) * B * F >= 2 ** 31:
+        raise ValueError(f"{name}: [{B}, {N}, {F}] by [{B}, {E}] ids is past the "
+                         "kernel's 32-bit indexing")
+    if B > 65535:
+        raise ValueError(f"{name}: {B} windows; the kernel takes at most 65535")
+    _launch(name, table.device, table.data_ptr(), dtype_code(table),
             idx.data_ptr(), B, N, E, F, out.data_ptr())
 
 
@@ -202,9 +219,3 @@ def launch_segment_sum(name: str, data, plan, out) -> None:
             plan.ptr.data_ptr(), B, N, S, F, *scratch, out.data_ptr(),
             stream=stream)
 
-
-def launch_gather_rows_sorted(table, idx, out) -> None:
-    B, N, F = table.shape
-    E = idx.shape[1]
-    _launch("gather_rows_sorted", table.device, table.data_ptr(),
-            dtype_code(table), idx.data_ptr(), B, N, E, F, out.data_ptr())

@@ -52,7 +52,13 @@ Source notes (the kernels' own files say more):
     H100).  f32 sums in a fixed order, no atomics on values: deterministic.
 ``gather_rows``
     replaces ``pallas_segment._gather_call``.  Bound by bytes (touched table
-    rows + idx + out); a coalesced element-per-thread copy.
+    rows + idx + out).  Design (``csrc/gather_rows.cuh``, shared with
+    ``gather_rows_sorted``): a copy of bits, one thread per 16-byte pack of
+    an output row (a row's packs on consecutive lanes, its id loaded once),
+    32-bit index math, a grid sized from the pack count; rows that are no
+    multiple of 16 bytes, or a table off 16-byte alignment, take the 4-byte
+    or element-wise layout of the same kernel.  Bit-equal to the plain
+    version.
 ``sage_aggregate``
     replaces ``pallas_segment._sage_call`` (``sage_aggregate_fused``).  Bound
     by bytes (msg + ids + weights + out); one warp per output row walks the
@@ -66,8 +72,10 @@ Source notes (the kernels' own files say more):
     features or fewer (the F = 1 weight denominators) go lanes over rows.
 ``gather_rows_sorted``
     replaces ``pallas_segment._gather_sorted_call``, the banded sum's
-    adjoint.  Bound by bytes; a coalesced element-per-thread copy whose
-    sorted indices keep neighbouring reads on the same rows.
+    adjoint.  Bound by bytes.  The row copy of ``gather_rows``: the band the
+    TPU kernel walks to bound its one-hot product is free on the card, and
+    the sorted ids change nothing in the copy (the padding tail's repeated
+    row is served by L1 and L2).
 """
 
 from __future__ import annotations
@@ -316,13 +324,13 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                                         device=table.device))
 
 
-def _gather_cuda(name: str, launch, table, idx):
+def _gather_cuda(name: str, table, idx):
     table = table.contiguous()
     kernels.dtype_code(table)
     out = torch.empty(table.shape[0], idx.shape[1], table.shape[2],
                       dtype=table.dtype, device=table.device)
     if out.numel():
-        launch(table, _int32(idx), out)
+        kernels.launch_gather(name, table, _int32(idx), out)
         LAUNCHES[name] += 1
     return out
 
@@ -334,8 +342,7 @@ class _GatherRows(torch.autograd.Function):
         ctx.num_rows = table.shape[1]
         ctx.plan = plan
         if _use_kernel("gather_rows", table, idx):
-            return _gather_cuda("gather_rows", kernels.launch_gather_rows,
-                                table, idx)
+            return _gather_cuda("gather_rows", table, idx)
         return gather_rows_plain(table, idx)
 
     @staticmethod
@@ -398,8 +405,7 @@ class _GatherRowsSorted(torch.autograd.Function):
         ctx.num_rows = table.shape[1]
         ctx.plan = plan
         if _use_kernel("gather_rows_sorted", table, idx):
-            return _gather_cuda("gather_rows_sorted",
-                                kernels.launch_gather_rows_sorted, table, idx)
+            return _gather_cuda("gather_rows_sorted", table, idx)
         return gather_rows_plain(table, idx)
 
     @staticmethod

@@ -284,6 +284,73 @@ def test_gather_rows_sorted_out_of_range_gives_zero_rows():
     np.testing.assert_array_equal(got[2:6], table[idx[2:6]])
 
 
+# --- both gathers against the Pallas gathers ---------------------------------
+
+
+def _gather_ids(case, B, N, E, rng):
+    """[B, E] int32 ids, nondecreasing per window, for the gathers' cases."""
+    if case == "out_of_range":        # ids at or past N; below 0 in window 0
+        ids = rng.integers(0, N + 6, (B, E))
+        ids[:, 0] = N
+        ids[0, 1:40] = rng.integers(-6, 0, 39)
+    else:                             # the builder's padding tail on row N - 1
+        ids = np.concatenate([rng.integers(0, N - 1, (B, E - 60)),
+                              np.full((B, 60), N - 1)], axis=1)
+    return np.sort(ids, axis=1).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["out_of_range", "padding_tail"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 7, 24, 160])
+@pytest.mark.parametrize("op", ["gather_rows", "gather_rows_sorted"])
+def test_gathers_match_pallas_gathers(op, F, dtype, case):
+    """Both gathers on a batch of windows against the JAX package's Pallas
+    gathers (interpret mode), one window at a time: the same bits, since
+    both are copies (the one-hot product adds one nonzero term per row).
+    ``gather_rows`` takes the ids in random order, ``gather_rows_sorted``
+    sorted.  The sorted Pallas kernel reads the wrong band for a 128-id tile
+    whose first id is negative (its band starts at table tile -1), so for
+    ids below 0 both ops are held against ``gather_rows``'s Pallas kernel,
+    which computes the same function."""
+    rng = np.random.default_rng(F)
+    B, N, E = 2, 50, 140
+    ids = _gather_ids(case, B, N, E, rng)
+    if op == "gather_rows":
+        ids = rng.permutation(ids, axis=1)
+    table = _rand((B, N, F), F + 1)
+    port = getattr(ops, op)(torch.from_numpy(table).to(getattr(torch, dtype)),
+                            torch.from_numpy(ids))
+    assert port.shape == (B, E, F) and port.dtype == getattr(torch, dtype)
+    for b in range(B):
+        t, i = jnp.asarray(table[b], getattr(jnp, dtype)), jnp.asarray(ids[b])
+        if op == "gather_rows_sorted" and ids[b, 0] >= 0:
+            want = pallas_segment._gather_sorted_call(t, i, interpret=True)
+        else:
+            want = pallas_segment.gather_rows(t, i, True)
+        np.testing.assert_array_equal(port[b].float().numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+        bad = (ids[b] < 0) | (ids[b] >= N)
+        assert bad.any() == (case == "out_of_range")
+        assert not port[b][torch.from_numpy(bad)].any()
+
+
+def test_gather_launch_refuses_shapes_past_32_bit_indexing():
+    # the row-copy kernel indexes in 32 bits and takes windows as its grid's
+    # y index: the launcher refuses larger operands before touching a device
+    from nerrf_tpu_torch.ops import kernels
+
+    idx = torch.zeros(1, 1, dtype=torch.int32)
+    for table, ids in ((torch.zeros(1, 1, 1).expand(1, 2 ** 16, 2 ** 15), idx),
+                       (torch.zeros(1, 1, 1).expand(1, 4, 2 ** 16),
+                        idx.expand(1, 2 ** 15)),
+                       (torch.zeros(1, 1, 1).expand(2 ** 16, 1, 1),
+                        idx.expand(2 ** 16, 1))):
+        out = torch.zeros(1, 1, 1).expand(table.shape[0], ids.shape[1],
+                                          table.shape[2])
+        with pytest.raises(ValueError, match="32-bit|windows"):
+            kernels.launch_gather("gather_rows", table, ids, out)
+
+
 def test_segment_mean_matches_reference():
     # the reference's weighted mean (numerator and denominator each one
     # segment sum; empty segments 0), sorted and order-independent routes
