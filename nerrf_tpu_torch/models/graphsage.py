@@ -20,16 +20,23 @@ Three aggregation modes:
   banded kernel) per layer, over the dst-sorted edges and a src-sorted view
   taken once per forward, with the four id vectors' segment plans.
 
-``auto`` resolves to ``fused`` for every bucket, so that kernel runs on every
-forward; the reference's ``DENSE_ADJ_MAX_NODES`` crossover was measured on
-the CPU and the TPU and does not carry over.  Dropout after ``final_ln``
-runs only when the forward is given a ``torch.Generator`` (training).
+``auto`` resolves to ``fused`` for every bucket that a ``routing`` table
+(the reference's per-rung table, consulted first) does not cover, so that
+kernel runs on every forward; the reference's ``DENSE_ADJ_MAX_NODES``
+crossover was measured on the CPU and the TPU and does not carry over.
+
+The ``fused`` and ``dense_adj`` precompute (each node's weight totals, the
+layer-invariant edge-embedding sums) goes through the port's deterministic
+segment sums over the edges' segment plans, taken once per forward and
+shared with every layer's kernel and the edge head's gathers: two runs on
+the card give the same bits.  Dropout after ``final_ln`` runs only when the
+forward is given a ``torch.Generator`` (training).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,7 +48,8 @@ from nerrf_tpu_torch.graph.builder import (
 )
 from nerrf_tpu_torch.models.layers import Dense, Embed, LayerNorm, dropout, gelu
 from nerrf_tpu_torch.ops import (
-    gather_rows, sage_aggregate, sage_row_ptrs, segment_mean, segment_plan)
+    SegmentPlan, gather_rows, sage_aggregate, segment_mean, segment_plan,
+    segment_sum, segment_sum_sorted)
 
 AGGREGATIONS = ("fused", "dense_adj", "segment")
 
@@ -53,36 +61,58 @@ class GraphSAGEConfig:
     dropout: float = 0.1
     dtype: torch.dtype = torch.bfloat16
     aggregation: str = "auto"
+    # the reference's per-rung routing table: sorted ((max_nodes, mode), ...)
+    # pairs consulted before the ``auto`` rule, the smallest entry whose
+    # max_nodes covers the padded node bucket winning; None keeps ``auto``
+    routing: Optional[Tuple[Tuple[int, str], ...]] = None
+
+    def __post_init__(self):
+        # one canonical shape (JSON hands back lists), junk refused here
+        if self.routing is not None:
+            table = tuple(sorted((int(cap), str(mode))
+                                 for cap, mode in self.routing))
+            for cap, mode in table:
+                if mode not in AGGREGATIONS:
+                    raise ValueError(
+                        f"unknown aggregation {mode!r} in routing table; "
+                        "expected 'fused', 'dense_adj' or 'segment'")
+                if cap <= 0:
+                    raise ValueError("routing table max_nodes must be "
+                                     f"positive, got {cap}")
+            object.__setattr__(self, "routing", table)
 
     @property
     def small(self) -> "GraphSAGEConfig":
         return dataclasses.replace(self, hidden=32, num_layers=4)
 
-    def resolved_aggregation(self) -> str:
-        if self.aggregation == "auto":
-            return "fused"
-        if self.aggregation not in AGGREGATIONS:
-            raise ValueError(f"unknown aggregation {self.aggregation!r}; "
-                             "expected 'auto', 'fused', 'dense_adj' or "
-                             "'segment'")
-        return self.aggregation
+    def resolved_aggregation(self, num_nodes: Optional[int] = None) -> str:
+        """The mode the forward runs for a padded node bucket of
+        ``num_nodes``: an explicit ``aggregation``; else the routing table's
+        smallest covering entry; else ``fused`` (the port's ``auto``)."""
+        if self.aggregation != "auto":
+            if self.aggregation not in AGGREGATIONS:
+                raise ValueError(f"unknown aggregation {self.aggregation!r}; "
+                                 "expected 'auto', 'fused', 'dense_adj' or "
+                                 "'segment'")
+            return self.aggregation
+        if self.routing and num_nodes is not None:
+            for cap, mode in self.routing:   # sorted: smallest cover wins
+                if num_nodes <= cap:
+                    return mode
+        return "fused"
 
 
-def _segment_sum_rows(values: torch.Tensor, ids: torch.Tensor,
-                      num_segments: int) -> torch.Tensor:
-    """Per-window scatter-add of [B, E] or [B, E, F] rows onto
-    ``num_segments`` slots (ids are in range: graph structure).  The
-    reference's ``jax.ops.segment_sum`` precompute, not a kernel."""
-    B = values.shape[0]
-    out = torch.zeros((B, num_segments) + values.shape[2:],
-                      dtype=values.dtype, device=values.device)
-    index = ids.long()
-    if values.dim() == 3:
-        index = index[..., None].expand_as(values)
-    return out.scatter_add_(1, index, values)
+def edge_plans(edge_src, edge_dst, num_nodes) -> Dict[str, SegmentPlan]:
+    """The :func:`~nerrf_tpu_torch.ops.segment_plan` of each edge id vector,
+    graph structure taken once per forward: ``dst`` of the builder's
+    dst-sorted ids (row pointers only), ``src`` of the source ids (its stable
+    sort order is the src-sorted view's edge order, its row pointers that
+    view's)."""
+    return {"dst": segment_plan(edge_dst, num_nodes, sorted_ids=True),
+            "src": segment_plan(edge_src, num_nodes)}
 
 
-def fused_edge_views(edge_src, edge_dst, w32, num_nodes):
+def fused_edge_views(edge_src, edge_dst, w32, num_nodes, plans=None):
     """Per-forward normalized edge views (the reference's
     ``fused_edge_views``), batched over windows.
 
@@ -91,12 +121,19 @@ def fused_edge_views(edge_src, edge_dst, w32, num_nodes):
     pre-normalized weights ``ŵ = w·inv`` in both orders); ``d``/``inv`` the
     per-node weight totals and safe inverses.  ``edge_dst`` must be the
     builder's sorted-by-dst ids and ``w32`` float32 edge weights with masked
-    edges zeroed."""
-    d_fwd = _segment_sum_rows(w32, edge_dst, num_nodes)
-    d_rev = _segment_sum_rows(w32, edge_src, num_nodes)
+    edges zeroed.  ``plans`` are :func:`edge_plans` of the ids (built here
+    when not given): ``d_fwd`` is the banded sum over ``dst``, ``d_rev`` the
+    order-independent sum over ``src``, and the src-sorted view is taken in
+    ``src``'s sort order; both sums deterministic on the card."""
+    if plans is None:
+        plans = edge_plans(edge_src, edge_dst, num_nodes)
+    d_fwd = segment_sum_sorted(w32[..., None], edge_dst, num_nodes,
+                               plan=plans["dst"])[..., 0]
+    d_rev = segment_sum(w32[..., None], edge_src, num_nodes,
+                        plan=plans["src"])[..., 0]
     inv_f = 1.0 / torch.clamp_min(d_fwd, 1e-6)
     inv_r = 1.0 / torch.clamp_min(d_rev, 1e-6)
-    src_order = torch.argsort(edge_src, dim=1, stable=True)
+    src_order = plans["src"].perm
     wf_d = w32 * torch.gather(inv_f, 1, edge_dst.long())
     wr_d = w32 * torch.gather(inv_r, 1, edge_src.long())
     edges = (edge_dst,                                   # nondecreasing dst ids
@@ -131,25 +168,54 @@ def _segment_view(edge_src, edge_dst, e_emb, edge_w, num_nodes):
             e_emb_s, take(edge_w), plans)
 
 
-def _precomputed_view(mode, edge_src, edge_dst, e_emb, w32, n, dt):
+def dense_adjacency(edge_src, edge_dst, w32, num_nodes):
+    """The raw weighted adjacency [B, N, N] (row dst, column src, duplicate
+    pairs summed): the reference's ``segment_sum`` of the weights onto the
+    N·N keys ``dst·N + src``, deterministic without a plan over N² segments
+    (537 MB of pointers at N = 4096).  Each window's keys are sorted stably;
+    run heads (a key unlike its left neighbour) number the runs 0, 1, ...
+    by a cumulative sum, nondecreasing ids that :func:`segment_sum_sorted`
+    sums the permuted weights over; each run's sum is then written at its
+    head's key, so every kept entry has one writer, and the other edges
+    write 0 to a spare column that is dropped.  No host sync, no atomics on
+    kept values."""
+    B, E = edge_dst.shape
+    n = num_nodes
+    keys, order = torch.sort(edge_dst.long() * n + edge_src.long(), dim=1,
+                             stable=True)
+    head = torch.ones_like(keys, dtype=torch.bool)
+    head[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    run = torch.cumsum(head, dim=1, dtype=torch.int32) - 1
+    sums = segment_sum_sorted(torch.gather(w32, 1, order)[..., None], run, E,
+                              plan=segment_plan(run, E, sorted_ids=True))[..., 0]
+    val = torch.where(head, torch.gather(sums, 1, run.long()), 0.0)
+    out = torch.zeros(B, n * n + 1, dtype=w32.dtype, device=w32.device)
+    out.scatter_(1, torch.where(head, keys, n * n), val)
+    return out[:, :n * n].view(B, n, n)
+
+
+def _precomputed_view(mode, edge_src, edge_dst, e_emb, w32, n, dt, plans):
     """The ``fused`` and ``dense_adj`` modes' per-forward aggregation state,
     shared by all layers, so each layer costs ONE op (the fused kernel or
     one matmul): the layer-invariant e_emb term folds into c_sum, and
-    s_f/s_r carry the empty-segment zeroing."""
+    s_f/s_r carry the empty-segment zeroing.  Four segment sums over the
+    edges' ``plans`` (:func:`edge_plans`): each direction's weight totals
+    and weighted e_emb sums, the dst direction banded, the src direction
+    through ``src``'s sort order; ``c_*`` carry e_emb's gradient through
+    the sums' adjoint gathers."""
     edges, d_fwd, d_rev, inv_f, inv_r = fused_edge_views(
-        edge_src, edge_dst, w32, n)
+        edge_src, edge_dst, w32, n, plans)
     we = w32[..., None] * e_emb.float()
-    c_f = _segment_sum_rows(we, edge_dst, n)
-    c_r = _segment_sum_rows(we, edge_src, n)
+    c_f = segment_sum_sorted(we, edge_dst, n, plan=plans["dst"])
+    c_r = segment_sum(we, edge_src, n, plan=plans["src"])
     c_sum = (c_f * inv_f[..., None] + c_r * inv_r[..., None]).to(dt)
     s_f = (d_fwd * inv_f).to(dt)
     s_r = (d_rev * inv_r).to(dt)
     if mode == "fused":
-        return (edges, sage_row_ptrs(edges[0], edges[2], n), c_sum, s_f, s_r)
-    # one [E] → [N·N] scatter builds the raw weighted adjacency whose
-    # normalized form serves every layer as one matmul
-    flat = edge_dst.long() * n + edge_src.long()
-    w_raw = _segment_sum_rows(w32, flat, n * n).view(-1, n, n)
+        return (edges, (plans["dst"].ptr, plans["src"].ptr), c_sum, s_f, s_r)
+    # the raw weighted adjacency, whose normalized form serves every layer
+    # as one matmul
+    w_raw = dense_adjacency(edge_src, edge_dst, w32, n)
     adj = (w_raw * inv_f[..., None]
            + w_raw.transpose(1, 2) * inv_r[..., None]).to(dt)
     return (adj, c_sum, s_f, s_r)
@@ -237,21 +303,22 @@ class GraphSAGET(nn.Module):
         # causality weight (edge_feat[..., 12]) gates messages; masked edges → 0
         w32 = (edge_feat[..., 12] + 0.1) * edge_mask.to(torch.float32)
 
-        mode = cfg.resolved_aggregation()
+        mode = cfg.resolved_aggregation(n)
         if mode == "segment":
             view = _segment_view(edge_src, edge_dst, e_emb, w32.to(dt), n)
             plans = view[-1]
         else:
-            view = _precomputed_view(mode, edge_src, edge_dst, e_emb, w32, n, dt)
-            plans = {}
+            plans = edge_plans(edge_src, edge_dst, n)
+            view = _precomputed_view(mode, edge_src, edge_dst, e_emb, w32, n,
+                                     dt, plans)
 
         for block in self.blocks:
             h = block(h, view, mode) * nmask
 
         h = dropout(self.final_ln(h), cfg.dropout, dropout_gen)
         node_logit = self.node_head(h)[..., 0]
-        h_src = gather_rows(h, edge_src, plan=plans.get("src"))
-        h_dst = gather_rows(h, edge_dst, plan=plans.get("dst"))
+        h_src = gather_rows(h, edge_src, plan=plans["src"])
+        h_dst = gather_rows(h, edge_dst, plan=plans["dst"])
         pair = torch.cat([h_src, h_dst, h_src * h_dst, e_emb], dim=-1)
         z = gelu(self.edge_head_1(pair))
         edge_logit = self.edge_head_2(z)[..., 0]

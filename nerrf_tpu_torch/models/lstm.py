@@ -3,7 +3,11 @@
 
 [B, S, T, F] per-file event sequences (left-padded, ``seq_mask`` marking real
 events) → ``seq_logit`` [B, S] and ``seq_emb`` [B, S, hidden].  The math is
-the reference's fused path:
+the reference's (its ``fused`` and ``rnn`` impls compute the same function),
+with both directions batched in one time loop as its ``fused`` impl does;
+unlike that impl, the input projection runs per step inside the loop
+rather than hoisted over all T (the same products and rounding points; the
+hoist is ROADMAP B.L1's):
 
 * ``in_proj`` Dense + gelu, masked; then flipped to the prefix-first layout
   so ``lengths`` bounds each sequence's valid prefix;
@@ -37,12 +41,25 @@ from nerrf_tpu_torch.models.layers import (
     Dense, LayerNorm, dropout, gelu, lecun_normal_)
 
 
+LSTM_IMPLS = ("auto", "fused", "rnn")
+
+
 @dataclasses.dataclass(frozen=True)
 class LSTMConfig:
     hidden: int = 256
     num_layers: int = 2
     dropout: float = 0.1
     dtype: torch.dtype = torch.bfloat16
+    # the reference's implementation choice, carried so that its config
+    # (a checkpoint's model_config.json) builds this one.  Its impls are the
+    # same math over the same params; the port has one code path for all
+    # three values, so impl changes nothing here.
+    impl: str = "auto"
+
+    def __post_init__(self):
+        if self.impl not in LSTM_IMPLS:
+            raise ValueError(f"unknown LSTM impl {self.impl!r}; expected "
+                             "'auto', 'fused' or 'rnn'")
 
     @property
     def small(self) -> "LSTMConfig":

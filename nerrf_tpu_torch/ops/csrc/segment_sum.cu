@@ -34,11 +34,17 @@ extern "C" int nerrf_segment_sum(const void* data, int dtype, const void* perm,
                                  const void* ptr, int B, int N, int S, int F, void* partial,
                                  void* arrivals, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == nerrf::kBFloat16)
-    return nerrf::launch_segment_chunks<__nv_bfloat16, true>(data, perm, ptr, B, N, S, F,
-                                                             partial, arrivals, out, s);
+  const auto* p = static_cast<const long long*>(perm);
+  const auto* q = static_cast<const int*>(ptr);
+  if (dtype == nerrf::kBFloat16) {
+    using T = __nv_bfloat16;
+    return nerrf::launch_segment_chunks<T>(
+        nerrf::RowsPerm<T>{static_cast<const T*>(data), p, q, N, S, F}, B, N, S, F, partial,
+        nullptr, arrivals, out, s);
+  }
   if (dtype == nerrf::kFloat32)
-    return nerrf::launch_segment_chunks<float, true>(data, perm, ptr, B, N, S, F, partial,
-                                                     arrivals, out, s);
+    return nerrf::launch_segment_chunks<float>(
+        nerrf::RowsPerm<float>{static_cast<const float*>(data), p, q, N, S, F}, B, N, S, F,
+        partial, nullptr, arrivals, out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

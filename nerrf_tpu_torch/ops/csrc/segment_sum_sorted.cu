@@ -32,11 +32,16 @@ extern "C" int nerrf_segment_sum_sorted(const void* data, int dtype, const void*
                                         int N, int E, int F, void* partial, void* arrivals,
                                         void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == nerrf::kBFloat16)
-    return nerrf::launch_segment_chunks<__nv_bfloat16, false>(data, nullptr, ptr, B, N, E, F,
-                                                              partial, arrivals, out, s);
+  const auto* q = static_cast<const int*>(ptr);
+  if (dtype == nerrf::kBFloat16) {
+    using T = __nv_bfloat16;
+    return nerrf::launch_segment_chunks<T>(
+        nerrf::RowsInPlace<T>{static_cast<const T*>(data), q, N, E, F}, B, N, E, F, partial,
+        nullptr, arrivals, out, s);
+  }
   if (dtype == nerrf::kFloat32)
-    return nerrf::launch_segment_chunks<float, false>(data, nullptr, ptr, B, N, E, F, partial,
-                                                      arrivals, out, s);
+    return nerrf::launch_segment_chunks<float>(
+        nerrf::RowsInPlace<float>{static_cast<const float*>(data), q, N, E, F}, B, N, E, F,
+        partial, nullptr, arrivals, out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,7 +7,7 @@ its header and the flags, so an edit rebuilds it.  The libraries are loaded
 with ``ctypes``: every pointer and the stream pass as ``c_void_p``, every
 C entry returns ``cudaGetLastError()`` and the launcher raises unless it is
 0.  Launchers launch on the current stream and allocate nothing but the
-segment sums' scratch, kept per (device, stream) and reused; the wrappers
+chunked reductions' scratch, kept per (device, stream) and reused; the wrappers
 in :mod:`nerrf_tpu_torch.ops.segment` check inputs, allocate the outputs
 and count the launches.
 
@@ -38,8 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # msg, dtype, ptr_f, gidx_f, w_f, ptr_r, gidx_r, w_r, B, N, E, F, out, stream
-    "sage_aggregate": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # msg, dtype, ptr_f, gidx_f, w_f, ptr_r, gidx_r, w_r, B, N, E, F, partial,
+    # live, arrivals, out, stream
+    "sage_aggregate": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                       _P, _P],
     # table, dtype, idx, B, N, E, F, out, stream
     "gather_rows": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
     # data, dtype, perm (int64), ptr, B, N, S, F, partial, arrivals, out, stream
@@ -50,8 +52,10 @@ _ARGTYPES = {
     "gather_rows_sorted": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the warp-per-row kernels hold a row in registers: 32 lanes x kMaxChunks
-# (csrc/common.cuh) features at most
+# rows per chunk of the chunked reductions (kChunkRows, csrc/segment_chunks.cuh)
+CHUNK_ROWS = 32
+# the chunked reductions (csrc/segment_chunks.cuh) hold a row's f32 sums in
+# registers: at most 8 elements a lane, 32 lanes
 MAX_ROW_WIDTH = 256
 
 _LOCK = threading.Lock()
@@ -145,12 +149,13 @@ def _launch(name: str, device: torch.device, *args, stream=None) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-# The segment-sum kernels' scratch, one buffer of each kind per (device,
-# stream), grown as needed: the per-segment arrival counters (int32, zero,
-# and every launch leaves the counters it touched at 0 again: the last chunk
-# of a segment resets its own) and the chunks' f32 partials (no
-# initial value).  The launches of one stream run one after another, so
-# they share both.
+# The chunked reductions' scratch (#1, #3, #4), one buffer of each kind per
+# (device, stream), grown as needed: the per-segment arrival counters (int32,
+# zero, and every launch leaves the counters it touched at 0 again: the last
+# chunk of a segment resets its own), the chunks' f32 partials and
+# sage_aggregate's per-chunk live flags (uint8; neither needs an initial
+# value).  The launches of one stream run one after another, so they share
+# them.
 _SCRATCH: Dict[tuple, torch.Tensor] = {}
 
 
@@ -177,14 +182,22 @@ def _check_row_width(name: str, F: int) -> None:
 
 
 def launch_sage_aggregate(msg, ptr_f, gidx_f, w_f, ptr_r, gidx_r, w_r, out) -> None:
+    """``sage_aggregate`` of ``msg`` [B, N, F] over both sorted edge views
+    into ``out``: the chunked reduction over the merged row space of
+    ``ptr_f + ptr_r``, N + ceil(2E / 32) chunk slots a window."""
     B, N, F = msg.shape
     _check_row_width("sage_aggregate", F)
     E = gidx_f.shape[1]
+    K = N + -(-2 * E // CHUNK_ROWS)
+    stream = _stream(msg.device)
+    scratch = (_scratch(msg.device, stream, torch.float32, B * K * F),
+               _scratch(msg.device, stream, torch.uint8, B * K),
+               _scratch(msg.device, stream, torch.int32, B * N))
     _launch("sage_aggregate", msg.device,
             msg.data_ptr(), dtype_code(msg),
             ptr_f.data_ptr(), gidx_f.data_ptr(), w_f.data_ptr(),
             ptr_r.data_ptr(), gidx_r.data_ptr(), w_r.data_ptr(),
-            B, N, E, F, out.data_ptr())
+            B, N, E, F, *scratch, out.data_ptr(), stream=stream)
 
 
 def launch_gather(name: str, table, idx, out) -> None:

@@ -28,7 +28,8 @@ pairing as the card:
 Graph structure is taken once per forward: :func:`segment_plan` of an id
 vector holds its stable sort permutation (none for sorted ids) and its row
 pointers, from which the two segment-sum kernels take their chunk map on
-the card (:meth:`SegmentPlan.chunks` spells it out).  ``segment_sum``,
+the card (:meth:`SegmentPlan.chunks` spells it out; ``sage_aggregate``
+takes the same map over both views' pointers, :func:`sage_chunks`).  ``segment_sum``,
 ``segment_sum_sorted``, ``gather_rows``, ``gather_rows_sorted`` and
 ``segment_mean`` take it as ``plan=`` (a gather keeps it for its backward,
 the adjoint sum); without one the CUDA path builds it per call (a sort and
@@ -61,10 +62,14 @@ Source notes (the kernels' own files say more):
     version.
 ``sage_aggregate``
     replaces ``pallas_segment._sage_call`` (``sage_aggregate_fused``).  Bound
-    by bytes (msg + ids + weights + out); one warp per output row walks the
-    row's band in both sorted edge views, with row pointers taken once per
-    forward (:func:`sage_row_ptrs`), skips weight-0 edges (the builder's
-    padding) and sums in f32 registers.
+    by bytes (msg + ids + weights + out).  Design: the same chunked
+    reduction over one row space that joins both sorted edge views (node
+    n's dst-view band, then its src-view band; :func:`sage_chunks` spells
+    out the map), so no long band is left to one warp; a chunk's weight-0
+    edges (the builder's padding) are dropped before the loads, and a
+    chunk of nothing but padding writes no partial.  Row pointers are
+    taken once per forward (:func:`sage_row_ptrs`, or the two views'
+    segment plans).
 ``segment_sum_sorted``
     replaces ``pallas_segment._segment_sum_sorted_call``.  Bound by bytes.
     The same chunked reduction with the identity permutation: the ids are
@@ -163,8 +168,7 @@ def _row_ptrs(sorted_ids: torch.Tensor, num_rows: int) -> torch.Tensor:
     return torch.searchsorted(_int32(sorted_ids), rows, out_int32=True)
 
 
-# rows per chunk of the segment-sum kernels (kChunkRows, csrc/segment_chunks.cuh)
-CHUNK_ROWS = 32
+CHUNK_ROWS = kernels.CHUNK_ROWS
 
 
 class SegmentPlan(NamedTuple):
@@ -192,24 +196,32 @@ class SegmentPlan(NamedTuple):
     def chunks(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The chunk map the kernels derive from ``ptr``, as [B, K] tensors
         (segment, lo, hi) per chunk slot, segment -1 where no segment owns
-        the slot.  The sorted rows are cut at multiples of CHUNK_ROWS and at
-        the segment boundaries, so segment n owns slots [n + ptr[n] //
-        CHUNK_ROWS, n + 1 + ptr[n + 1] // CHUNK_ROWS): the exclusive prefix
-        sum of its chunk counts, in closed form."""
-        L, N, K = CHUNK_ROWS, self.num_segments, self.num_chunk_slots
-        ptr = self.ptr.long()
-        start = torch.arange(N + 1, device=ptr.device) + ptr // L
-        k = torch.arange(K, device=ptr.device).expand(ptr.shape[0], -1)
-        n = torch.searchsorted(start.contiguous(), k.contiguous(), right=True) - 1
-        owned = (n >= 0) & (n < N)
-        n = n.clamp(0, max(N - 1, 0))
-        p0 = torch.gather(ptr, 1, n)
-        p1 = torch.gather(ptr, 1, n + 1) if N else p0
-        tile = p0 // L + (k - torch.gather(start, 1, n))
-        lo = torch.maximum(p0, tile * L)
-        hi = torch.minimum(p1, (tile + 1) * L)
-        return (torch.where(owned, n, -1), torch.where(owned, lo, 0),
-                torch.where(owned, hi, 0))
+        the slot (:func:`_chunk_map`)."""
+        return _chunk_map(self.ptr, self.num_chunk_slots)
+
+
+def _chunk_map(ptr: torch.Tensor, K: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The chunked reductions' map over row pointers ``ptr`` [B, N + 1]: the
+    rows are cut at multiples of CHUNK_ROWS and at the segment boundaries,
+    so segment n owns slots [n + ptr[n] // CHUNK_ROWS, n + 1 + ptr[n + 1] //
+    CHUNK_ROWS), the exclusive prefix sum of its chunk counts in closed
+    form.  (segment, lo, hi) per slot as [B, K] tensors, segment -1 where
+    no segment owns the slot."""
+    L, N = CHUNK_ROWS, ptr.shape[1] - 1
+    ptr = ptr.long()
+    start = torch.arange(N + 1, device=ptr.device) + ptr // L
+    k = torch.arange(K, device=ptr.device).expand(ptr.shape[0], -1)
+    n = torch.searchsorted(start.contiguous(), k.contiguous(), right=True) - 1
+    owned = (n >= 0) & (n < N)
+    n = n.clamp(0, max(N - 1, 0))
+    p0 = torch.gather(ptr, 1, n)
+    p1 = torch.gather(ptr, 1, n + 1) if N else p0
+    tile = p0 // L + (k - torch.gather(start, 1, n))
+    lo = torch.maximum(p0, tile * L)
+    hi = torch.minimum(p1, (tile + 1) * L)
+    return (torch.where(owned, n, -1), torch.where(owned, lo, 0),
+            torch.where(owned, hi, 0))
 
 
 def segment_plan(ids: torch.Tensor, num_segments: int, *,
@@ -461,6 +473,26 @@ def sage_row_ptrs(dst_ids: torch.Tensor, src_ids: torch.Tensor,
     ``_band_ptrs`` convention).  Graph structure: take them once per
     forward and pass them to every layer's :func:`sage_aggregate`."""
     return _row_ptrs(dst_ids, num_nodes), _row_ptrs(src_ids, num_nodes)
+
+
+def sage_chunks(ptr_f: torch.Tensor, ptr_r: torch.Tensor, num_edges: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The chunk map ``sage_aggregate``'s kernel takes on the card, written
+    out: both views of a window as one row space.  Both id vectors are
+    nondecreasing, so ``q = ptr_f + ptr_r`` is itself a row pointer, and node
+    n's merged rows [q[n], q[n + 1]) are its dst-view band followed by its
+    src-view band; :func:`_chunk_map` cuts them over N + ceil(2E /
+    CHUNK_ROWS) slots a window.  Returns [B, K] tensors (node, lo, hi, mid)
+    per slot: merged row r of node n is dst-sorted edge r - ptr_r[n] when r
+    < mid = ptr_f[n + 1] + ptr_r[n], else src-sorted edge r - ptr_f[n + 1]
+    (node -1 and zeros where no node owns the slot)."""
+    N = ptr_f.shape[1] - 1
+    K = N + -(-2 * num_edges // CHUNK_ROWS)
+    node, lo, hi = _chunk_map(ptr_f.long() + ptr_r.long(), K)
+    n = node.clamp_min(0)
+    mid = torch.gather(ptr_f.long(), 1, (n + 1).clamp_max(N)) + torch.gather(
+        ptr_r.long(), 1, n)
+    return node, lo, hi, torch.where(node >= 0, mid, 0)
 
 
 def sage_aggregate_plain(msg, dst_ids, src_by_dst, src_ids, dst_by_src,

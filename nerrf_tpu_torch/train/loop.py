@@ -267,7 +267,8 @@ def train_nerrfnet(
         dropout_gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     n = len(train_ds)
     if log:
-        log(f"gnn aggregation={cfg.model.gnn.resolved_aggregation()} "
+        nodes = train_ds.arrays["node_feat"].shape[1]
+        log(f"gnn aggregation={cfg.model.gnn.resolved_aggregation(nodes)} "
             f"kernel_path={active_impls(dev)}")
     schedule = make_idx_schedule(n, cfg)
     history = []

@@ -338,3 +338,131 @@ def test_training_forward_dropout(batch):
     assert 0.4 < float(kept.float().mean()) < 0.6
     torch.testing.assert_close(emb[kept], ref[kept] / 0.5)
     torch.testing.assert_close(head, o1["seq_logit"])
+
+
+# --- the fused and dense_adj precompute through the port's segment sums -----
+
+
+def test_fused_edge_views_match_reference(batch):
+    # the per-forward edge views, weight totals and inverses, taken through
+    # the edges' segment plans (the banded sum over dst, the order-independent
+    # one over src), against the reference's jax.ops.segment_sum window by
+    # window in float32; the same plans' pointers are sage_row_ptrs'
+    from nerrf_tpu.models.graphsage import fused_edge_views as j_views
+    from nerrf_tpu_torch.models.graphsage import edge_plans, fused_edge_views
+    from nerrf_tpu_torch.ops import sage_row_ptrs
+
+    src, dst = batch["edge_src"], batch["edge_dst"]
+    w32 = ((batch["edge_feat"][..., 12] + 0.1)
+           * batch["edge_mask"].astype(np.float32)).astype(np.float32)
+    N = batch["node_mask"].shape[1]
+    t = torch.from_numpy
+    plans = edge_plans(t(src), t(dst), N)
+    got = fused_edge_views(t(src), t(dst), t(w32), N, plans)
+    edges, rest = got[0], got[1:]
+    ptrs = sage_row_ptrs(edges[0], edges[2], N)
+    assert torch.equal(ptrs[0], plans["dst"].ptr)
+    assert torch.equal(ptrs[1], plans["src"].ptr)
+    for b in range(src.shape[0]):
+        want = j_views(jnp.asarray(src[b]), jnp.asarray(dst[b]),
+                       jnp.asarray(w32[b]), N)
+        for i, (g, w) in enumerate(zip(edges, want[0])):
+            if i < 4:                 # ids in both sorted orders: exact
+                np.testing.assert_array_equal(g[b].numpy(), np.asarray(w))
+            else:
+                np.testing.assert_allclose(g[b].numpy(), np.asarray(w),
+                                           rtol=1e-6, atol=1e-7)
+        for g, w in zip(rest, want[1:]):
+            np.testing.assert_allclose(g[b].numpy(), np.asarray(w),
+                                       rtol=1e-6, atol=1e-6)
+    # without plans the views are built the same way
+    again = fused_edge_views(t(src), t(dst), t(w32), N)
+    assert all(torch.equal(a, b) for a, b in zip(edges, again[0]))
+
+
+@pytest.mark.parametrize("N,E,pairs", [(7, 60, 9), (40, 300, 300), (16, 0, 1)])
+def test_dense_adjacency_matches_reference(N, E, pairs):
+    # the raw weighted adjacency through sorted keys and run sums, against
+    # the reference's segment_sum onto dst·N + src, duplicate (dst, src)
+    # pairs included (pairs < E draws many repeats), weight-0 edges too
+    from nerrf_tpu_torch.models.graphsage import dense_adjacency
+
+    rng = np.random.default_rng(N + E)
+    B = 3
+    pool = rng.integers(0, N, (B, max(pairs, 1), 2))
+    pick = rng.integers(0, max(pairs, 1), (B, E))
+    dst = np.sort(np.take_along_axis(pool[..., 0], pick, 1), axis=1)
+    src = np.take_along_axis(pool[..., 1], pick, 1)
+    w = rng.uniform(0.0, 1.0, (B, E)).astype(np.float32)
+    w[rng.random((B, E)) < 0.2] = 0.0
+    got = dense_adjacency(torch.from_numpy(src.astype(np.int32)),
+                          torch.from_numpy(dst.astype(np.int32)),
+                          torch.from_numpy(w), N)
+    assert got.shape == (B, N, N)
+    for b in range(B):
+        flat = jnp.asarray(dst[b] * N + src[b], jnp.int32)
+        want = jax.ops.segment_sum(jnp.asarray(w[b]), flat,
+                                   num_segments=N * N).reshape(N, N)
+        np.testing.assert_allclose(got[b].numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-7)
+    if E:
+        assert np.unique(dst * N + src, axis=None).size < B * E   # repeats
+
+
+# --- configs: the reference's checkpoint sidecar and routing table ----------
+
+
+def test_configs_build_from_reference_checkpoint_meta(tmp_path):
+    """The reference's ``save_checkpoint`` sidecar (``model_config.json``,
+    with ``lstm.impl``) builds the port's configs as the reference's
+    ``load_checkpoint`` builds its own; and a routing table (lists, as JSON
+    gives it) picks the same mode per rung in both."""
+    import json
+
+    from nerrf_tpu.train.checkpoint import save_checkpoint
+
+    jc = JJointConfig(gnn=JGraphSAGEConfig(hidden=48, num_layers=3),
+                      lstm=JLSTMConfig(hidden=40, impl="fused"), fuse=False)
+    save_checkpoint(tmp_path / "ck", {"w": np.zeros(2, np.float32)}, jc)
+    meta = json.loads((tmp_path / "ck" / "model_config.json").read_text())
+    assert meta["lstm"]["impl"] == "fused"
+    tc = JointConfig(gnn=GraphSAGEConfig(**meta["gnn"]),
+                     lstm=LSTMConfig(**meta["lstm"]), fuse=meta["fuse"])
+    assert (tc.gnn.hidden, tc.gnn.num_layers, tc.gnn.aggregation) == (48, 3, "auto")
+    assert (tc.lstm.hidden, tc.lstm.impl, tc.fuse) == (40, "fused", False)
+
+    table = [[4096, "fused"], [256, "dense_adj"], [1024, "segment"]]
+    jg = JGraphSAGEConfig(**meta["gnn"], routing=table)
+    tg = GraphSAGEConfig(**meta["gnn"], routing=table)
+    assert tg.routing == jg.routing == ((256, "dense_adj"), (1024, "segment"),
+                                        (4096, "fused"))
+    for rung in (64, 256, 257, 1024, 1025, 4096):
+        assert tg.resolved_aggregation(rung) == jg.resolved_aggregation(rung), rung
+    # past the table, and with no bucket given, the port's auto: fused
+    assert tg.resolved_aggregation(8192) == tg.resolved_aggregation() == "fused"
+    explicit = dataclasses.replace(tg, aggregation="segment")
+    assert explicit.resolved_aggregation(64) == "segment"
+    for bad in ([[0, "fused"]], [[64, "bogus"]]):
+        with pytest.raises(ValueError):
+            GraphSAGEConfig(routing=bad)
+    with pytest.raises(ValueError):
+        LSTMConfig(impl="bogus")
+    for impl in ("auto", "rnn"):     # one code path: impl changes nothing
+        assert LSTMConfig(impl=impl).impl == impl
+
+
+def test_forward_takes_its_mode_from_the_routing_table(batch, small_params):
+    # GraphSAGET.forward resolves its mode with the padded node bucket: a
+    # table that routes this rung to segment gives segment's outputs
+    N = batch["node_mask"].shape[1]
+    tc = _configs("fused", "float32")[1]
+    outs = {}
+    for name, gnn in (("routed", dataclasses.replace(
+            tc.gnn, aggregation="auto", routing=((N, "segment"),))),
+                      ("segment", dataclasses.replace(tc.gnn, aggregation="segment"))):
+        tm = load_flax_params(NerrfNet(dataclasses.replace(tc, gnn=gnn)),
+                              jax.device_get(small_params))
+        with torch.inference_mode():
+            outs[name] = tm(*[torch.from_numpy(batch[k]) for k in MODEL_INPUTS])
+    for k in ("edge_logit", "node_logit"):
+        assert torch.equal(outs["routed"][k], outs["segment"][k]), k

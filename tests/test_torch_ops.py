@@ -587,3 +587,99 @@ def test_builder_padding_long_band_matches_pallas(sorted_op):
         got = ops.segment_sum(torch.from_numpy(data), torch.from_numpy(ids), N,
                               plan=ops.segment_plan(torch.from_numpy(ids), N))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# --- sage_aggregate's chunk map: both views as one row space -----------------
+
+
+def _sage_chunk_case(case):
+    """([B, E] dst-sorted ids, [B, E] src ids, N) for the merged chunk map's
+    cases: the builder's layout (live edges, then a padding tail on the last
+    node in both views), a long band in either view or both on one node,
+    and no edges."""
+    rng = np.random.default_rng(90)
+    B, N, E = 2, 64, 600
+    dst = rng.integers(0, N - 1, (B, E))
+    src = rng.integers(0, N - 1, (B, E))
+    if case == "padding_tail":        # 300 padding edges on node N - 1
+        dst[:, -300:] = N - 1
+        src[:, -300:] = N - 1
+    elif case == "band_dst":          # one node's 130-edge band, dst view
+        dst[:, :130] = 17
+    elif case == "band_src":          # the same in the src view
+        src[:, :130] = 17
+    elif case == "bands_both":        # long bands in both views on one node
+        dst[:, :130] = 5
+        src[:, 130:270] = 5
+    elif case == "no_edges":
+        dst, src = dst[:, :0], src[:, :0]
+    return np.sort(dst, axis=1).astype(np.int32), src.astype(np.int32), N
+
+
+@pytest.mark.parametrize("case", ["padding_tail", "band_dst", "band_src",
+                                  "bands_both", "no_edges"])
+def test_sage_chunk_map_invariants(case):
+    """``sage_chunks``, the Python spelling of the map sage_aggregate's
+    kernel takes over ptr_f + ptr_r on the card: every edge of both sorted
+    views falls in exactly one chunk of its own node, no chunk holds more
+    than 32 rows, every node has a chunk, and a window has at most N +
+    ceil(2E / 32) slots."""
+    dst, src, N = _sage_chunk_case(case)
+    B, E = dst.shape
+    L = ops.CHUNK_ROWS
+    order = np.argsort(src, axis=1, kind="stable")
+    src_s = np.take_along_axis(src, order, 1)
+    ptr_f, ptr_r = ops.sage_row_ptrs(torch.from_numpy(dst),
+                                     torch.from_numpy(src_s), N)
+    node, lo, hi, mid = (t.numpy() for t in ops.sage_chunks(ptr_f, ptr_r, E))
+    K = N + -(-2 * E // L)
+    assert node.shape == (B, K)
+    for b in range(B):
+        owned = node[b] >= 0
+        assert np.array_equal(np.unique(node[b, owned]), np.arange(N))
+        assert np.all(np.diff(node[b, owned]) >= 0)
+        assert np.all((hi[b] - lo[b])[owned] <= L)
+        seen_f, seen_r = np.zeros(E, int), np.zeros(E, int)
+        pf, pr = ptr_f[b].numpy(), ptr_r[b].numpy()
+        for n, a, z, m in zip(node[b, owned], lo[b, owned], hi[b, owned],
+                              mid[b, owned]):
+            assert pf[n] + pr[n] <= a <= z <= pf[n + 1] + pr[n + 1]
+            for r in range(a, z):
+                if r < m:             # dst-view band: edge r - ptr_r[n]
+                    e = r - pr[n]
+                    assert dst[b, e] == n
+                    seen_f[e] += 1
+                else:                 # src-view band: edge r - ptr_f[n + 1]
+                    e = r - pf[n + 1]
+                    assert src_s[b, e] == n
+                    seen_r[e] += 1
+        assert np.all(seen_f == 1) and np.all(seen_r == 1)
+        # a node's chunks: ceil(len / L) or one more, at least one
+        lens = (pf[1:] + pr[1:]) - (pf[:-1] + pr[:-1])
+        counts = np.bincount(node[b, owned], minlength=N)
+        assert np.all(counts <= np.maximum(1, -(-lens // L)) + 1)
+    if case == "bands_both":          # node 5's two long bands share chunks
+        five = node[0] == 5
+        assert five.sum() >= (130 + 140) // L
+
+
+def test_sage_aggregate_long_bands_match_pallas():
+    # the chunk map's cases through the op: long bands in either view and
+    # both, the builder's padding tail, weights of masked edges 0, at F = 24
+    for case in ("padding_tail", "band_dst", "band_src", "bands_both"):
+        dst, src, N = _sage_chunk_case(case)
+        rng = np.random.default_rng(91)
+        w = rng.uniform(0.1, 1.0, dst.shape).astype(np.float32)
+        if case == "padding_tail":
+            w[:, -300:] = 0.0
+        order = np.argsort(src, axis=1, kind="stable")
+        take = lambda a: np.take_along_axis(a, order, 1)
+        wf = (w * rng.uniform(0.5, 2.0, w.shape)).astype(np.float32)
+        wr = (w * rng.uniform(0.5, 2.0, w.shape)).astype(np.float32)
+        msg = _rand((dst.shape[0], N, 24), 92)
+        for b in range(dst.shape[0]):
+            edges = (dst[b], src[b], take(src)[b], take(dst)[b], wf[b],
+                     take(wf)[b], take(wr)[b], wr[b])
+            np.testing.assert_allclose(_port_sage(msg[b], edges, N),
+                                       _pallas_sage(msg[b], edges, N),
+                                       err_msg=case, **TOL)
