@@ -21,13 +21,19 @@ one row-copy kernel, bit for bit: F = 160, 24, 19, 7 and 1, tables off
 result of the chunked sums bit-equal over two runs and with or without the
 ids' segment plan, and each op's backward (an autograd Function whose
 backward is the adjoint kernel) against the plain version's gradient, with
-and without a plan.  Then it drives the two paths the port has, each with the launch
-counters set to 0 just before it and read just after:
+and without a plan.  Then it drives the three paths the port has, each with the
+launch counters set to 0 just before it and read just after:
 
 * ``model_detect`` with the full-width ``NerrfNet`` (28-layer GraphSAGE-T of
   width 160, 2x256 BiLSTM, bfloat16, random weights from a seed) over a
   simulated trace whose windows land on the 4096-node / 4096-edge /
   4096-sequence rung (``fused`` aggregation);
+* ``OnlineDetectionService``, the online serve scorer, with the same model:
+  warmup of a one-bucket ladder (the rung ``fit_capacity`` gives over four
+  streams of the detection trace's recipe, seeds 5-8), the four streams fed
+  concurrently from their own threads in blocks of 200 events, each
+  stream's result bit-equal to ``model_detect``, a hot swap to a seed-1
+  model (bit-equal too), and the default ladder of 10 buckets;
 * ``train_nerrfnet`` at the ``configs/joint-100h.json`` rung (the same
   model with dropout 0.1, batches of 8 graphs of 1024 nodes / 2048 edges and
   128 sequences of 100 steps, AdamW on the warmup-cosine schedule) in the
@@ -35,8 +41,10 @@ counters set to 0 just before it and read just after:
   traces.
 
 The counters must show the launches derived from the model's structure on
-each, and two ``model_detect`` runs must give the same file scores, bit
-for bit.  One training step's gradients are compared, kernels against plain
+each (on the serve path, in every scored batch), and two ``model_detect``
+runs must give the same file scores, bit for bit; the serve run must drop
+no window, fail none, score none at a shape it did not warm, and share
+batches across streams.  One training step's gradients are compared, kernels against plain
 versions, in ``segment`` and ``fused`` modes, and two runs on the kernels
 must give the same bits; a small float32 detection and
 a small float32 training run on the card are compared with the same runs on
@@ -54,9 +62,10 @@ The result line holds each kernel at its main call site on its own path, as
 the path calls it.
 
 Prints the card's name and power limit, one JSON line with each kernel's
-launches, error, times (ms, host_us, device_ms, library_ms,
-library_device_ms) and bound, the detection rate, the training rate and
-its breakdown, the card's busy share from profiler traces, and as its last
+launches (and its launches per serve batch), error, times (ms, host_us,
+device_ms, library_ms, library_device_ms) and bound, the detection rate,
+the serve rate, latency and warmup times, the training rate and its
+breakdown, the card's busy share from profiler traces, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, when a phase fails or there is no card.
 """
@@ -842,11 +851,12 @@ def run_main_path() -> dict:
                 batch=batch)
 
 
-def device_busy_share(what: str, run, wall_s: float) -> None:
+def device_busy_share(what: str, run, wall_s: float):
     """Kernel and copy time on the card during ``run()`` (a profiler trace,
     summed over the device's own events: not over the host-side operators
     and spans, which carry their kernels' time again), over ``wall_s``, the
-    same run's unprofiled wall time; and the kernels that took the most."""
+    same run's unprofiled wall time; and the kernels that took the most.
+    Returns the share, or None when the trace caught no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -864,11 +874,12 @@ def device_busy_share(what: str, run, wall_s: float) -> None:
         seen = sorted({str(e.device_type) for e in prof.key_averages()})
         print("device busy share: not measured (the profiler saw no device "
               f"events; event device types {seen})")
-        return
+        return None
     top = ", ".join(f"{e.key[:60]} {self_us(e) / 1e3:.1f} ms x{e.count}"
                     for e in evts[:8])
     print(f"device busy share of {what} {busy_s / wall_s:.3f} "
           f"({busy_s:.3f} s of kernels in {wall_s:.3f} s); top kernels: {top}")
+    return busy_s / wall_s
 
 
 def check_small_detect() -> float:
@@ -903,6 +914,302 @@ def check_small_detect() -> float:
     if err > DETECT_ATOL:
         _fail(f"small detection: card vs CPU file scores max |Δ| {err}")
     return err
+
+
+# --- the serve path ------------------------------------------------------------
+
+# the serve cell: four streams from the detection trace's recipe, seeds 5 and
+# 7 attacks, 6 and 8 benign, each fed by its own thread in blocks of 200
+# events; batches of 8 and the reference's defaults for every other knob
+SERVE_SEEDS = {5: True, 6: False, 7: True, 8: False}
+SERVE_BLOCK = 200
+SERVE_BATCH = 8
+
+
+def serve_traces() -> dict:
+    """{stream id: trace} of the serve cell."""
+    from nerrf_tpu_torch.data import SimConfig, simulate_trace
+
+    return {f"s{seed}": simulate_trace(SimConfig(
+        duration_sec=120.0, benign_rate_hz=200.0, num_target_files=48,
+        seed=seed, attack=attack)) for seed, attack in SERVE_SEEDS.items()}
+
+
+def _blocks(trace, size: int = SERVE_BLOCK):
+    import dataclasses
+
+    ev = trace.events
+    for i in range(0, len(ev), size):
+        yield type(ev)(**{f.name: getattr(ev, f.name)[i:i + size]
+                          for f in dataclasses.fields(ev)})
+
+
+def _counter_total(reg, name: str, **labels) -> float:
+    """A counter summed over its label series (those matching ``labels``)."""
+    series = reg.snapshot()["counters"].get(name, {})
+    want = [f"{k}={v}" for k, v in labels.items()]
+    return sum(v for key, v in series.items()
+               if all(w in key.split(",") for w in want))
+
+
+def replay(svc, traces: dict, suffix: str = "") -> tuple:
+    """Each trace as one stream of ``svc``, fed from its own thread as the
+    reference's ``connect`` actors feed it (join, one ``feed`` per block,
+    ``leave``).  Returns ({stream: DetectionResult}, seconds from the first
+    feed to the last leave)."""
+    import threading
+
+    dets, errors = {}, []
+
+    def actor(sid, trace):
+        try:
+            svc.join(sid)
+            for block in _blocks(trace):
+                svc.feed(sid, block, trace.strings)
+            dets[sid] = svc.leave(sid, timeout=600.0)
+        except Exception as e:  # noqa: BLE001 — raised below, on the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=actor, args=(sid + suffix, tr),
+                                name=f"feeder-{sid}{suffix}")
+               for sid, tr in traces.items()]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return dets, wall_s
+
+
+def _counting_service():
+    """``OnlineDetectionService`` with each forward's kernel launches kept in
+    ``batch_launches``: the launches one ``_run_eval`` call adds to the
+    counters, read on the thread that calls it (the only one launching
+    while it runs: the start() thread at warmup, then the scorer)."""
+    from nerrf_tpu_torch.ops import LAUNCHES
+    from nerrf_tpu_torch.serve import OnlineDetectionService
+
+    class CountingService(OnlineDetectionService):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.batch_launches = []
+
+        def _run_eval(self, eval_fn, batch):
+            before = dict(LAUNCHES)
+            out = super()._run_eval(eval_fn, batch)
+            self.batch_launches.append(
+                {k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+            return out
+
+    return CountingService
+
+
+def _serve_gates(reg, svc, from_batch: int, want: dict, what: str) -> dict:
+    """The serve run's gates: no window dropped, failed or scored at an
+    unwarmed shape, no failed batch, and each forward since ``from_batch``
+    launching the derived counts.  Returns the run's counters."""
+    got = {k: _counter_total(reg, f"serve_{k}") for k in (
+        "admission_dropped_total", "windows_failed_total",
+        "batch_failures_total", "recompiles_total", "windows_scored_total",
+        "windows_skipped_total", "windows_admitted_total", "batches_total")}
+    bad = {k: v for k, v in got.items() if k in (
+        "admission_dropped_total", "windows_failed_total",
+        "batch_failures_total", "recompiles_total") and v}
+    if bad:
+        _fail(f"{what}: {bad}")
+    per_batch = svc.batch_launches[from_batch:]
+    if not per_batch or any(b != want for b in per_batch):
+        _fail(f"{what}: launches per batch {per_batch} != {want}")
+    return got
+
+
+def run_serve_path(detect_rung: tuple) -> dict:
+    """The online serve scorer at full width: warmup of the one-bucket ladder
+    that fits the four streams, the streams fed concurrently, parity of each
+    stream's result with ``model_detect`` bit for bit, a hot swap, and the
+    default ladder of 10 buckets."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nerrf_tpu_torch.data import Trace
+    from nerrf_tpu_torch.models import JointConfig, build_nerrfnet
+    from nerrf_tpu_torch.observability import MetricsRegistry
+    from nerrf_tpu_torch.ops import LAUNCHES, kernels, reset_launches
+    from nerrf_tpu_torch.pipeline import fit_capacity, model_detect
+    from nerrf_tpu_torch.serve import ServeConfig, bucket_tag
+    from nerrf_tpu_torch.train.data import DatasetConfig, windows_of_trace
+
+    model_cfg = JointConfig()
+    model = build_nerrfnet(model_cfg, seed=0, device="cuda")
+    traces = serve_traces()
+    fits = [fit_capacity(tr, DatasetConfig()) for tr in traces.values()]
+    bucket = (max(f.graph.max_nodes for f in fits),
+              max(f.graph.max_edges for f in fits),
+              max(f.max_seqs for f in fits))
+    tag = bucket_tag(bucket)
+    cfg = ServeConfig(buckets=(bucket,), batch_size=SERVE_BATCH)
+    ds = cfg.dataset_config(bucket)
+    windows = {sid: len(windows_of_trace(tr, ds)) for sid, tr in traces.items()}
+    print(f"serve path: {len(traces)} streams "
+          f"({', '.join(f'{sid} {tr.events.num_valid} events' for sid, tr in traces.items())}), "
+          f"one-bucket ladder {tag} (model_detect's rung for s5 alone: "
+          f"{bucket_tag(detect_rung)}), {sum(windows.values())} windows to score, "
+          f"batches of {SERVE_BATCH}, blocks of {SERVE_BLOCK} events")
+    per_batch = fused_forward_launches(model_cfg.gnn.num_layers)
+
+    reg, log = MetricsRegistry(), []
+    svc = _counting_service()(model, cfg, registry=reg, window_log=log,
+                              device="cuda")
+    _sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    svc.start()
+    start_s = time.perf_counter() - t0
+    warm = dict(LAUNCHES)
+    if not svc.ready()[0]:
+        _fail(f"serve: not ready after start(): {svc.ready()}")
+    forward_kernels = {k for k, v in per_batch.items() if v}
+    if not forward_kernels <= set(kernels._FNS):
+        _fail(f"serve: kernel libraries {sorted(forward_kernels - set(kernels._FNS))} "
+              "not loaded before admission opened")
+    if list(svc.warmup_seconds) != [tag] or svc.batch_launches != [per_batch] \
+            or warm != per_batch:
+        _fail(f"serve warmup: buckets {svc.warmup_seconds}, launches per batch "
+              f"{svc.batch_launches} (counters {warm}) != {per_batch}")
+    print(f"serve warmup: {svc.warmup_seconds} s per bucket, start() "
+          f"{start_s:.3f} s, launches {warm} (derived {per_batch})")
+
+    t_run = time.perf_counter()
+    dets, wall_s = replay(svc, traces)
+    stages = serve_stages(t_run)
+    got = _serve_gates(reg, svc, 1, per_batch, "serve run")
+    want_scored = sum(windows.values())
+    if got["windows_scored_total"] != want_scored \
+            or got["windows_admitted_total"] != want_scored:
+        _fail(f"serve run: {got['windows_scored_total']:.0f} windows scored and "
+              f"{got['windows_admitted_total']:.0f} admitted, model_detect "
+              f"scores {want_scored}")
+    occupancy = reg.value("serve_batch_occupancy", labels={"bucket": tag},
+                          stat="mean")
+    if not occupancy > 1:
+        _fail(f"serve run: mean batch occupancy {occupancy} (no batch shared)")
+    batches = int(got["batches_total"])
+    lat = np.array([w[2] for w in log])
+    p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+    late = int(sum(w[3] for w in log))
+    print(f"serve run: {len(traces)} streams, {want_scored} windows scored "
+          f"({got['windows_skipped_total']:.0f} skipped below min_events), "
+          f"{batches} batches, mean occupancy {occupancy:.3f}, launches per "
+          f"batch {per_batch} in all {len(svc.batch_launches) - 1}; "
+          f"{want_scored / wall_s:.3f} windows/s from the first feed to the "
+          f"last leave ({wall_s:.3f} s); admit→demux p50 {p50 * 1e3:.1f} ms, "
+          f"p99 {p99 * 1e3:.1f} ms, {late} past the "
+          f"{cfg.window_deadline_sec} s deadline")
+    print("serve run by stage (host clock, the service's spans: count, seconds "
+          "in all, mean ms): " + json.dumps(stages))
+    busy = device_busy_share("the serve run (4 streams)",
+                             lambda: replay(svc, traces, suffix="-profiled"),
+                             wall_s)
+
+    # hot swap: a seed-1 model's weights as version 2, then seed 5 again
+    model1 = build_nerrfnet(model_cfg, seed=1, device="cuda")
+    svc.swap_params(model1.state_dict(), version=2)
+    swapped, _ = replay(svc, {"s5": traces["s5"]}, suffix="@v2")
+    narrow = dataclasses.replace(model_cfg, gnn=dataclasses.replace(
+        model_cfg.gnn, hidden=model_cfg.gnn.hidden // 2))
+    try:
+        svc.swap_params(build_nerrfnet(narrow, seed=1, device="cpu").state_dict(),
+                        version=3)
+        _fail("serve: a swap to another width did not raise")
+    except ValueError as e:
+        print(f"serve: a swap to width {narrow.gnn.hidden} raised: {e}")
+    if svc.live_version != 2:
+        _fail(f"serve: live version {svc.live_version} after the refused swap")
+    svc.stop()
+    _serve_gates(reg, svc, 1, per_batch, "serve run with the swap")
+
+    # parity, after stop(): each stream bit-equal to model_detect
+    def offline(sid, m):
+        tr = traces[sid]
+        return model_detect(Trace(events=tr.events, strings=tr.strings,
+                                  ground_truth=None, labels=None, name=sid),
+                            m, ds_cfg=ds, auto_capacity=False,
+                            batch_size=SERVE_BATCH, device="cuda")
+
+    fields = ("file_scores", "file_window_scores", "proc_scores", "file_bytes",
+              "threshold")
+    checks = [(sid, dets[sid], model, "serve[max]") for sid in traces] + \
+        [("s5", swapped["s5@v2"], model1, "serve[max]@v2")]
+    for sid, det, m, detector in checks:
+        want = offline(sid, m)
+        differ = [f for f in fields if getattr(det, f) != getattr(want, f)]
+        if differ or det.detector != detector:
+            _fail(f"serve {sid} ({detector}): {differ or det.detector} differ "
+                  "from model_detect")
+    print(f"serve parity: {len(checks)} streams' DetectionResults bit-equal "
+          f"to model_detect ({', '.join(fields)}), detectors serve[max] and "
+          f"serve[max]@v2; {sum(len(d.file_scores) for d in dets.values())} "
+          f"file scores")
+
+    # the default ladder: ten buckets at full width
+    reg2 = MetricsRegistry()
+    svc2 = _counting_service()(model, ServeConfig(batch_size=SERVE_BATCH),
+                               registry=reg2, device="cuda")
+    svc2.start()
+    print(f"serve default ladder warmup (s per bucket): {svc2.warmup_seconds}")
+    if len(svc2.warmup_seconds) != len(svc2.cfg.buckets):
+        _fail(f"serve default ladder: warmed {list(svc2.warmup_seconds)} of "
+              f"{len(svc2.cfg.buckets)} buckets")
+    _, wall2 = replay(svc2, traces)
+    svc2.stop()
+    got2 = {k: _counter_total(reg2, f"serve_{k}") for k in (
+        "recompiles_total", "batch_failures_total", "windows_failed_total",
+        "windows_admitted_total", "windows_scored_total")}
+    oversize = _counter_total(reg2, "serve_admission_dropped_total",
+                              reason="oversize")
+    other_drops = _counter_total(reg2, "serve_admission_dropped_total") - oversize
+    if got2["recompiles_total"] or got2["batch_failures_total"] \
+            or got2["windows_failed_total"] or other_drops \
+            or got2["windows_scored_total"] != got2["windows_admitted_total"]:
+        _fail(f"serve default ladder: {got2}, {other_drops} windows dropped "
+              "for another reason than oversize")
+    if any(b != svc2.batch_launches[0] for b in svc2.batch_launches):
+        _fail(f"serve default ladder: launches per batch differ: "
+              f"{svc2.batch_launches}")
+    occ = reg2.snapshot()["histograms"].get("serve_batch_occupancy", {})
+    per_bucket = {k.split("=", 1)[1]: int(v["sum"])
+                  for k, v in occ.get("series", {}).items()}
+    print(f"serve default ladder: {got2['windows_scored_total']:.0f} windows "
+          f"scored, {oversize:.0f} oversize, 0 recompiles, 0 failures in "
+          f"{wall2:.3f} s; windows scored per bucket {per_bucket}")
+    return dict(streams=len(traces), windows=want_scored, batches=batches,
+                occupancy=occupancy, windows_per_s=want_scored / wall_s,
+                wall_s=wall_s, p50_ms=p50 * 1e3, p99_ms=p99 * 1e3, busy=busy,
+                warmup_s=svc.warmup_seconds, ladder_warmup_s=svc2.warmup_seconds,
+                per_bucket=per_bucket, bucket=tag, per_batch=per_batch,
+                stages=stages)
+
+
+def serve_stages(since: float) -> dict:
+    """The serve plane's spans opened after ``since``, by stage: window
+    admission (lowering included, on the feeder threads), batch close (the
+    closer thread), the forward with its copies (the scorer thread) and
+    the demux."""
+    from nerrf_tpu_torch import tracing
+
+    spans = [sp for sp in tracing.records() if sp.t0 >= since]
+    out = {}
+    for name in ("serve_admit", "serve_batch_close", "serve_device_score",
+                 "serve_demux"):
+        d = [sp.dur for sp in spans if sp.name == name]
+        out[name] = {"count": len(d), "s": round(sum(d), 4),
+                     "mean_ms": round(1e3 * sum(d) / len(d), 3) if d else None}
+    return out
 
 
 # --- the banded pair and every op's backward -----------------------------------
@@ -1581,6 +1888,7 @@ def main() -> int:
         main_path = run_main_path()
         detect_timing = time_kernels(main_path["batch"], errors, "detect")
         small_err = check_small_detect()
+        serve = run_serve_path((MAIN_N, MAIN_E, SEQ_S))
         traces, train_ds, train_cfg = train_rung()
         train = run_train_path(traces, train_ds, train_cfg)
         grads = check_step_grads(train_ds, train_cfg)
@@ -1620,7 +1928,8 @@ def main() -> int:
          "launches": runs[path[name]][0]["launches"][name],
          "max_abs_err": max(errors[name].values()),
          **{k: runs[path[name]][1][name][k] for k in keys},
-         "band_free_device_ms": runs[path[name]][1][name].get("band_free_device_ms")}
+         "band_free_device_ms": runs[path[name]][1][name].get("band_free_device_ms"),
+         "serve_launches": serve["per_batch"][name]}
         for name in kernels.KERNELS]}
     print("kernel errors by case: " + json.dumps(errors))
     chunked = ("per_call_ms", "per_call_host_us", "band_free_device_ms",
@@ -1661,6 +1970,17 @@ def main() -> int:
           f"windows/s); {main_path['files']} files scored, "
           f"{main_path['flagged']} flagged; small f32 detection card vs CPU "
           f"max |Δ| {small_err:.2e}; on {smi}")
+    busy = "not measured" if serve["busy"] is None else f"{serve['busy']:.3f}"
+    print(f"serve {serve['bucket']} (OnlineDetectionService, {serve['streams']} "
+          f"streams fed concurrently): {serve['windows']} windows in "
+          f"{serve['batches']} batches (mean occupancy {serve['occupancy']:.3f}), "
+          f"{serve['windows_per_s']:.3f} windows/s from the first feed to the "
+          f"last leave; admit→demux p50 {serve['p50_ms']:.1f} ms, p99 "
+          f"{serve['p99_ms']:.1f} ms; device busy share {busy}; warmup "
+          f"{serve['warmup_s']} s; default ladder warmup "
+          f"{serve['ladder_warmup_s']} s, windows per bucket "
+          f"{serve['per_bucket']}; every stream and the swapped one bit-equal "
+          f"to model_detect; on {smi}")
     print(f"train_nerrfnet {TRAIN_RUNG[0]}n/{TRAIN_RUNG[1]}e/{TRAIN_RUNG[2]}s "
           f"segment mode: {train_cfg.num_steps} steps, "
           f"{train['steps_per_sec']:.3f} steps/s (after step 0), "

@@ -7,6 +7,9 @@ and copied from it unchanged (keep them identical: the decision tail must
 not drift).  ``make_eval_fn`` runs the batch of windows as an explicit batch
 dimension of the PyTorch ``NerrfNet``; ``model_detect`` is the reference's,
 auto-capacity bucketing included, with the model in place of the params.
+``DETECTOR_WARMUP_BUCKETS`` is the reference's boot ladder, and
+``warmup_detector`` runs one eager forward per bucket where the reference
+compiles one program per bucket.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from nerrf_tpu_torch.device import resolve_device
 from nerrf_tpu_torch.graph.builder import (
     NODE_TYPE_FILE,
     NODE_TYPE_PROCESS,
+    GraphConfig,
     measure_window,
     snapshot_windows,
 )
@@ -199,6 +203,62 @@ def make_eval_fn(model: NerrfNet) -> Callable[[Dict[str, np.ndarray]], Dict[str,
             return {k: v.float().cpu().numpy() for k, v in out.items()}
 
     return eval_fn
+
+
+# Boot-sweep bucket ladder (the reference's, kept identical).
+# model_detect's auto-capacity fit buckets the graph and the sequence
+# capacity independently, so the sweep covers the cross product.  Graph
+# rungs: the corpus-fitted training bucket up to the deployed-density
+# bucket a ~25k-event live window needs.
+_GRAPH_WARMUP_RUNGS = ((1024, 2048), (2048, 4096), (4096, 8192))
+_SEQ_WARMUP_RUNGS = (128, 256, 512)
+DETECTOR_WARMUP_BUCKETS = tuple(
+    (n, e, s) for n, e in _GRAPH_WARMUP_RUNGS for s in _SEQ_WARMUP_RUNGS)
+
+
+def warmup_trace(name: str) -> Trace:
+    """The shape-donor trace of every warmup and of the serve plane's init
+    check (the reference's ``serve/service.py`` ``_tiny_trace``, and the
+    trace its ``warmup_detector`` builds inline; one copy here): any tiny
+    unlabeled trace yields a window sample, only the shapes matter."""
+    from nerrf_tpu_torch.data.synth import SimConfig, simulate_trace
+
+    tiny = simulate_trace(SimConfig(duration_sec=20.0, attack=False,
+                                    num_target_files=2, benign_rate_hz=4.0,
+                                    seed=1))
+    return Trace(events=tiny.events, strings=tiny.strings,
+                 ground_truth=None, labels=None, name=name)
+
+
+def warmup_detector(model: NerrfNet, buckets=DETECTOR_WARMUP_BUCKETS,
+                    batch_size: int = 8, log=None) -> Dict[str, float]:
+    """Boot sweep of the detector forward over the capacity buckets: one
+    eager forward of a shape-donor batch per bucket, on the device the
+    model lies on, synchronised by fetching its result.  It builds the
+    kernel libraries on the calling thread and sets up each shape's
+    library state (cuBLAS handles, allocator blocks) before the first live
+    window.  Returns {bucket_tag: seconds}."""
+    import time as _time
+
+    tiny = warmup_trace("warmup")
+    eval_fn = make_eval_fn(model)
+    times: Dict[str, float] = {}
+    for max_nodes, max_edges, max_seqs in buckets:
+        cfg = DatasetConfig(
+            graph=GraphConfig(max_nodes=max_nodes, max_edges=max_edges),
+            max_seqs=max_seqs)
+        samples = windows_of_trace(tiny, cfg)
+        if not samples:
+            continue
+        batch = {k: np.broadcast_to(v, (batch_size,) + v.shape).copy()
+                 for k, v in samples[0].items()}
+        tag = f"{max_nodes}n/{max_edges}e/{max_seqs}s"
+        t0 = _time.perf_counter()
+        eval_fn(batch)  # returns host arrays: the forward has finished
+        times[tag] = round(_time.perf_counter() - t0, 1)
+        if log:
+            log(f"detector bucket {tag} warm ({times[tag]}s)")
+    return times
 
 
 def fit_capacity(trace: Trace, ds_cfg: DatasetConfig) -> DatasetConfig:
