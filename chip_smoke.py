@@ -21,7 +21,7 @@ one row-copy kernel, bit for bit: F = 160, 24, 19, 7 and 1, tables off
 result of the chunked sums bit-equal over two runs and with or without the
 ids' segment plan, and each op's backward (an autograd Function whose
 backward is the adjoint kernel) against the plain version's gradient, with
-and without a plan.  Then it drives the three paths the port has, each with the
+and without a plan.  Then it drives the four paths the port has, each with the
 launch counters set to 0 just before it and read just after:
 
 * ``model_detect`` with the full-width ``NerrfNet`` (28-layer GraphSAGE-T of
@@ -38,7 +38,17 @@ launch counters set to 0 just before it and read just after:
   model with dropout 0.1, batches of 8 graphs of 1024 nodes / 2048 edges and
   128 sequences of 100 steps, AdamW on the warmup-cosine schedule) in the
   ``segment`` aggregation mode, for 20 steps over ``make_corpus`` cut to 2
-  traces.
+  traces;
+* ``run_experiment``, the experiment runner, over ``configs/joint-100h.json``
+  cut to 6 traces (2 held out) and 200 steps in the ``fused`` mode (the
+  port's ``auto``): training, the held-out evaluation, the checkpoint and
+  the calibration of the file threshold over nine simulated incidents.
+  The checkpoint is loaded back: the loaded model must give the in-memory
+  model's ``model_detect`` bits on the held-out attack trace and reproduce
+  ``metrics.json``'s held-out metrics; the calibration must be in the
+  sidecar or reported unreachable.  A small float32 experiment runs on the
+  card and on the CPU from the same init, and their held-out metrics and
+  calibrations must agree.
 
 The counters must show the launches derived from the model's structure on
 each (on the serve path, in every scored batch), and two ``model_detect``
@@ -62,11 +72,12 @@ The result line holds each kernel at its main call site on its own path, as
 the path calls it.
 
 Prints the card's name and power limit, one JSON line with each kernel's
-launches (and its launches per serve batch), error, times (ms, host_us,
-device_ms, library_ms, library_device_ms) and bound, the detection rate,
-the serve rate, latency and warmup times, the training rate and its
-breakdown, the card's busy share from profiler traces, and as its last
-line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
+launches (and its launches per serve batch and per experiment run), error,
+times (ms, host_us, device_ms, library_ms, library_device_ms) and bound,
+the detection rate, the serve rate, latency and warmup times, the training
+rate and its breakdown, the experiment's steps/s, time split, held-out
+metrics, calibration and gates, the card's busy share from profiler
+traces, and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, when a phase fails or there is no card.
 """
 
@@ -123,6 +134,27 @@ TRAIN_RUNG = (1024, 2048, 128, 100)     # nodes, edges, sequences, steps
 GRAD_RTOL = {"segment": 1e-3, "fused": 0.025}
 # small float32 training (3 steps), card vs CPU: relative loss difference
 SMALL_TRAIN_RTOL = 1e-4
+
+# the experiment phase: configs/joint-100h.json through run_experiment, its
+# corpus cut from 24 traces to 6 (eval_fraction 0.25 holds out 2: corpus-4-
+# benign and corpus-5-atk; at 4 traces the one held-out trace is benign and
+# every AUC reads its degenerate 0.5), its 12000 steps to 200 and its loss
+# read every 50 steps (the config: 500); nothing else changed
+EXPERIMENT_TRACES = 6
+EXPERIMENT_STEPS = 200
+EXPERIMENT_LOG_EVERY = 50
+# the runner's report, as the reference's train/run.py writes it
+REPORT_KEYS = {"experiment", "backend", "devices", "num_steps", "steps_per_sec",
+               "metrics", "calibration", "gates", "wall_seconds"}
+HELD_OUT = ("edge_auc", "node_auc", "seq_auc", "seq_f1", "node_f1")
+# the small float32 experiment (configs/toy-graphsage.json's shapes, dropout
+# 0, segment mode, 20 steps), card vs CPU: each held-out metric of
+# metrics.json (4 decimals) within two units of its last decimal (a value on
+# a rounding boundary may round either way), the calibration's cuts within
+# 1e-5 (the CPU tests hold the port against the reference at these limits)
+SMALL_RUN_STEPS = 20
+SMALL_RUN_ATOL = 2e-4
+SMALL_CUT_ATOL = 1e-5
 
 
 def _fail(msg: str) -> None:
@@ -1809,6 +1841,285 @@ def check_small_train() -> float:
     return err
 
 
+# --- the experiment runner --------------------------------------------------------
+
+
+class _Tee:
+    """stderr as it is, kept as well: the runner logs there."""
+
+    def __init__(self, stream):
+        self.stream, self.lines = stream, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.lines)
+
+
+def _run_logged(run_experiment, *args, **kw):
+    """``run_experiment(*args, **kw)`` with its log kept, and its
+    ``TrainResult`` (the in-memory model): ``(report, result, log)``."""
+    import contextlib
+
+    from nerrf_tpu_torch.train import loop
+
+    real, kept = loop.train_nerrfnet, {}
+
+    def keep(*a, **k):
+        kept["result"] = real(*a, **k)
+        return kept["result"]
+
+    tee = _Tee(sys.stderr)
+    loop.train_nerrfnet = keep
+    try:
+        with contextlib.redirect_stderr(tee):
+            report = run_experiment(*args, **kw)
+    finally:
+        loop.train_nerrfnet = real
+    return report, kept["result"], tee.text()
+
+
+def _span_seconds(since: float) -> dict:
+    """Seconds per span name over the spans opened after ``since``."""
+    from nerrf_tpu_torch import tracing
+
+    out = {}
+    for sp in tracing.records():
+        if sp.t0 >= since:
+            out[sp.name] = out.get(sp.name, 0.0) + sp.dur
+    return out
+
+
+def _check_calibration(model_dir, log: str, what: str) -> str:
+    """The calibration as the sidecar and the log give it: a node_threshold
+    with recall >= 0.5 (and the robust leg where its log line reached a
+    cut), or "unreachable" in the log and no calibration in the sidecar."""
+    from nerrf_tpu_torch.train.checkpoint import load_calibration
+
+    cal = load_calibration(model_dir)
+    if "calibration failed" in log:
+        _fail(f"{what}: the calibration raised: {log[log.index('calibration failed'):][:300]}")
+    if cal:
+        robust = "calibration[robust]" in log and "→ unreachable" not in \
+            log.split("calibration[robust]")[1].splitlines()[0]
+        if cal["node_threshold_recall"] < 0.5 or robust != ("node_threshold_robust" in cal):
+            _fail(f"{what}: calibration {cal} does not match the log")
+        return f"calibrated {cal}"
+    if "calibration unreachable" not in log:
+        _fail(f"{what}: no calibration in the sidecar and none reported unreachable")
+    return "unreachable (the checkpoint keeps the 0.5 default)"
+
+
+def run_experiment_path() -> dict:
+    """``run_experiment`` of ``configs/joint-100h.json`` cut to
+    EXPERIMENT_TRACES traces and EXPERIMENT_STEPS steps, on the card with
+    the counters from 0 (``auto`` gives ``fused``).  Gates: the launches
+    derived from the model over 200 fused steps, the held-out evaluation's
+    batches and the calibration's batches (window counts from the host
+    lowering); finite losses and params that moved; the checkpoint loads,
+    and the loaded model gives the in-memory model's ``model_detect`` bits on
+    the held-out attack trace and reproduces ``metrics.json``'s held-out
+    metrics; the calibration written or reported unreachable;
+    ``experiment.json`` and ``metrics.json`` as the reference writes them."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerrf_tpu_torch.config import Experiment
+    from nerrf_tpu_torch.models import NerrfNet, build_nerrfnet
+    from nerrf_tpu_torch.ops import LAUNCHES, reset_launches
+    from nerrf_tpu_torch.pipeline import (
+        calibrate_file_thresholds, calibration_traces, fit_capacity, make_eval_fn,
+        model_detect)
+    from nerrf_tpu_torch.train.checkpoint import load_checkpoint
+    from nerrf_tpu_torch.train.data import DatasetConfig, build_dataset, windows_of_trace
+    from nerrf_tpu_torch.train.loop import evaluate
+    from nerrf_tpu_torch.train.run import run_experiment
+
+    with open(TRAIN_CONFIG) as f:
+        spec = json.load(f)
+    spec["corpus"]["num_traces"] = EXPERIMENT_TRACES
+    spec["train"]["num_steps"] = EXPERIMENT_STEPS
+    spec["train"]["eval_every"] = EXPERIMENT_LOG_EVERY
+    tmp = tempfile.mkdtemp(prefix="nerrf-experiment-")
+    try:
+        path, out = os.path.join(tmp, "joint-100h-cut.json"), os.path.join(tmp, "out")
+        with open(path, "w") as f:
+            json.dump(spec, f, indent=2)
+        exp = Experiment.load(path)
+        cfg = exp.train
+        B, L = cfg.batch_size, cfg.model.gnn.num_layers
+
+        # window counts from the host lowering, apart from the run
+        train_traces, eval_traces = exp.build_corpus()
+        eval_ds = build_dataset(eval_traces, exp.dataset)
+        cal_windows = [len(windows_of_trace(tr, fit_capacity(tr, DatasetConfig())))
+                       for tr in calibration_traces()]
+        eval_batches = math.ceil(len(eval_ds) / B)
+        cal_batches = sum(math.ceil(w / B) for w in cal_windows)
+        fwd, step = fused_forward_launches(L), step_launches("fused", L)
+        want = {k: cfg.num_steps * step[k] + (eval_batches + cal_batches) * fwd[k]
+                for k in step}
+        print(f"experiment path: {exp.name} cut to {len(train_traces)} + "
+              f"{len(eval_traces)} traces ({[t.name for t in eval_traces]} held "
+              f"out: {len(eval_ds)} windows, {eval_batches} batches), "
+              f"{cfg.num_steps} steps, calibration over {len(cal_windows)} incidents "
+              f"({cal_windows} windows, {cal_batches} batches); expected launches "
+              f"{want}")
+
+        _sync()
+        reset_launches()
+        since = time.perf_counter()
+        report, res, log = _run_logged(run_experiment, path, out, device="cuda")
+        _sync()
+        wall_s = time.perf_counter() - since
+        launches = dict(LAUNCHES)
+        print(f"experiment launches {launches}, expected {want} ({cfg.num_steps} "
+              f"fused steps of {step}, {eval_batches} + {cal_batches} forwards of {fwd})")
+        if launches != want:
+            _fail(f"experiment launch counts {launches} != {want}")
+        if "gnn aggregation=fused" not in log:
+            _fail("the experiment did not train in fused mode")
+        losses = [h["loss"] for h in res.history]
+        if len(losses) != cfg.num_steps // EXPERIMENT_LOG_EVERY + 1 or \
+                not np.all(np.isfinite(losses)):
+            _fail(f"experiment losses: {res.history}")
+        spans = _span_seconds(since)
+
+        # the artifacts
+        if Experiment.load(os.path.join(out, "experiment.json")) != exp:
+            _fail("experiment.json differs from the input")
+        with open(os.path.join(out, "metrics.json")) as f:
+            written = json.load(f)
+        if written != report or set(report) != REPORT_KEYS or \
+                (report["backend"], report["devices"]) != ("cuda", 1):
+            _fail(f"metrics.json {sorted(written)} is not the report the reference "
+                  f"writes ({sorted(REPORT_KEYS)})")
+        t0 = time.perf_counter()
+        state, lcfg = load_checkpoint(os.path.join(out, "model"))
+        with torch.device("cuda"):
+            loaded = NerrfNet(lcfg)
+        loaded.load_state_dict(state, strict=True)
+        loaded.eval()
+        _sync()
+        load_s = time.perf_counter() - t0
+        if lcfg != cfg.model:
+            _fail(f"the checkpoint's config {lcfg} != the run's {cfg.model}")
+        init = build_nerrfnet(cfg.model, seed=cfg.seed, device="cuda").state_dict()
+        trained = res.state.model.state_dict()
+        still = [n for n, _ in loaded.named_parameters() if torch.equal(state[n].cuda(), init[n])]
+        differ = [n for n in trained if not torch.equal(state[n].cuda(), trained[n])]
+        if still or differ:
+            _fail(f"checkpoint: {len(still)} params equal their init ({still[:4]}), "
+                  f"{len(differ)} differ from the trained model ({differ[:4]})")
+        incident = eval_traces[-1]
+        a = model_detect(incident, res.state.model, device="cuda")
+        b = model_detect(incident, loaded, device="cuda")
+        if (a.file_scores, a.file_window_scores, a.proc_scores) != \
+                (b.file_scores, b.file_window_scores, b.proc_scores):
+            _fail(f"model_detect on {incident.name}: the loaded model's bits differ")
+        again = evaluate(make_eval_fn(loaded), eval_ds, B)
+        again = {k: round(float(v), 4) for k, v in again.items()}
+        if again != report["metrics"]:
+            _fail(f"the loaded model's held-out metrics {again} != metrics.json's "
+                  f"{report['metrics']}")
+        calibration = _check_calibration(os.path.join(out, "model"), log, "experiment")
+        if calibration.startswith("unreachable"):
+            # what the cut reaches without the recall floor (not counted: the
+            # counters were read above)
+            floorless = calibrate_file_thresholds(loaded, min_recall=0.0, device="cuda")
+            reached = {agg: [c.kind, round(c.threshold, 4), round(c.recall, 4)]
+                       for agg, c in floorless.items()}
+            calibration += (" at recall >= 0.5; without the floor: "
+                            + (json.dumps(reached) if reached else "unreachable"))
+        params_bytes = os.path.getsize(os.path.join(out, "model", "params.pt"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    split = {
+        "corpus_and_dataset_s": spans.get("build_corpus", 0.0) + spans.get("build_dataset", 0.0),
+        "training_s": spans.get("train_setup", 0.0) + spans.get("train_loop", 0.0),
+        "held_out_eval_s": spans.get("eval", 0.0),
+        "calibration_s": spans.get("calibrate", 0.0),
+        "checkpoint_save_s": spans.get("checkpoint", 0.0),
+        "checkpoint_load_s": load_s,
+    }
+    print(f"experiment run: {wall_s:.1f} s; split {json.dumps({k: round(v, 3) for k, v in split.items()})}; "
+          f"{report['steps_per_sec']} steps/s after step 0; losses "
+          f"{[round(x, 4) for x in losses]}; held-out "
+          f"{json.dumps({k: report['metrics'][k] for k in HELD_OUT})}; calibration "
+          f"{calibration}; gates {report['gates']}; params.pt {params_bytes} bytes; "
+          f"model_detect on {incident.name} bit-equal after the load "
+          f"({len(a.file_scores)} files); held-out metrics reproduced from the "
+          f"checkpoint")
+    return dict(launches=launches, report=report, wall_s=wall_s, split=split,
+                calibration=calibration, params_bytes=params_bytes,
+                eval_batches=eval_batches, cal_batches=cal_batches)
+
+
+def check_small_experiment() -> dict:
+    """A small float32 experiment (``configs/toy-graphsage.json``'s corpus,
+    dataset and model widths; dropout 0, ``segment`` mode, SMALL_RUN_STEPS
+    steps, calibration on) through ``run_experiment`` on the card (kernels)
+    and on the CPU (plain versions), from the same init (drawn on the CPU
+    generator on both): the held-out metrics within SMALL_RUN_ATOL, the same
+    calibration within SMALL_CUT_ATOL or unreachable on both."""
+    import shutil
+    import tempfile
+
+    from nerrf_tpu_torch.ops import LAUNCHES, reset_launches
+    from nerrf_tpu_torch.train.run import run_experiment
+
+    with open(os.path.join(ROOT, "configs", "toy-graphsage.json")) as f:
+        spec = json.load(f)
+    for part in ("gnn", "lstm"):
+        spec["train"]["model"][part].update(dtype="float32", dropout=0.0)
+    spec["train"]["model"]["gnn"]["aggregation"] = "segment"
+    spec["train"]["num_steps"] = SMALL_RUN_STEPS
+    tmp = tempfile.mkdtemp(prefix="nerrf-small-experiment-")
+    try:
+        path = os.path.join(tmp, "toy-f32.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            reset_launches()
+            report, _, log = _run_logged(run_experiment, path, os.path.join(tmp, dev),
+                                         device=dev)
+            _sync()
+            runs[dev] = (report, dict(LAUNCHES),
+                         _check_calibration(os.path.join(tmp, dev, "model"), log,
+                                            f"small experiment on {dev}"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (cpu, cpu_launches, _), (card, card_launches, cal_text) = runs["cpu"], runs["cuda"]
+    path_kernels = ("gather_rows", "segment_sum", "segment_sum_sorted", "gather_rows_sorted")
+    if any(cpu_launches.values()) or not all(card_launches[k] for k in path_kernels):
+        _fail(f"small experiment: launches on the CPU {cpu_launches}, on the card "
+              f"{card_launches}")
+    gap = {k: abs(card["metrics"][k] - cpu["metrics"][k]) for k in HELD_OUT}
+    cal, ccal = card["calibration"] or {}, cpu["calibration"] or {}
+    cut_gap = {k: abs(cal[k] - ccal[k]) for k in cal.keys() & ccal.keys()
+               if isinstance(cal[k], float)}
+    print(f"small f32 experiment ({SMALL_RUN_STEPS} steps), card ({card_launches}) vs "
+          f"CPU: held-out {json.dumps({k: card['metrics'][k] for k in HELD_OUT})} vs "
+          f"{json.dumps({k: cpu['metrics'][k] for k in HELD_OUT})}, max |Δ| "
+          f"{max(gap.values()):.1e}; calibration {cal_text} on the card, "
+          f"{ccal or 'unreachable'} on the CPU")
+    if max(gap.values()) > SMALL_RUN_ATOL:
+        _fail(f"small experiment: held-out metrics card vs CPU differ by {gap}")
+    if cal.keys() != ccal.keys() or any(v > SMALL_CUT_ATOL for v in cut_gap.values()) or \
+            any(cal[k] != ccal[k] for k in cal.keys() & ccal.keys() if k.endswith("kind")):
+        _fail(f"small experiment: calibration card {cal} vs CPU {ccal}")
+    return dict(gap=max(gap.values()), card=card, cpu=cpu)
+
+
 def kernel_times() -> dict:
     """Each kernel's times at its call sites on the first batch of both
     rungs (:func:`time_kernels`: device ms per launch, band-free and the
@@ -1893,6 +2204,8 @@ def main() -> int:
         train = run_train_path(traces, train_ds, train_cfg)
         grads = check_step_grads(train_ds, train_cfg)
         small_train_err = check_small_train()
+        experiment = run_experiment_path()
+        small_experiment = check_small_experiment()
         timing = time_kernels(train["batch"], errors, "train")
         split = gather_host_split(train["batch"])
     except Exception as e:  # any failed phase fails the smoke
@@ -1929,7 +2242,8 @@ def main() -> int:
          "max_abs_err": max(errors[name].values()),
          **{k: runs[path[name]][1][name][k] for k in keys},
          "band_free_device_ms": runs[path[name]][1][name].get("band_free_device_ms"),
-         "serve_launches": serve["per_batch"][name]}
+         "serve_launches": serve["per_batch"][name],
+         "experiment_launches": experiment["launches"][name]}
         for name in kernels.KERNELS]}
     print("kernel errors by case: " + json.dumps(errors))
     chunked = ("per_call_ms", "per_call_host_us", "band_free_device_ms",
@@ -1992,6 +2306,16 @@ def main() -> int:
           f"gradients kernels vs plain max ‖Δg‖/‖g‖ segment "
           f"{grads['segment']['max_rel']:.3e}, fused {grads['fused']['max_rel']:.3e}; "
           f"small f32 training card vs CPU {small_train_err:.2e}; on {smi}")
+    r = experiment["report"]
+    print(f"experiment joint-100h (cut: {EXPERIMENT_TRACES} traces, "
+          f"{EXPERIMENT_STEPS} steps) through run_experiment, fused mode: "
+          f"{r['steps_per_sec']} steps/s after step 0; {experiment['wall_s']:.1f} s, "
+          f"split {json.dumps({k: round(v, 3) for k, v in experiment['split'].items()})}; "
+          f"held-out {json.dumps({k: r['metrics'][k] for k in HELD_OUT})}; "
+          f"calibration {experiment['calibration']}; gates {r['gates']}; params.pt "
+          f"{experiment['params_bytes']} bytes; launches {experiment['launches']}; "
+          f"small f32 experiment card vs CPU max |Δ| {small_experiment['gap']:.1e}; "
+          f"on {smi}")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,8 @@ Dropout masks come from one ``torch.Generator`` on the model's device, seeded
 from ``TrainConfig.seed``.  Batches follow :func:`make_idx_schedule`, the
 reference's draw.  Left for later slices: the resident, scheduled and
 superstep step variants, the compile cache, the journal and registry gauges,
-chaos, trainwatch, devtime, checkpoints and the sharded trainer.
+chaos, trainwatch (``TrainConfig.telemetry`` is refused), devtime and
+the sharded trainer.
 """
 
 from __future__ import annotations
@@ -55,6 +56,10 @@ class TrainConfig:
     pos_weight: float = 8.0  # attack classes are rare
     seed: int = 0
     eval_every: int = 100
+    # the reference's in-step health telemetry (trainwatch), carried so that
+    # every reference config parses; trainwatch is not ported (ROADMAP
+    # A.3), so train_nerrfnet refuses True
+    telemetry: bool = False
 
 
 @dataclasses.dataclass
@@ -260,6 +265,10 @@ def train_nerrfnet(
     (``train_ds`` when None).  ``steps_per_sec`` counts the steps after step
     0 (which pays the one-time set-up), as the reference does."""
     cfg = cfg or TrainConfig()
+    if cfg.telemetry:
+        raise NotImplementedError(
+            "TrainConfig.telemetry: the in-step health telemetry (trainwatch) "
+            "is not ported (ROADMAP A.3)")
     dev = resolve_device(device)
     with span("train_setup", device=True):
         state = init_state(cfg, dev)

@@ -1,9 +1,9 @@
 """Evaluation metrics for the detector quality gates: ROC-AUC for the GNN,
-F1 for the LSTM.
+F1 for the LSTM, and the file detector's operating-threshold calibrators.
 
-(Copied from ``nerrf_tpu/train/metrics.py``, the part training's evaluation
-runs; keep the two identical.)  Numpy, host-side: scores come back from the
-device as flat arrays.
+(Copied from ``nerrf_tpu/train/metrics.py``, the parts training's evaluation
+and the held-out calibration run; keep the two identical.)  Numpy,
+host-side: scores come back from the device as flat arrays.
 """
 
 from __future__ import annotations
@@ -48,6 +48,71 @@ def f1_score(labels: np.ndarray, preds: np.ndarray) -> float:
     prec = tp / (tp + fp)
     rec = tp / (tp + fn)
     return float(2 * prec * rec / (prec + rec))
+
+
+def threshold_at_precision(labels: np.ndarray, scores: np.ndarray,
+                           target: float = 0.98, min_recall: float = 0.0,
+                           return_recall: bool = False):
+    """The lowest score cut whose precision on (labels, scores) meets
+    ``target`` — i.e. maximum recall subject to a precision floor.  Returns
+    None when no cut achieves it (the caller falls back to the F1 optimum).
+
+    This is the KPI-aligned calibrator for the file detector: the <5%
+    false-positive-undo KPI is a PRECISION constraint, and the F1-optimal
+    cut sits immediately above the densest benign cluster with no margin
+    (benign rotated-log scores jitter across it from trace to trace, while
+    a precision-floor cut clears them).
+
+    ``min_recall`` guards against a degenerate calibration:
+    when only the single top score clears the precision target, the
+    "calibrated" cut silently collapses detection to one file.  If the best
+    qualifying cut's recall falls below the floor, the calibration is
+    declared unreachable (None) and the caller keeps its fallback, instead
+    of shipping a threshold that technically meets precision while
+    detecting almost nothing.  ``return_recall`` surfaces the achieved
+    recall as ``(threshold, recall)`` so calibration sidecars can record it.
+
+    O(n log n): sort once, sweep cumulative TP/FP over distinct scores."""
+    labels = np.asarray(labels).ravel() > 0.5
+    scores = np.asarray(scores).ravel().astype(np.float64)
+    if len(scores) == 0 or not labels.any():
+        return None
+    order = np.argsort(-scores)
+    s, l = scores[order], labels[order]
+    tp = np.cumsum(l)
+    fp = np.cumsum(~l)
+    # cut AFTER each distinct score value (predict positive for >= s[i]):
+    # only positions where the next score differs are valid cut points
+    distinct = np.append(s[:-1] != s[1:], True)
+    prec = tp / (tp + fp)
+    ok = distinct & (prec >= target)
+    if not ok.any():
+        return None
+    # lowest qualifying cut = the last qualifying index in descending order;
+    # return the midpoint toward the next score below it so the operating
+    # point sits in the middle of the local gap instead of exactly on an
+    # observed score (a cut ON the cluster edge flips with jitter)
+    i = int(np.nonzero(ok)[0][-1])
+    recall = float(tp[i] / labels.sum())
+    if recall < min_recall:
+        return None
+    below = s[s < s[i]]
+    t = float((s[i] + below.max()) / 2.0) if len(below) else float(s[i])
+    return (t, recall) if return_recall else t
+
+
+def f1_at_threshold(labels: np.ndarray, scores: np.ndarray,
+                    threshold: float) -> dict:
+    """Precision/recall/F1 at a FIXED operating threshold — the deployed
+    quantity, as opposed to best_f1's oracle sweep.  Returns a dict so
+    artifacts can record all three without positional confusion."""
+    labels = np.asarray(labels).ravel() > 0.5
+    pred = np.asarray(scores).ravel() >= threshold
+    tp = float((pred & labels).sum())
+    prec = tp / pred.sum() if pred.any() else 0.0
+    rec = tp / labels.sum() if labels.any() else 0.0
+    f1 = 2 * prec * rec / (prec + rec) if prec + rec else 0.0
+    return {"precision": float(prec), "recall": float(rec), "f1": float(f1)}
 
 
 def best_f1(labels: np.ndarray, scores: np.ndarray, n_thresholds: int = 101):

@@ -47,6 +47,8 @@ def test_importing_the_port_loads_no_jax_module():
         "before = set(sys.modules)\n"
         "import nerrf_tpu_torch.pipeline, nerrf_tpu_torch.convert\n"
         "import nerrf_tpu_torch.ops.kernels, nerrf_tpu_torch.train.loop\n"
+        "import nerrf_tpu_torch.config, nerrf_tpu_torch.train.checkpoint\n"
+        "import nerrf_tpu_torch.train.run\n"
         f"bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n")
@@ -56,7 +58,9 @@ def test_importing_the_port_loads_no_jax_module():
     assert out.stdout.strip() == "[]", out.stdout
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from nerrf_tpu_torch.train.run import run_experiment
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_device.resolve_device()
@@ -71,6 +75,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                      seed=1))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pipeline.model_detect(trace, model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pipeline.calibrate_file_thresholds(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_experiment("toy-graphsage", tmp_path / "run")
+    assert not (tmp_path / "run").exists()
 
 
 def test_training_raises_without_cuda(monkeypatch):
