@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Chip smoke of nerrf_tpu_torch, the PyTorch/CUDA port of NERRF detection and
-training.
+"""Chip smoke of nerrf_tpu_torch, the PyTorch/CUDA port of NERRF detection,
+training and undo.
 
 Run from the root of the repository, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's five CUDA kernels from ``nerrf_tpu_torch/ops/csrc/``
-(``nvcc``, ``sm_90a``, one process per source, all started together) and
-holds each against its plain PyTorch version on the card (float32 and
+It builds the port's six CUDA kernels from ``nerrf_tpu_torch/ops/csrc/``
+(``nvcc``, ``sm_90a``, one process per source, all started together), holds
+the five sparse-aggregation kernels against their plain PyTorch versions on
+the card (float32 and
 bfloat16; masked edges, empty segments, skewed bands, bands past the end,
 out-of-range ids, empty inputs; for ``sage_aggregate``'s chunked two-view
 reduction 1193-edge bands in either view and in both on one node and the
@@ -71,13 +72,34 @@ by step.
 The result line holds each kernel at its main call site on its own path, as
 the path calls it.
 
+Then the undo path (``nerrf_tpu_torch.planner``, ``respond``, ``rollback``):
+the device MCTS search kernel (``mcts_search``, one thread block a tree)
+held against its plain version on the card with the heuristic value, every
+tree array bit-equal, on ``bench.py``'s planner domain, an all-clean
+domain, a terminal root and two larger buckets, at 64 and 800 simulations,
+and two kernel runs bit-equal; the value net fit on the card, the kernel's
+own value function within 1e-5·(1+|v|) of ``ValueNet`` on 4096 rows, and
+the kernel's plan equal to the plain version's; the planner cell
+(rollouts/s of ``DeviceMCTS``, the host ``MCTSPlanner`` and the plain
+version, in turns); ``BatchedDeviceMCTS`` (B = 1 and per-lane trees equal
+to ``DeviceMCTS``'s, mixed buckets refused, waves, no wave outside the
+warmed set; incidents/s at B = 1-8); and the undo run of
+``run_recovery_bench``'s M1 incident in ``cmd_undo``'s order
+(``heuristic_detect``, ``build_undo_domain``, ``fit_to_domain``,
+``make_planner``, ``plan``, ``SandboxGate.rehearse``,
+``RollbackExecutor.execute``) with the counters from 0: ⌈800/128⌉ search
+launches, the gate approved, the restore verified, no byte lost and no
+clean file reverted; then the same incident detected with the experiment's
+checkpoint (28/2/3/2/0 launches a batch).
+
 Prints the card's name and power limit, one JSON line with each kernel's
 launches (and its launches per serve batch and per experiment run), error,
 times (ms, host_us, device_ms, library_ms, library_device_ms) and bound,
 the detection rate, the serve rate, latency and warmup times, the training
 rate and its breakdown, the experiment's steps/s, time split, held-out
 metrics, calibration and gates, the card's busy share from profiler
-traces, and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
+traces, the undo path's rollouts/s, incidents/s and MTTR split, and as its
+last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, when a phase fails or there is no card.
 """
 
@@ -86,6 +108,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1926,7 +1949,6 @@ def run_experiment_path() -> dict:
     the held-out attack trace and reproduces ``metrics.json``'s held-out
     metrics; the calibration written or reported unreachable;
     ``experiment.json`` and ``metrics.json`` as the reference writes them."""
-    import shutil
     import tempfile
 
     import numpy as np
@@ -2040,6 +2062,9 @@ def run_experiment_path() -> dict:
             calibration += (" at recall >= 0.5; without the floor: "
                             + (json.dumps(reached) if reached else "unreachable"))
         params_bytes = os.path.getsize(os.path.join(out, "model", "params.pt"))
+        # the undo run (run_undo_path) detects with this checkpoint
+        model_dir = tempfile.mkdtemp(prefix="nerrf-undo-model-")
+        shutil.copytree(os.path.join(out, "model"), model_dir, dirs_exist_ok=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     split = {
@@ -2060,7 +2085,7 @@ def run_experiment_path() -> dict:
           f"checkpoint")
     return dict(launches=launches, report=report, wall_s=wall_s, split=split,
                 calibration=calibration, params_bytes=params_bytes,
-                eval_batches=eval_batches, cal_batches=cal_batches)
+                eval_batches=eval_batches, cal_batches=cal_batches, model_dir=model_dir)
 
 
 def check_small_experiment() -> dict:
@@ -2070,7 +2095,6 @@ def check_small_experiment() -> dict:
     and on the CPU (plain versions), from the same init (drawn on the CPU
     generator on both): the held-out metrics within SMALL_RUN_ATOL, the same
     calibration within SMALL_CUT_ATOL or unreachable on both."""
-    import shutil
     import tempfile
 
     from nerrf_tpu_torch.ops import LAUNCHES, reset_launches
@@ -2118,6 +2142,505 @@ def check_small_experiment() -> dict:
             any(cal[k] != ccal[k] for k in cal.keys() & ccal.keys() if k.endswith("kind")):
         _fail(f"small experiment: calibration card {cal} vs CPU {ccal}")
     return dict(gap=max(gap.values()), card=card, cpu=cpu)
+
+
+# --- the undo path: the search kernel, the value net, the planners, undo ----
+
+MCTS_SIMS = 800                 # MCTSConfig's default, the spec's 500-1000 band
+MCTS_CHECK_SIMS = (64, MCTS_SIMS)
+# the in-kernel value net against ValueNet.__call__ (cuBLAS and torch's
+# GELU): |Δ| ≤ VALUE_RTOL·(1 + |v|), for the order of the dot products and
+# tanhf
+VALUE_RTOL = 1e-5
+VALUE_ROWS = 4096
+BATCH_SLOTS = (1, 2, 4, 8)
+# run_recovery_bench's M1 incident: 45 files of 2-5 MB
+UNDO_FILES = dict(num_files=45, min_file_bytes=2_000_000, max_file_bytes=5_000_000)
+
+
+def bench_domain():
+    """``bench.py``'s planner domain (M1 scale: 45 files, 4 processes,
+    beta(0.4, 0.4) scores from ``default_rng(7)``, 2-5 MB at stake)."""
+    import numpy as np
+
+    from nerrf_tpu_torch.planner import UndoDomain
+
+    prng = np.random.default_rng(7)
+    F, P = 45, 4
+    return UndoDomain(
+        file_paths=[f"/app/uploads/doc_{i}.lockbit3" for i in range(F)],
+        file_scores=prng.beta(0.4, 0.4, F).astype(np.float32),
+        file_loss_mb=prng.uniform(2.0, 5.0, F).astype(np.float32),
+        proc_names=[f"{4000 + p}:python3" for p in range(P)],
+        proc_scores=np.array([0.95] + [0.1] * (P - 1), np.float32),
+        max_steps=64)
+
+
+def seeded_domain(F: int, P: int, seed: int):
+    """An incident of F files and P processes drawn from ``seed`` as the
+    bench domain is drawn."""
+    import numpy as np
+
+    from nerrf_tpu_torch.planner import UndoDomain
+
+    rng = np.random.default_rng(seed)
+    return UndoDomain(
+        file_paths=[f"/srv/data/f_{i}.lockbit3" for i in range(F)],
+        file_scores=rng.beta(0.4, 0.4, F).astype(np.float32),
+        file_loss_mb=rng.uniform(2.0, 5.0, F).astype(np.float32),
+        proc_names=[f"{4000 + p}:python3" for p in range(P)],
+        proc_scores=rng.uniform(0.0, 1.0, P).astype(np.float32),
+        max_steps=64)
+
+
+def mcts_domains() -> dict:
+    """``check_mcts``'s cases: name → (domain, root state or None)."""
+    import numpy as np
+
+    from nerrf_tpu_torch.planner import UndoDomain
+
+    bench = bench_domain()
+    clean = UndoDomain(  # tests/test_planner.py's all-clean domain
+        file_paths=[f"/app/f{i}.dat" for i in range(6)],
+        file_scores=np.full(6, 0.02, np.float32),
+        file_loss_mb=np.full(6, 2.0, np.float32),
+        proc_names=["200:nginx"], proc_scores=np.array([0.01], np.float32),
+        max_steps=16)
+    stopped = bench.initial_state()
+    stopped[bench.F + bench.P + 2] = 1.0
+    return {"bench 45f/4p": (bench, None), "all-clean 6f/1p": (clean, None),
+            "terminal root": (bench, stopped),
+            "floor bucket 200f/12p": (seeded_domain(200, 12, 11), None),
+            "512f/32p bucket 300f/20p": (seeded_domain(300, 20, 12), None)}
+
+
+def _tree_diff(a, b) -> list:
+    """The tree arrays in which two trees differ."""
+    import torch
+
+    return [f for f in a._fields if not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+def _nodes_differ(a, b) -> int:
+    """Node slots of tree 0 in which any array of two trees differs."""
+    import torch
+
+    M = a.visits.shape[1]
+    bad = torch.zeros(M, dtype=torch.bool, device=a.visits.device)
+    for f in a._fields:
+        if f != "n_nodes":
+            ne = getattr(a, f)[0] != getattr(b, f)[0]
+            bad |= ne.reshape(M, -1).any(1)
+    return int(bad.sum())
+
+
+def _mean_depth(tree) -> float:
+    """Select levels per simulation of tree 0: a simulation's backup visits
+    its path, one node more than its levels."""
+    v = tree.visits[0].double()
+    return float(v.sum() / v[0]) - 1.0
+
+
+def _search_tree(dm, root=None, plain=False, sims=None):
+    """One search on a fresh tree of ``dm`` in one call, synced."""
+    from nerrf_tpu_torch.ops import mcts as ops_mcts
+
+    tree = dm.init_tree(root)
+    run = ops_mcts.search_chunk_plain if plain else ops_mcts.search_chunk
+    run(tree, dm.cfg.num_simulations if sims is None else sims, dm._ctx, dm._weights)
+    _sync()
+    return tree
+
+
+def check_mcts() -> dict:
+    """``mcts_search`` against its plain version on the card, heuristic
+    value, on each of :func:`mcts_domains` at 64 and 800 simulations: every
+    tree array bit-equal, and two kernel runs bit-equal."""
+    from nerrf_tpu_torch.planner import DeviceMCTS, MCTSConfig
+
+    out = {}
+    for name, (d, root) in mcts_domains().items():
+        for sims in MCTS_CHECK_SIMS:
+            dm = DeviceMCTS(d, MCTSConfig(num_simulations=sims), device="cuda")
+            a, b = _search_tree(dm, root), _search_tree(dm, root)
+            t0 = time.perf_counter()
+            p = _search_tree(dm, root, plain=True)
+            plain_s = time.perf_counter() - t0
+            bad, again = _tree_diff(a, p), _tree_diff(a, b)
+            if bad or again:
+                _fail(f"mcts_search on {name} at {sims} simulations: kernel vs plain "
+                      f"differ in {bad}, two kernel runs in {again}")
+            out[f"{name} @{sims}"] = dict(n_nodes=int(a.n_nodes[0]),
+                                          depth=round(_mean_depth(a), 3),
+                                          plain_s=round(plain_s, 3))
+    print("mcts_search vs its plain version on the card (heuristic value; every "
+          "tree array bit-equal, two kernel runs bit-equal): " + json.dumps(out))
+    return out
+
+
+def check_value_net(bench) -> dict:
+    """The value net on the card: ``fit_to_domain`` on the bench domain as
+    ``bench.py`` runs it; the search kernel's own value function on
+    VALUE_ROWS seeded feature rows against ``ValueNet.__call__``; the
+    kernel's 800-simulation plan against the plain version's (the same
+    targets in order and the same rollouts; the tree nodes that differ are
+    printed) and two kernel runs bit-equal."""
+    import numpy as np
+    import torch
+
+    from nerrf_tpu_torch.ops import mcts as ops_mcts
+    from nerrf_tpu_torch.ops import plain_ops
+    from nerrf_tpu_torch.planner import DeviceMCTS, MCTSConfig
+    from nerrf_tpu_torch.planner.value_net import ValueNet
+
+    net = ValueNet.create(device="cuda")
+    _sync()
+    t0 = time.perf_counter()
+    mse = net.fit_to_domain(bench, num_rollouts=256, steps=150)
+    _sync()
+    fit_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    F, P = bench.F, bench.P
+    states = (rng.random((VALUE_ROWS, F + P + 3)) < rng.random((VALUE_ROWS, 1))).astype(np.float32)
+    states[:, F + P] = rng.uniform(0.0, 20.0, VALUE_ROWS)
+    states[:, F + P + 1] = rng.integers(0, 65, VALUE_ROWS)
+    states[:, F + P + 2] = rng.random(VALUE_ROWS) < 0.1
+    feats = bench.value_features(states)
+    dm = DeviceMCTS(bench, MCTSConfig(num_simulations=MCTS_SIMS), value=net, device="cuda")
+    got = ops_mcts.leaf_value(torch.from_numpy(feats).cuda(), dm._ctx.consts, dm._weights)
+    want = torch.from_numpy(net(feats)).cuda()
+    value_err = float(((got - want).abs() / (1.0 + want.abs())).max())
+    if value_err > VALUE_RTOL:
+        _fail(f"mcts_search's value net vs ValueNet: |Δ|/(1+|v|) {value_err} > {VALUE_RTOL}")
+    kplan = dm.plan()
+    with plain_ops():
+        pplan = dm.plan()
+    key = lambda p: [(a.kind.name, a.target) for a in p.actions]  # noqa: E731
+    if key(kplan) != key(pplan) or kplan.rollouts != pplan.rollouts:
+        _fail(f"value-net plans differ: kernel {key(kplan)} ({kplan.rollouts}) vs plain "
+              f"{key(pplan)} ({pplan.rollouts})")
+    a, b, p = _search_tree(dm), _search_tree(dm), _search_tree(dm, plain=True)
+    if _tree_diff(a, b):
+        _fail(f"value-net search: two kernel runs differ in {_tree_diff(a, b)}")
+    out = dict(fit_mse=mse, fit_s=fit_s, value_err=value_err,
+               nodes_differ=_nodes_differ(a, p), n_nodes=int(a.n_nodes[0]),
+               depth=round(_mean_depth(a), 3), plan_actions=len(kplan.actions))
+    print(f"value net on the card: fit_to_domain(bench, 256 rollouts, 150 steps) final "
+          f"MSE {mse:.4f} in {fit_s:.3f} s; the kernel's value on {VALUE_ROWS} rows vs "
+          f"ValueNet max |Δ|/(1+|v|) {value_err:.2e}; {MCTS_SIMS}-simulation plans kernel vs "
+          f"plain equal ({len(kplan.actions)} actions, {kplan.rollouts} rollouts), "
+          f"{out['nodes_differ']} of {out['n_nodes']} tree nodes differ; two kernel "
+          f"runs bit-equal")
+    return dict(out, net=net)
+
+
+def run_planner_cell(bench, net) -> dict:
+    """The planner cell (BASELINE's rollouts/s): the bench domain at 800
+    simulations with the fitted net, ``DeviceMCTS`` (the kernel), the host
+    ``MCTSPlanner`` (batches of 128, the net on the card) and the plain
+    version on the card, in turns (each after one warm plan); the kernel's
+    device time per launch (profiler) and per plan (CUDA events), launches
+    per plan from the counter, select depth, and the bound: the bytes of the
+    tree a plan writes, with its inputs, over 3.35 TB/s (a floor that the
+    chain of dependent levels, not bandwidth, sets)."""
+    import statistics
+
+    from nerrf_tpu_torch.ops import mcts as ops_mcts
+    from nerrf_tpu_torch.ops import plain_ops
+    from nerrf_tpu_torch.planner import DeviceMCTS, MCTSConfig, MCTSPlanner
+    from nerrf_tpu_torch.planner.device_mcts import run_chunks
+
+    cfg = MCTSConfig(num_simulations=MCTS_SIMS)
+    dm = DeviceMCTS(bench, cfg, value=net, device="cuda")
+    host = MCTSPlanner(bench, net, MCTSConfig(num_simulations=MCTS_SIMS, batch_size=128),
+                       device="cuda")
+
+    def plain():
+        with plain_ops():
+            return dm.plan()
+
+    fns = {"kernel": dm.plan, "host": host.plan, "plain": plain}
+    for fn in fns.values():
+        fn()
+    plans = {k: [] for k in fns}
+    for name in [*fns, *reversed(fns)]:
+        _sync()
+        plans[name].append(fns[name]())
+    ops_mcts.reset_launches()
+    dm.plan()
+    launches = ops_mcts.LAUNCHES["mcts_search"]
+    want = math.ceil(MCTS_SIMS / 128)
+    if launches != want:
+        _fail(f"DeviceMCTS.plan launched mcts_search {launches} times, want {want}")
+
+    def search():
+        run_chunks(dm.init_tree(), dm._ctx, dm._weights, cfg, time.perf_counter())
+
+    search_ms = cuda_ms(search, iters=10, warmup=2)
+    split = device_split(dm.plan, iters=5, warmup=1)
+    device_plan_ms = split.get("nerrf::mcts_search_kernel")
+    tree = _search_tree(dm)
+    n, A, D = int(tree.n_nodes[0]), dm._dims["A"], dm._dims["D"]
+    node_bytes = 4 * (2 * A + D) + 4 * 4 + 2
+    in_bytes = sum(t.numel() * t.element_size() for t in dm._ctx) + \
+        dm._weights.flat.numel() * 4
+    nbytes = n * node_bytes + in_bytes
+    bound, bound_by = bound_ms(nbytes, 0.0)
+    res = {}
+    for name, ps in plans.items():
+        res[name] = dict(
+            rollouts_per_s=statistics.mean(p.rollouts_per_sec for p in ps),
+            ms_per_plan=statistics.mean(p.planning_seconds for p in ps) * 1e3,
+            rollouts=ps[0].rollouts)
+    out = dict(cell=res, launches=launches, search_ms=search_ms,
+               device_ms=None if device_plan_ms is None else device_plan_ms / launches,
+               device_plan_ms=device_plan_ms, depth=round(_mean_depth(tree), 3),
+               n_nodes=n, bound_ms=bound, bound_by=bound_by, bytes=nbytes)
+    print(f"planner cell (bench 45f/4p, {MCTS_SIMS} simulations, fitted value net; "
+          f"in turns, means of 2): " + json.dumps(res) + f"; DeviceMCTS.plan launches "
+          f"mcts_search {launches}x; search {search_ms:.3f} ms a plan (CUDA events, "
+          f"with the per-chunk syncs), device {device_plan_ms} ms a plan "
+          f"(profiler: {split}); mean select depth {out['depth']} levels; bound "
+          f"{bound:.6f} ms ({nbytes} bytes of tree and inputs over 3.35 TB/s)")
+    return out
+
+
+def run_batched_planner(bench, net) -> dict:
+    """``BatchedDeviceMCTS`` with slots (1, 2, 4, 8) warmed through
+    ``warmup_for(45, 4)``: its B = 1 tree bit-equal to ``DeviceMCTS``'s and
+    its plan equal; a 3-incident wave in slot 4 gives each lane its
+    incident's own B = 1 tree; mixed buckets raise; 10 incidents run in
+    waves of 8 + 2 (2 × 7 launches); no wave outside the warmed set.
+    Reports incidents/s and rollouts/s at B = 1, 2, 4 and 8."""
+    import torch
+
+    from nerrf_tpu_torch.observability import MetricsRegistry
+    from nerrf_tpu_torch.ops import mcts as ops_mcts
+    from nerrf_tpu_torch.planner import DeviceMCTS, MCTSConfig
+    from nerrf_tpu_torch.planner.device_mcts import run_chunks
+    from nerrf_tpu_torch.respond import BatchedDeviceMCTS
+    from nerrf_tpu_torch.respond.planner import _bucket_dims, _pack_batch
+
+    cfg = MCTSConfig(num_simulations=MCTS_SIMS)
+    reg = MetricsRegistry()
+    bp = BatchedDeviceMCTS(cfg, batch_slots=BATCH_SLOTS, value=net, registry=reg,
+                           device="cuda")
+    warm_s = bp.warmup_for(45, 4)
+    incidents = [bench] + [seeded_domain(45, 4, 20 + i) for i in range(9)]
+    F, P, _ = _bucket_dims(bench)
+
+    def wave_tree(ds, B):
+        roots, ctx = _pack_batch(ds, F, P, B, cfg.c_puct, "cuda")
+        tree = ops_mcts.init_tree(roots, cfg.num_simulations + 1, F, P, ctx.consts)
+        run_chunks(tree, ctx, bp._weights, cfg, time.perf_counter())
+        return tree
+
+    def solo_tree(d):
+        dm = DeviceMCTS(d, cfg, value=net, device="cuda")
+        tree = dm.init_tree()
+        run_chunks(tree, dm._ctx, dm._weights, cfg, time.perf_counter())
+        return tree
+
+    lane = lambda tree, i: type(tree)(*(t[i:i + 1] for t in tree))  # noqa: E731
+    if _tree_diff(wave_tree([bench], 1), solo_tree(bench)):
+        _fail("BatchedDeviceMCTS B = 1 tree differs from DeviceMCTS's")
+    key = lambda p: ([(a.kind.name, a.target) for a in p.actions],  # noqa: E731
+                     p.expected_reward, p.rollouts)
+    if key(bp.plan_batch([bench])[0]) != key(DeviceMCTS(bench, cfg, value=net,
+                                                           device="cuda").plan()):
+        _fail("BatchedDeviceMCTS B = 1 plan differs from DeviceMCTS.plan")
+    three = wave_tree(incidents[:3], 4)
+    for i, d in enumerate(incidents[:3]):
+        if _tree_diff(lane(three, i), solo_tree(d)):
+            _fail(f"BatchedDeviceMCTS slot 4, lane {i}: not its incident's own tree")
+    try:
+        bp.plan_batch([bench, seeded_domain(300, 20, 5)])
+        _fail("BatchedDeviceMCTS took mixed shape buckets")
+    except ValueError:
+        pass
+    ops_mcts.reset_launches()
+    plans = bp.plan_batch(incidents)
+    launches = ops_mcts.LAUNCHES["mcts_search"]
+    want = 2 * math.ceil(MCTS_SIMS / 128)
+    if len(plans) != 10 or launches != want or \
+            any(p.rollouts != MCTS_SIMS for p in plans):
+        _fail(f"10 incidents: {len(plans)} plans, {launches} launches (want {want})")
+    rates = {}
+    for B in BATCH_SLOTS:
+        bp.plan_batch(incidents[:B])
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            bp.plan_batch(incidents[:B])
+        _sync()
+        dt = (time.perf_counter() - t0) / 3
+        rates[B] = dict(incidents_per_s=B / dt, rollouts_per_s=B * MCTS_SIMS / dt,
+                        ms_per_wave=dt * 1e3)
+    if bp.recompiles != 0 or reg.value("respond_recompiles_total") != 0.0:
+        _fail(f"BatchedDeviceMCTS: {bp.recompiles} waves outside the warmed set")
+    print(f"BatchedDeviceMCTS (slots {BATCH_SLOTS}, warmup {warm_s:.3f} s): B = 1 tree "
+          f"and plan equal to DeviceMCTS's, slot-4 lanes equal their own searches, mixed "
+          f"buckets refused, 10 incidents in waves of 8 + 2 ({launches} launches), 0 "
+          f"waves outside the warmed set; by batch: " + json.dumps(rates))
+    torch.cuda.synchronize()
+    return dict(rates=rates, warm_s=warm_s, launches=launches)
+
+
+def _data_loss(store, manifest, victim, encrypted, report, ransom_ext) -> tuple:
+    """run_recovery_bench's KPIs: bytes still missing or modified, and
+    restored files the attack never touched."""
+    from pathlib import Path
+
+    residual = store.diff(manifest, victim)
+    lost = sum(manifest.files[k][1] for k, v in residual.items()
+               if v in ("missing", "modified") and k in manifest.files)
+    attacked = {e.name[: -len(ransom_ext)] for e in encrypted}
+    fp = sum(1 for d in report.details
+             if d["result"] == "restored" and Path(d["target"]).name not in attacked)
+    return lost, fp
+
+
+def run_undo_path(model_dir: str) -> dict:
+    """The undo run, ``run_recovery_bench``'s M1 incident (45 files of 2-5
+    MB) in a temporary directory: seed, snapshot, the attack; the device
+    planner warmed before the clock (``cmd_undo``'s boot step); then the
+    measured window, ``cmd_undo``'s order: ``heuristic_detect``,
+    ``build_undo_domain``, ``fit_to_domain`` (256 rollouts, horizon 32, 200
+    steps), ``make_planner(kind="auto")`` and ``plan()`` at 800
+    simulations, ``SandboxGate.rehearse`` with the trace, and
+    ``RollbackExecutor.execute``.  Gates: the counters (from 0 before the
+    window) show ⌈800/128⌉ ``mcts_search`` launches and nothing else; the
+    gate approved, the restore verified, no byte lost, no clean file
+    reverted.  Then the same incident (the attacked tree put back) is
+    detected by ``model_detect`` with the experiment's checkpoint and its
+    calibration, as ``cmd_undo --model-dir`` does: its launches must be
+    28/2/3/2/0 a batch, the batches derived from the windows; the plan and
+    the gate's verdict are reported, not gated."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from nerrf_tpu_torch.models import NerrfNet
+    from nerrf_tpu_torch.ops import LAUNCHES, reset_launches
+    from nerrf_tpu_torch.ops import mcts as ops_mcts
+    from nerrf_tpu_torch.pipeline import (build_undo_domain, fit_capacity,
+                                          heuristic_detect, model_detect)
+    from nerrf_tpu_torch.planner import DeviceMCTS, MCTSConfig, make_planner
+    from nerrf_tpu_torch.planner.value_net import ValueNet
+    from nerrf_tpu_torch.rollback import (FileSimConfig, RollbackExecutor, SandboxGate,
+                                          SnapshotStore, run_file_attack)
+    from nerrf_tpu_torch.rollback.filesim import seed_files
+    from nerrf_tpu_torch.train.checkpoint import load_calibration, load_checkpoint
+    from nerrf_tpu_torch.train.data import DatasetConfig, windows_of_trace
+
+    tmp = Path(tempfile.mkdtemp(prefix="nerrf-undo-"))
+    try:
+        victim, cfg = tmp / "victim", FileSimConfig(**UNDO_FILES)
+        seed_files(victim, cfg)
+        store = SnapshotStore(tmp / "store")
+        manifest = store.snapshot(victim, "pre-attack")
+        total_bytes = sum(sz for _, sz, _ in manifest.files.values())
+        planner_cfg = MCTSConfig(num_simulations=MCTS_SIMS)
+        t0 = time.perf_counter()
+        value = ValueNet.create(device="cuda")
+        DeviceMCTS.warmup_for(1, 1, cfg=planner_cfg, value=value, device="cuda")
+        boot_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trace, encrypted = run_file_attack(victim, cfg)
+        attack_s = time.perf_counter() - t0
+        attacked = tmp / "attacked"
+        shutil.copytree(victim, attacked)
+
+        # --- the measured window ---------------------------------------------
+        _sync()
+        reset_launches()
+        ops_mcts.reset_launches()
+        t0 = time.perf_counter()
+        detection = heuristic_detect(trace)
+        t_detect = time.perf_counter() - t0
+        domain = build_undo_domain(detection, manifest, root=str(victim))
+        fit_mse = value.fit_to_domain(domain, num_rollouts=256, horizon=32, steps=200)
+        planner = make_planner(domain, value, planner_cfg, kind="auto")
+        plan = planner.plan()
+        t_plan = time.perf_counter() - t0 - t_detect
+        gate = SandboxGate(store, manifest).rehearse(plan, victim, trace=trace)
+        t_gate = time.perf_counter() - t0 - t_detect - t_plan
+        report = RollbackExecutor(store, manifest, victim).execute(plan)
+        mttr = time.perf_counter() - t0
+        launches, seg = dict(ops_mcts.LAUNCHES), dict(LAUNCHES)
+        lost, fp = _data_loss(store, manifest, victim, encrypted, report, cfg.ransom_ext)
+        want = math.ceil(MCTS_SIMS / 128)
+        if not isinstance(planner, DeviceMCTS) or launches["mcts_search"] != want or \
+                any(seg.values()):
+            _fail(f"undo run: {type(planner).__name__}, search launches {launches} "
+                  f"(want {want}), other kernels {seg}")
+        if not gate.approved or not report.verified or lost or fp:
+            _fail(f"undo run: gate {gate.approved} ({gate.reason}), verified "
+                  f"{report.verified}, {lost} bytes lost, {fp} false-positive undos")
+        heuristic = dict(
+            mttr_s=mttr, detect_s=t_detect, plan_s=t_plan, gate_s=t_gate,
+            execute_s=report.duration_seconds, mb_per_s=report.mb_per_sec,
+            files_restored=report.files_restored, total_bytes=total_bytes,
+            plan_actions=len(plan.actions), rollouts=plan.rollouts,
+            rollouts_per_s=plan.rollouts_per_sec, planning_s=plan.planning_seconds,
+            fit_mse=fit_mse, boot_s=boot_s, attack_s=attack_s, launches=launches,
+            data_loss_bytes=lost, false_positive_undos=fp, flagged=len(detection.flagged_files()))
+        print(f"undo run (M1: {len(encrypted)} files, {total_bytes} bytes; heuristic_detect, "
+              f"value net fit, DeviceMCTS {MCTS_SIMS} simulations, gate, execute): "
+              f"MTTR {mttr:.3f} s = detect {t_detect:.3f} + plan {t_plan:.3f} (fit and "
+              f"search; the search {plan.planning_seconds:.4f} s, "
+              f"{plan.rollouts_per_sec:.1f} rollouts/s) + gate {t_gate:.3f} + execute "
+              f"{report.duration_seconds:.3f} s ({report.mb_per_sec:.1f} MB/s); "
+              f"{len(plan.actions)} actions, gate approved ({gate.reason}), verified, "
+              f"0 bytes lost, 0 false-positive undos; launches {launches}; boot "
+              f"{boot_s:.3f} s, attack {attack_s:.3f} s (outside the window)")
+
+        # --- the same incident through the experiment's checkpoint -----------
+        shutil.rmtree(victim)
+        shutil.copytree(attacked, victim)
+        state, mcfg = load_checkpoint(model_dir)
+        with torch.device("cuda"):
+            model = NerrfNet(mcfg)
+        model.load_state_dict(state, strict=True)
+        model.eval()
+        calib = load_calibration(model_dir)
+        windows = len(windows_of_trace(trace, fit_capacity(trace, DatasetConfig())))
+        batches = math.ceil(windows / 8)
+        want = {k: batches * v for k, v in
+                fused_forward_launches(mcfg.gnn.num_layers).items()}
+        _sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        det = model_detect(trace, model, threshold=calib.get("node_threshold"),
+                           device="cuda")
+        _sync()
+        model_detect_s = time.perf_counter() - t0
+        got = dict(LAUNCHES)
+        if got != want:
+            _fail(f"model-driven undo: detection launches {got} != {want} ({windows} "
+                  f"windows, {batches} batches)")
+        domain2 = build_undo_domain(det, manifest, root=str(victim))
+        value.fit_to_domain(domain2, num_rollouts=256, horizon=32, steps=200)
+        plan2 = make_planner(domain2, value, planner_cfg, kind="auto").plan()
+        listing = lambda: sorted((p.name, p.stat().st_size) for p in victim.iterdir())  # noqa: E731
+        before = listing()
+        gate2 = SandboxGate(store, manifest).rehearse(plan2, victim, trace=trace)
+        untouched = listing() == before
+        model_run = dict(flagged=len(det.flagged_files()), files=len(det.file_scores),
+                         plan_actions=len(plan2.actions), approved=gate2.approved,
+                         reason=gate2.reason, victim_untouched=untouched,
+                         windows=windows, batches=batches, launches=got,
+                         detect_s=model_detect_s, threshold=calib.get("node_threshold"))
+        print(f"model-driven undo (the experiment's checkpoint, calibration "
+              f"{calib or 'none'}): {windows} windows in {batches} batches, launches "
+              f"{got}; {model_run['flagged']} of {model_run['files']} files flagged in "
+              f"{model_detect_s:.3f} s; plan {len(plan2.actions)} actions; gate "
+              f"approved={gate2.approved} ({gate2.reason}); victim untouched by the "
+              f"gate: {untouched}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(heuristic=heuristic, model=model_run)
 
 
 def kernel_times() -> dict:
@@ -2206,6 +2729,18 @@ def main() -> int:
         small_train_err = check_small_train()
         experiment = run_experiment_path()
         small_experiment = check_small_experiment()
+        undo_t0 = time.perf_counter()
+        try:
+            mcts_check = check_mcts()
+            bench = bench_domain()
+            value = check_value_net(bench)
+            planner = run_planner_cell(bench, value["net"])
+            batched = run_batched_planner(bench, value["net"])
+            undo = run_undo_path(experiment["model_dir"])
+        finally:
+            shutil.rmtree(experiment["model_dir"], ignore_errors=True)
+        print(f"undo-path phases: {time.perf_counter() - undo_t0:.1f} s of command time")
+        errors["mcts_search"] = {case: 0.0 for case in mcts_check}
         timing = time_kernels(train["batch"], errors, "train")
         split = gather_host_split(train["batch"])
     except Exception as e:  # any failed phase fails the smoke
@@ -2226,8 +2761,11 @@ def main() -> int:
     # its times on that path's inputs at its main call site.  The fused
     # sage_aggregate runs on the detection path only; the others on the
     # training path, segment_sum timed as the gathers' backward
+    from nerrf_tpu_torch.ops import LAUNCHES
+
+    segment_kernels = tuple(LAUNCHES)
     path = {name: "model_detect" if name == "sage_aggregate" else "train_nerrfnet"
-            for name in kernels.KERNELS}
+            for name in segment_kernels}
     runs = {"model_detect": (main_path, detect_timing),
             "train_nerrfnet": (train, timing)}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2244,7 +2782,25 @@ def main() -> int:
          "band_free_device_ms": runs[path[name]][1][name].get("band_free_device_ms"),
          "serve_launches": serve["per_batch"][name],
          "experiment_launches": experiment["launches"][name]}
-        for name in kernels.KERNELS]}
+        for name in segment_kernels]}
+    # the search: per plan of 800 simulations (ms: CUDA events around the
+    # plan's launches and syncs; plain_ms: the plain version's plan on the
+    # card; device_ms: the profiler's time a launch); no library call
+    # computes it
+    line["kernels"].append({
+        "name": "mcts_search", "route": "cuda",
+        "source": "nerrf_tpu_torch/ops/csrc/mcts_search.cu",
+        "replaces": "nerrf_tpu/planner/device_mcts.py:205",
+        "path": "DeviceMCTS.plan",
+        "launches": undo["heuristic"]["launches"]["mcts_search"],
+        "max_abs_err": max(errors["mcts_search"].values()),
+        "ms": planner["search_ms"], "plain_ms": planner["cell"]["plain"]["ms_per_plan"],
+        "bound_ms": planner["bound_ms"], "bound_by": planner["bound_by"],
+        "library_ms": None, "device_ms": planner["device_ms"],
+        "device_plan_ms": planner["device_plan_ms"], "per": "plan",
+        "rollouts_per_s": planner["cell"]["kernel"]["rollouts_per_s"],
+        "mean_select_depth": planner["depth"],
+        "value_net_max_rel_err": value["value_err"]})
     print("kernel errors by case: " + json.dumps(errors))
     chunked = ("per_call_ms", "per_call_host_us", "band_free_device_ms",
                "pad_spread_device_ms")

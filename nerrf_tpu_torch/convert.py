@@ -1,4 +1,4 @@
-"""Flax ``NerrfNet`` params → the port's ``state_dict``.
+"""Flax ``NerrfNet`` (and value-net) params → the port's ``state_dict``.
 
 Takes the reference's param tree as nested dicts of numpy arrays (``{"lstm":
 {"in_proj": {"kernel": ..., "bias": ...}, ...}, "gnn": {...}}``, e.g.
@@ -91,6 +91,19 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     if "seq_to_node" in params:
         _dense(sd, "seq_to_node", params["seq_to_node"])
     sd.update({f"gnn.{k}": v for k, v in gnn_state_dict(params["gnn"]).items()})
+    return sd
+
+
+def value_net_to_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax value-net tree (``planner/value_net._MLP``: ``Dense_0``-
+    ``Dense_2``, with or without the outer ``"params"``) → the state of the
+    port's ``_MLP`` (`ValueNet.load_params`)."""
+    p = flax_params.get("params", flax_params)
+    sd: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"Dense_{i}" in p:
+        _dense(sd, f"Dense_{i}", p[f"Dense_{i}"])
+        i += 1
     return sd
 
 

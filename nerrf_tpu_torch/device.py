@@ -17,3 +17,9 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"nerrf_tpu_torch runs on 'cuda' or 'cpu', not {dev}")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

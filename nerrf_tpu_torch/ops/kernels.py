@@ -32,9 +32,15 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("sage_aggregate", "gather_rows", "segment_sum",
-           "segment_sum_sorted", "gather_rows_sorted")
+           "segment_sum_sorted", "gather_rows_sorted", "mcts_search")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source only: the search is bit-equal to its plain version,
+# which rounds every product and sum on its own, so nvcc must not contract
+# a*b + c into one fused multiply-add there
+SOURCE_FLAGS = {"mcts_search": ("-fmad=false",)}
+# C entry points that live in another source's library: {entry: library}
+ENTRY_LIBRARY = {"mcts_value": "mcts_search"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
@@ -50,6 +56,13 @@ _ARGTYPES = {
     "segment_sum_sorted": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # table, dtype, idx, B, N, E, F, out, stream
     "gather_rows_sorted": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
+    # visits, value_sum, parent, parent_action, children, child_reward,
+    # expanded, terminal, state, n_nodes, file_scores, file_loss,
+    # proc_scores, prior, real, consts, weights, hidden, B, M, Fp, Pp,
+    # num_sims, stream
+    "mcts_search": [_P] * 17 + [_I] * 6 + [_P],
+    # features, consts, weights, hidden, N, out, stream
+    "mcts_value": [_P, _P, _P, _I, _I, _P, _P],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # rows per chunk of the chunked reductions (kChunkRows, csrc/segment_chunks.cuh)
@@ -66,7 +79,7 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256()
     for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -95,7 +108,8 @@ def build() -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         started[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT),
                          tmp, out, time.perf_counter())
@@ -121,7 +135,7 @@ def _fn(name: str):
             fn = _FNS.get(name)
             if fn is None:
                 build()
-                lib = ctypes.CDLL(str(library_path(name)))
+                lib = ctypes.CDLL(str(library_path(ENTRY_LIBRARY.get(name, name))))
                 fn = getattr(lib, f"nerrf_{name}")
                 fn.argtypes = _ARGTYPES[name]
                 fn.restype = ctypes.c_int

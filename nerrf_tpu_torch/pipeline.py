@@ -4,8 +4,8 @@ held-out calibration of the file detector's operating threshold.
 The port of ``nerrf_tpu/pipeline.py``'s model path.  ``DetectionResult``,
 ``aggregate_window_scores``, ``pad_batch``, ``accumulate_node_scores``,
 ``finalize_detection``, ``_inode_to_path``, ``_pid_to_comm``,
-``heuristic_detect`` and ``attack_touched_files`` are numpy and copied from
-it unchanged (keep them identical: the decision tail must not drift).
+``heuristic_detect``, ``attack_touched_files`` and ``build_undo_domain`` are
+numpy and copied from it unchanged (keep them identical: the decision tail must not drift).
 ``calibrate_file_thresholds`` is the reference's, incident recipes
 included, with the model (on ``device``) in place of the params.  ``make_eval_fn`` runs the batch of windows as an explicit batch
 dimension of the PyTorch ``NerrfNet``; ``model_detect`` is the reference's,
@@ -33,6 +33,8 @@ from nerrf_tpu_torch.graph.builder import (
     snapshot_windows,
 )
 from nerrf_tpu_torch.models.joint import NerrfNet
+from nerrf_tpu_torch.planner.domain import UndoDomain
+from nerrf_tpu_torch.rollback.store import Manifest
 from nerrf_tpu_torch.schema.events import (
     MUTATING_SYSCALLS,
     Syscall,
@@ -578,3 +580,43 @@ def calibrate_file_thresholds(
         if got is not None:
             out[agg] = Calibration(float(got[0]), kind, float(got[1]))
     return out
+
+
+def build_undo_domain(
+    detection: DetectionResult,
+    manifest: Optional[Manifest] = None,
+    root: str = "",
+    ransom_ext: str = ".lockbit3",
+    max_files: int = 128,
+    max_procs: int = 16,
+) -> UndoDomain:
+    """Detection scores + snapshot manifest → the planner's MDP.
+
+    File loss comes from the snapshot manifest when available (exact bytes at
+    stake), else from observed write volume.
+    """
+    items = sorted(detection.file_scores.items(), key=lambda kv: -kv[1])[:max_files]
+    paths, scores, loss = [], [], []
+    for path, score in items:
+        paths.append(path)
+        scores.append(score)
+        mb = None
+        if manifest is not None:
+            rel = path
+            if root and path.startswith(root):
+                rel = path[len(root):].lstrip("/")
+            if rel.endswith(ransom_ext):
+                rel = rel[: -len(ransom_ext)]
+            if rel in manifest.files:
+                mb = manifest.files[rel][1] / 1e6
+        if mb is None:
+            mb = detection.file_bytes.get(path, 0.0) / 1e6
+        loss.append(max(mb, 0.01))
+    procs = sorted(detection.proc_scores.items(), key=lambda kv: -kv[1])[:max_procs]
+    return UndoDomain(
+        file_paths=paths,
+        file_scores=np.asarray(scores, np.float32),
+        file_loss_mb=np.asarray(loss, np.float32),
+        proc_names=[p for p, _ in procs],
+        proc_scores=np.asarray([s for _, s in procs], np.float32),
+    )
