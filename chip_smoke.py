@@ -22,7 +22,7 @@ one row-copy kernel, bit for bit: F = 160, 24, 19, 7 and 1, tables off
 result of the chunked sums bit-equal over two runs and with or without the
 ids' segment plan, and each op's backward (an autograd Function whose
 backward is the adjoint kernel) against the plain version's gradient, with
-and without a plan.  Then it drives the four paths the port has, each with the
+and without a plan.  Then it drives the paths the port has, each with the
 launch counters set to 0 just before it and read just after:
 
 * ``model_detect`` with the full-width ``NerrfNet`` (28-layer GraphSAGE-T of
@@ -49,7 +49,24 @@ launch counters set to 0 just before it and read just after:
   ``metrics.json``'s held-out metrics; the calibration must be in the
   sidecar or reported unreachable.  A small float32 experiment runs on the
   card and on the CPU from the same init, and their held-out metrics and
-  calibrations must agree.
+  calibrations must agree;
+* the reference's own training paths on the training rung: the streamed
+  step, the scheduled step (the dataset and the index schedule on the card,
+  uploaded by ``device_put_chunked`` through pinned buffers on a side
+  stream, itself held bit-equal to a plain copy) and four supersteps of 5,
+  bit-equal in losses and final params, 59/59/112/56 launches a step, and
+  their steps/s and busy share in turns; ``train_elastic`` for 40 steps
+  with dropout on, and again preempted at step 17 and resumed, bit-equal;
+  one telemetry-on step (its ``grad_norm`` against a float64 norm of the
+  same gradients, its cost a step) and ``train_nerrfnet`` with a
+  ``TrainHealthMonitor`` on a dataset with one NaN window, halted at that
+  window's step with empty metrics;
+* a disk corpus generated by the port's ``generate_corpus`` (1 h of 600 s
+  traces, 64 windows a shard, configs/joint-100h.json's dataset) and
+  ``run_experiment`` over it: 200 full-width ``fused`` steps rotating the
+  shards through the card (the first batch of each shard bit-equal to its
+  rows on the host), checkpoints every 50 steps, the calibration, and the
+  reloaded checkpoint bit-equal in ``model_detect``.
 
 The counters must show the launches derived from the model's structure on
 each (on the serve path, in every scored batch), and two ``model_detect``
@@ -99,7 +116,10 @@ the detection rate, the serve rate, latency and warmup times, the training
 rate and its breakdown, the experiment's steps/s, time split, held-out
 metrics, calibration and gates, the card's busy share from profiler
 traces, the undo path's rollouts/s, incidents/s and MTTR split, and as its
-last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
+last line ``{"ok": true, "device": {...}}``; before it the training paths'
+and the disk corpus run's lines (steps/s in turns, the upload's GB/s,
+checkpoint bytes and seconds, the telemetry's cost, shards rotated, data
+wait, held-out metrics).  Exits non-zero, with no result
 line, when a phase fails or there is no card.
 """
 
@@ -1864,6 +1884,282 @@ def check_small_train() -> float:
     return err
 
 
+# --- the reference's own training paths: resident, elastic, trainwatch ----------
+
+SUPERSTEP_K = 5                 # 4 supersteps of 5 make the cell's 20 steps
+# the busy share of each flavor is read over this many steps (supersteps of
+# as many): a profiler trace of 20 steps takes minutes to summarize
+BUSY_STEPS = 2
+ELASTIC_STEPS = 40
+ELASTIC_SAVE_EVERY = 10
+ELASTIC_FAULT_AT = 17           # after the step-10 checkpoint, before step 20's
+# the in-step grad_norm (f32 sums) against a float64 norm of the same raw
+# gradients, relative
+TELEMETRY_RTOL = 1e-5
+NAN_STEPS = 10
+
+
+def _bits_equal(a: dict, b: dict) -> list:
+    """Names of the tensors of two state dicts that differ in any bit."""
+    import torch
+
+    return [n for n in a if not torch.equal(a[n], b[n])]
+
+
+def check_upload(arrays) -> dict:
+    """``device_put_chunked`` on the card: the side-stream upload in 1 MiB
+    chunks and in one chunk a array, each bit-equal to a plain copy, and the
+    rate of the default one (device seconds of its copies)."""
+    import torch
+
+    from nerrf_tpu_torch.train.loop import device_put_chunked
+
+    plain = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+    out = {}
+    for tag, max_bytes in (("1 MiB chunks", 1 << 20), ("64 MiB chunks", 64 << 20)):
+        up = device_put_chunked(arrays, max_bytes=max_bytes, device="cuda")
+        up.wait()
+        bad = [k for k in arrays if not torch.equal(up.arrays[k], plain[k])]
+        if bad:
+            _fail(f"device_put_chunked ({tag}) differs from a plain copy: {bad}")
+        out[tag] = up.nbytes / up.seconds() / 1e9
+    print(f"device_put_chunked: {sum(v.nbytes for v in arrays.values())} bytes, "
+          f"bit-equal to a plain copy in 1 MiB and 64 MiB chunks; upload rate "
+          f"(device seconds of the side stream) "
+          f"{json.dumps({k: round(v, 3) for k, v in out.items()})} GB/s")
+    return out
+
+
+def run_resident_paths(ds, cfg) -> dict:
+    """The Training cell's dataset and config through the streamed step (a
+    batch copied from the host each step), the scheduled step (the dataset
+    and the index schedule on the card) and SUPERSTEP_K-step supersteps,
+    each from the same init with one dropout generator seeded alike and the
+    counters from 0: the losses and final params bit-equal across the three,
+    59/59/112/56 launches a step on each; then steps/s of each, in turns
+    (two rounds, both gated), and the busy share of BUSY_STEPS steps of each
+    under the profiler, over their share of the rounds' wall time."""
+    import numpy as np
+    import torch
+
+    from nerrf_tpu_torch.ops import LAUNCHES, reset_launches
+    from nerrf_tpu_torch.train.loop import (
+        batch_to_device, init_state, make_idx_schedule, make_train_step,
+        make_train_step_scheduled, make_train_superstep)
+
+    upload = check_upload(ds.arrays)
+    sched = make_idx_schedule(len(ds), cfg)
+    n = cfg.num_steps
+    if n % SUPERSTEP_K:
+        _fail(f"{n} steps are not whole supersteps of {SUPERSTEP_K}")
+
+    def drive(kind, n):
+        """``(state, losses, run)``: a fresh state and generator and the step
+        built; ``run()`` takes n steps."""
+        state = init_state(cfg, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+        losses = []
+        if kind == "streamed":
+            step = make_train_step(state.model, cfg)
+
+            def run():
+                for s in range(n):
+                    losses.append(step(state, batch_to_device(ds.arrays, sched[s], "cuda"),
+                                       gen)[1])
+        elif kind == "scheduled":
+            step = make_train_step_scheduled(state.model, cfg, ds.arrays, sched)
+
+            def run():
+                for _ in range(n):
+                    losses.append(step(state, gen)[1])
+        else:
+            k = min(n, SUPERSTEP_K)
+            step = make_train_superstep(state.model, cfg, ds.arrays, sched, k)
+
+            def run():
+                for _ in range(n // k):
+                    losses.extend(step(state, gen)[1].unbind())
+        _sync()
+        return state, losses, run
+
+    kinds = ("streamed", "scheduled", "superstep")
+    per_step = step_launches("segment", cfg.model.gnn.num_layers)
+    want = {k: n * v for k, v in per_step.items()}
+    walls = {k: [] for k in kinds}
+    first = {}
+    for rnd in range(2):
+        for kind in kinds:
+            state, losses, run = drive(kind, n)
+            reset_launches()
+            t0 = time.perf_counter()
+            run()
+            _sync()
+            walls[kind].append(time.perf_counter() - t0)
+            launched = dict(LAUNCHES)
+            if launched != want:
+                _fail(f"{kind} steps launched {launched}, want {want} ({n} of {per_step})")
+            got = (torch.stack(losses).cpu(), {k: v.detach().clone()
+                                               for k, v in state.model.state_dict().items()})
+            if not torch.isfinite(got[0]).all():
+                _fail(f"{kind} steps: losses not finite {got[0]}")
+            if kind not in first:
+                first[kind] = got
+            ref = first["streamed"]
+            if not torch.equal(got[0], ref[0]) or _bits_equal(got[1], ref[1]):
+                _fail(f"round {rnd}: {kind} steps differ from the streamed steps: losses "
+                      f"{got[0].tolist()} vs {ref[0].tolist()}; params "
+                      f"{_bits_equal(got[1], ref[1])[:4]}")
+            del state, run
+    busy = {}
+    for kind in kinds:
+        _, _, run = drive(kind, BUSY_STEPS)
+        busy[kind] = device_busy_share(f"{BUSY_STEPS} {kind} steps", run,
+                                       float(np.mean(walls[kind])) * BUSY_STEPS / n)
+    sps = {k: [round(n / w, 3) for w in walls[k]] for k in kinds}
+    print(f"resident paths on the Training cell ({n} steps, segment, dropout "
+          f"{cfg.model.gnn.dropout}): streamed = scheduled = superstep (K = "
+          f"{SUPERSTEP_K}) bit for bit in losses and final params, two rounds; "
+          f"{per_step} launches a step on each; steps/s in turns {json.dumps(sps)}; "
+          f"busy share {json.dumps(busy)}")
+    return dict(steps_per_s=sps, busy=busy, upload_gbps=upload, per_step=per_step,
+                losses=first["streamed"][0].tolist())
+
+
+def run_elastic_path(ds, cfg) -> dict:
+    """``train_elastic`` on the Training cell for ELASTIC_STEPS steps with
+    dropout on, checkpoints every ELASTIC_SAVE_EVERY; then again in another
+    directory with ``fault_at(ELASTIC_FAULT_AT)``, the ``Preemption`` caught
+    and the run resumed: the final params bit-equal to the uninterrupted
+    run's; the uninterrupted run's launches ELASTIC_STEPS segment steps and
+    its evaluation's forwards."""
+    import dataclasses
+    import tempfile
+
+    from nerrf_tpu_torch import tracing
+    from nerrf_tpu_torch.ops import LAUNCHES, reset_launches
+    from nerrf_tpu_torch.train.elastic import (
+        STATE_FILENAME, Preemption, fault_at, latest_step, train_elastic)
+
+    cfg = dataclasses.replace(cfg, num_steps=ELASTIC_STEPS)
+    tmp = tempfile.mkdtemp(prefix="nerrf-elastic-")
+    try:
+        since = time.perf_counter()
+        reset_launches()
+        t0 = time.perf_counter()
+        ref = train_elastic(ds, cfg=cfg, ckpt_dir=os.path.join(tmp, "ref"),
+                            save_every=ELASTIC_SAVE_EVERY, device="cuda")
+        _sync()
+        ref_s = time.perf_counter() - t0
+        launched = dict(LAUNCHES)
+        eval_batches = math.ceil(len(ds) / cfg.batch_size)
+        want = train_launches(cfg.model.gnn.num_layers, cfg.num_steps, eval_batches)
+        if launched != want:
+            _fail(f"elastic run launched {launched}, want {want}")
+        saves = [sp.dur for sp in tracing.records()
+                 if sp.name == "checkpoint" and sp.t0 >= since]
+        state_bytes = os.path.getsize(os.path.join(
+            tmp, "ref", f"step_{ELASTIC_SAVE_EVERY:08d}", STATE_FILENAME))
+        pre = os.path.join(tmp, "pre")
+        try:
+            train_elastic(ds, cfg=cfg, ckpt_dir=pre, save_every=ELASTIC_SAVE_EVERY,
+                          fault=fault_at(ELASTIC_FAULT_AT), device="cuda")
+            _fail("the fault did not preempt the run")
+        except Preemption:
+            pass
+        resumed_from = latest_step(pre)
+        t0 = time.perf_counter()
+        lines = []
+        res = train_elastic(ds, cfg=cfg, ckpt_dir=pre, save_every=ELASTIC_SAVE_EVERY,
+                            device="cuda", log=lines.append)
+        _sync()
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    differ = _bits_equal(ref.state.model.state_dict(), res.state.model.state_dict())
+    if resumed_from != ELASTIC_SAVE_EVERY or f"resumed from step {resumed_from}" not in lines \
+            or differ or res.state.step != cfg.num_steps:
+        _fail(f"elastic resume from step {resumed_from}: {len(differ)} params differ from "
+              f"the uninterrupted run ({differ[:4]}), log {lines[:2]}")
+    if ref.history[-1] != res.history[-1]:
+        _fail(f"elastic: last losses {ref.history[-1]} vs {res.history[-1]}")
+    print(f"elastic: {cfg.num_steps} steps (dropout {cfg.model.gnn.dropout}, checkpoints "
+          f"every {ELASTIC_SAVE_EVERY}) in {ref_s:.1f} s at {ref.steps_per_sec:.3f} "
+          f"steps/s; preempted at step {ELASTIC_FAULT_AT}, resumed from step "
+          f"{resumed_from} in {resume_s:.1f} s: final params bit-equal to the "
+          f"uninterrupted run; a checkpoint {state_bytes} bytes, saved in "
+          f"{min(saves):.3f}-{max(saves):.3f} s; launches {launched}")
+    return dict(steps_per_sec=ref.steps_per_sec, save_s=[min(saves), max(saves)],
+                state_bytes=state_bytes, launches=launched)
+
+
+def run_trainwatch_path(ds, cfg) -> dict:
+    """One telemetry-on step of the Training cell: its floats, its grad_norm
+    against a float64 norm of the same raw gradients (a twin model from the
+    same init, the same batch and dropout seed), and the step's time with
+    and without telemetry, in turns.  Then ``train_nerrfnet`` with a
+    ``TrainHealthMonitor`` on a copy of the dataset whose window first
+    scheduled at a step past 0 has NaN node features: the monitor latches
+    the divergence once, at that step, the loop halts there and the metrics
+    come back empty."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nerrf_tpu_torch.train.data import WindowDataset
+    from nerrf_tpu_torch.train.loop import (
+        _telemetry_floats, batch_to_device, init_state, make_idx_schedule,
+        make_loss_fn, make_train_step, train_nerrfnet)
+    from nerrf_tpu_torch.trainwatch import TrainHealthMonitor
+
+    tcfg = dataclasses.replace(cfg, telemetry=True)
+    batch = batch_to_device(ds.arrays, np.arange(cfg.batch_size), "cuda")
+    state = init_state(tcfg, "cuda")
+    state.step = cfg.warmup_steps  # at the peak learning rate: the params move
+    step = make_train_step(state.model, tcfg)
+    _, _, aux = step(state, batch, torch.Generator(device="cuda").manual_seed(3))
+    floats = _telemetry_floats(aux)
+    twin = init_state(cfg, "cuda").model
+    make_loss_fn(twin, cfg)(batch, torch.Generator(device="cuda").manual_seed(3))[0].backward()
+    want = math.sqrt(sum(float((p.grad.double() ** 2).sum()) for p in twin.parameters()
+                         if p.grad is not None))
+    err = abs(floats["grad_norm"] - want) / want
+    print(f"trainwatch: one telemetry-on step: {json.dumps(floats)}; grad_norm vs a "
+          f"float64 norm of the same gradients {floats['grad_norm']} vs {want} "
+          f"(relative {err:.2e})")
+    if not err <= TELEMETRY_RTOL or any(floats["nonfinite"].values()):
+        _fail(f"telemetry grad_norm {floats['grad_norm']} vs {want} (relative {err})")
+    off = make_train_step(state.model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ms = round_robin_ms({"off": lambda: off(state, batch, gen),
+                         "on": lambda: step(state, batch, gen)}, rounds=8)
+    print(f"trainwatch: a training step with telemetry {ms['on']:.1f} ms, without "
+          f"{ms['off']:.1f} ms (host clock, medians of 8 in turns)")
+
+    ncfg = dataclasses.replace(tcfg, num_steps=NAN_STEPS, eval_every=1)
+    sched = make_idx_schedule(len(ds), ncfg)
+    for at in range(1, NAN_STEPS):
+        fresh = set(sched[at].tolist()) - set(sched[:at].ravel().tolist())
+        if fresh:
+            break
+    arrays = dict(ds.arrays, node_feat=ds.arrays["node_feat"].copy())
+    arrays["node_feat"][min(fresh)] = np.nan
+    logs = []
+    monitor = TrainHealthMonitor(log=logs.append)
+    res = train_nerrfnet(WindowDataset(arrays), cfg=ncfg, device="cuda",
+                         monitor=monitor, log=logs.append)
+    fired = [m for m in logs if "train_divergence" in m]
+    print(f"trainwatch: NaN window first scheduled at step {at}: latched "
+          f"{monitor.diverged}, halted after {len(res.history)} logged steps, metrics "
+          f"{res.metrics}; trigger log {fired}")
+    if (monitor.diverged is None or monitor.diverged[0] != at or len(fired) != 1
+            or res.metrics != {} or [h["step"] for h in res.history] != list(range(at + 1))
+            or "non-finite" not in monitor.diverged[1]):
+        _fail(f"trainwatch halt: diverged {monitor.diverged}, history {res.history}, "
+              f"metrics {res.metrics}, log {logs}")
+    return dict(floats=floats, grad_norm_err=err, step_ms=ms, nan_step=at)
+
+
 # --- the experiment runner --------------------------------------------------------
 
 
@@ -1884,26 +2180,27 @@ class _Tee:
         return "".join(self.lines)
 
 
-def _run_logged(run_experiment, *args, **kw):
-    """``run_experiment(*args, **kw)`` with its log kept, and its
-    ``TrainResult`` (the in-memory model): ``(report, result, log)``."""
+def _run_logged(run_experiment, *args, keep: str = "train_nerrfnet", **kw):
+    """``run_experiment(*args, **kw)`` with its log kept, and the
+    ``TrainResult`` (the in-memory model) of its trainer ``keep`` (a function
+    of ``train/loop.py``): ``(report, result, log)``."""
     import contextlib
 
     from nerrf_tpu_torch.train import loop
 
-    real, kept = loop.train_nerrfnet, {}
+    real, kept = getattr(loop, keep), {}
 
-    def keep(*a, **k):
+    def keeping(*a, **k):
         kept["result"] = real(*a, **k)
         return kept["result"]
 
     tee = _Tee(sys.stderr)
-    loop.train_nerrfnet = keep
+    setattr(loop, keep, keeping)
     try:
         with contextlib.redirect_stderr(tee):
             report = run_experiment(*args, **kw)
     finally:
-        loop.train_nerrfnet = real
+        setattr(loop, keep, real)
     return report, kept["result"], tee.text()
 
 
@@ -2142,6 +2439,225 @@ def check_small_experiment() -> dict:
             any(cal[k] != ccal[k] for k in cal.keys() & ccal.keys() if k.endswith("kind")):
         _fail(f"small experiment: calibration card {cal} vs CPU {ccal}")
     return dict(gap=max(gap.values()), card=card, cpu=cpu)
+
+
+# --- the disk corpus through the experiment runner ------------------------------
+
+# the corpus: CorpusSpec's defaults (600 s traces at 40 Hz, 24 files, hard
+# scenarios, auto-fit) cut from 100 h to 1 h (6 traces) and from 2000
+# windows a shard to 64, windowed with configs/joint-100h.json's dataset
+CORPUS_HOURS = 1.0
+CORPUS_SHARD_WINDOWS = 64
+CORPUS_STEPS = 200
+CORPUS_CKPT_EVERY = 50
+CORPUS_MIN_ROTATIONS = 3
+
+
+def _shard_plan(corpus_dir, cfg, passes: int = 2) -> list:
+    """The sharded trainer's first step on each shard it trains and that
+    step's batch indices, replayed from its rules: the shard order of
+    ``iter_train_shards(seed + epoch)``, ``_shard_steps`` steps a shard,
+    the indices drawn from ``default_rng((seed, 0))`` in step order.
+    ``[(step, shard name, idx)]``."""
+    import numpy as np
+
+    from nerrf_tpu_torch.train.corpus import ShardedCorpus
+    from nerrf_tpu_torch.train.loop import _shard_steps
+
+    sc = ShardedCorpus(corpus_dir)
+    windows = {s["name"]: s["windows"] for s in sc.manifest["shards"]}
+    order = np.random.default_rng((cfg.seed, 0))
+    plan, done, epoch = [], 0, 0
+    while done < cfg.num_steps:
+        for i in np.random.default_rng(cfg.seed + epoch).permutation(len(sc.train_shards)):
+            name = sc.train_shards[int(i)]
+            n = windows[name]
+            steps = min(_shard_steps({"node_feat": np.empty((n, 0))}, cfg, passes),
+                        cfg.num_steps - done)
+            for j in range(steps):
+                idx = order.choice(n, size=min(cfg.batch_size, n), replace=False)
+                if j == 0:
+                    plan.append((done, name, idx))
+                done += 1
+            if done == cfg.num_steps:
+                break
+        epoch += 1
+    return plan
+
+
+def run_disk_corpus_path(config_path: str = TRAIN_CONFIG, steps: int = CORPUS_STEPS,
+                         hours: float = CORPUS_HOURS) -> dict:
+    """A disk corpus generated by the port's ``generate_corpus`` (joint-100h's
+    dataset config, ``hours`` of 600 s traces, CORPUS_SHARD_WINDOWS windows a
+    shard), then ``run_experiment`` on a copy of the config whose
+    ``corpus_dir`` points at it: full width, ``fused``, ``steps`` steps,
+    ``ckpt_every`` CORPUS_CKPT_EVERY, to a calibrated checkpoint (or one
+    reported unreachable), on the card with the counters from 0.  Gates: the
+    launches derived from the model (the steps, the held-out batches, the
+    calibration's batches); at least CORPUS_MIN_ROTATIONS shard rotations;
+    the first batch trained on each shard equal, bit for bit, to the same
+    rows loaded on the host (the upload's event waited on); the reloaded
+    checkpoint bit-equal in ``model_detect``; the corpus extras in
+    ``metrics.json``; the last full-state checkpoint at the last step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerrf_tpu_torch.config import Experiment
+    from nerrf_tpu_torch.data import SimConfig, simulate_trace
+    from nerrf_tpu_torch.models import NerrfNet
+    from nerrf_tpu_torch.ops import LAUNCHES, reset_launches
+    from nerrf_tpu_torch.pipeline import (
+        calibration_traces, fit_capacity, model_detect)
+    from nerrf_tpu_torch.train import loop
+    from nerrf_tpu_torch.train.checkpoint import load_checkpoint
+    from nerrf_tpu_torch.train.corpus import CorpusSpec, ShardedCorpus, generate_corpus
+    from nerrf_tpu_torch.train.data import DatasetConfig, windows_of_trace
+    from nerrf_tpu_torch.train.elastic import latest_step
+    from nerrf_tpu_torch.train.run import run_experiment
+
+    with open(config_path) as f:
+        spec = json.load(f)
+    tmp = tempfile.mkdtemp(prefix="nerrf-corpus-")
+    try:
+        cdir, out = os.path.join(tmp, "corpus"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        man = generate_corpus(cdir, CorpusSpec(hours=hours,
+                                               shard_windows=CORPUS_SHARD_WINDOWS),
+                              dataset=Experiment.load(config_path).dataset)
+        gen_s = time.perf_counter() - t0
+        spec["corpus_dir"] = cdir
+        spec["train"]["num_steps"] = steps
+        spec["train"]["eval_every"] = EXPERIMENT_LOG_EVERY
+        path = os.path.join(tmp, "joint-100h-disk.json")
+        with open(path, "w") as f:
+            json.dump(spec, f, indent=2)
+        exp = Experiment.load(path)
+        cfg = exp.train
+        B, L = cfg.batch_size, cfg.model.gnn.num_layers
+        sc = ShardedCorpus(cdir)
+        eval_ds = sc.eval_dataset()
+        cal_windows = [len(windows_of_trace(tr, fit_capacity(tr, DatasetConfig())))
+                       for tr in calibration_traces()]
+        eval_batches = math.ceil(len(eval_ds) / B)
+        cal_batches = sum(math.ceil(w / B) for w in cal_windows)
+        fwd, step = fused_forward_launches(L), step_launches("fused", L)
+        want = {k: cfg.num_steps * step[k] + (eval_batches + cal_batches) * fwd[k]
+                for k in step}
+        plan = _shard_plan(cdir, cfg)
+        nbytes = sum(os.path.getsize(os.path.join(cdir, sc.train_shards[0], f))
+                     for f in os.listdir(os.path.join(cdir, sc.train_shards[0])))
+        print(f"disk corpus: {man['num_traces']} traces, {man['train_windows']} train "
+              f"windows in {len(sc.train_shards)} shards ({nbytes} bytes the first), "
+              f"{man['eval_windows']} held out, capacities {man['graph_capacity']}, "
+              f"scenarios {man['scenario_counts']}, generated in {gen_s:.1f} s; "
+              f"{len(plan)} shards to train over {cfg.num_steps} steps; expected "
+              f"launches {want}")
+
+        # the first batch of each shard, as the trainer gathered it on the card
+        firsts, real_step = {s: None for s, _, _ in plan}, loop.make_train_step
+
+        def recording_step(model, c):
+            step_fn = real_step(model, c)
+
+            def run(state, batch, gen=None):
+                if state.step in firsts and firsts[state.step] is None:
+                    firsts[state.step] = {k: v.cpu() for k, v in batch.items()}
+                return step_fn(state, batch, gen)
+
+            return run
+
+        _sync()
+        reset_launches()
+        since = time.perf_counter()
+        loop.make_train_step = recording_step
+        try:
+            report, res, log = _run_logged(run_experiment, path, out,
+                                           ckpt_every=CORPUS_CKPT_EVERY, device="cuda",
+                                           keep="train_sharded_stream")
+        finally:
+            loop.make_train_step = real_step
+        _sync()
+        wall_s = time.perf_counter() - since
+        launches = dict(LAUNCHES)
+        spans = _span_seconds(since)
+        print(f"disk corpus run launches {launches}, expected {want}")
+        if launches != want:
+            _fail(f"disk corpus launch counts {launches} != {want}")
+        info = res.info
+        if info["shards"] != len(plan) or info["shards"] - 1 < CORPUS_MIN_ROTATIONS:
+            _fail(f"shards trained {info['shards']}, planned {len(plan)} (at least "
+                  f"{CORPUS_MIN_ROTATIONS} rotations)")
+        for s, name, idx in plan:
+            host = sc.load_shard(name, upcast=True)
+            got = firsts[s]
+            bad = [k for k in host if got is None or not torch.equal(
+                got[k], torch.from_numpy(np.ascontiguousarray(host[k][idx])))]
+            if bad:
+                _fail(f"step {s}, the first on {name}: the batch on the card differs "
+                      f"from the host rows in {bad}")
+        losses = [h["loss"] for h in res.history]
+        if len(losses) != cfg.num_steps // EXPERIMENT_LOG_EVERY or \
+                not np.all(np.isfinite(losses)):
+            _fail(f"disk corpus losses: {res.history}")
+        extras = {"corpus_hours": round(man["hours"], 2),
+                  "corpus_train_windows": man["train_windows"],
+                  "corpus_eval_windows": man["eval_windows"]}
+        with open(os.path.join(out, "metrics.json")) as f:
+            written = json.load(f)
+        if written != report or set(report) != REPORT_KEYS | set(extras) or \
+                any(report[k] != v for k, v in extras.items()):
+            _fail(f"disk corpus metrics.json {written}")
+        if latest_step(os.path.join(out, "train_state")) != cfg.num_steps:
+            _fail("the last full-state checkpoint is not at the last step")
+        t0 = time.perf_counter()
+        state, lcfg = load_checkpoint(os.path.join(out, "model"))
+        with torch.device("cuda"):
+            loaded = NerrfNet(lcfg)
+        loaded.load_state_dict(state, strict=True)
+        loaded.eval()
+        _sync()
+        load_s = time.perf_counter() - t0
+        differ = _bits_equal({k: v.cuda() for k, v in state.items()},
+                             res.state.model.state_dict())
+        incident = simulate_trace(SimConfig(duration_sec=180.0, attack=True,
+                                            num_target_files=24, benign_rate_hz=40.0,
+                                            seed=4321), name="corpus-check-atk")
+        a = model_detect(incident, res.state.model, device="cuda")
+        b = model_detect(incident, loaded, device="cuda")
+        if differ or (a.file_scores, a.file_window_scores, a.proc_scores) != \
+                (b.file_scores, b.file_window_scores, b.proc_scores):
+            _fail(f"disk corpus checkpoint: {len(differ)} params differ, or "
+                  f"model_detect's bits after the load")
+        calibration = _check_calibration(os.path.join(out, "model"), log, "disk corpus")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    upload_gbps = (info["upload_bytes"] / info["upload_device_s"] / 1e9
+                   if info["upload_device_s"] else None)
+    split = {
+        "generate_s": gen_s,
+        "eval_split_s": spans.get("build_dataset", 0.0),
+        "training_s": spans.get("train_setup", 0.0) + spans.get("train_loop", 0.0),
+        "data_wait_s": info["data_wait_s"],
+        "held_out_eval_s": spans.get("eval", 0.0),
+        "calibration_s": spans.get("calibrate", 0.0),
+        "checkpoint_save_s": spans.get("checkpoint", 0.0),
+        "checkpoint_load_s": load_s,
+    }
+    print(f"disk corpus run: {wall_s:.1f} s; {info['shards']} shards trained "
+          f"({info['shards'] - 1} rotations), first batch of each bit-equal to its "
+          f"host rows; data wait {info['data_wait_s']:.3f} s; upload "
+          f"{info['upload_bytes']} bytes at {upload_gbps} GB/s (side stream's device "
+          f"seconds); {report['steps_per_sec']} steps/s after step 0; split "
+          f"{json.dumps({k: round(v, 3) for k, v in split.items()})}; losses "
+          f"{[round(x, 4) for x in losses]}; held-out "
+          f"{json.dumps({k: report['metrics'][k] for k in HELD_OUT})}; calibration "
+          f"{calibration}; model_detect on {incident.name} bit-equal after the load "
+          f"({len(a.file_scores)} files)")
+    return dict(launches=launches, report=report, wall_s=wall_s, split=split,
+                shards=info["shards"], upload_gbps=upload_gbps,
+                data_wait_s=info["data_wait_s"], calibration=calibration)
 
 
 # --- the undo path: the search kernel, the value net, the planners, undo ----
@@ -2727,8 +3243,12 @@ def main() -> int:
         train = run_train_path(traces, train_ds, train_cfg)
         grads = check_step_grads(train_ds, train_cfg)
         small_train_err = check_small_train()
+        resident = run_resident_paths(train_ds, train_cfg)
+        elastic = run_elastic_path(train_ds, train_cfg)
+        watch = run_trainwatch_path(train_ds, train_cfg)
         experiment = run_experiment_path()
         small_experiment = check_small_experiment()
+        corpus = run_disk_corpus_path()
         undo_t0 = time.perf_counter()
         try:
             mcts_check = check_mcts()
@@ -2781,7 +3301,8 @@ def main() -> int:
          **{k: runs[path[name]][1][name][k] for k in keys},
          "band_free_device_ms": runs[path[name]][1][name].get("band_free_device_ms"),
          "serve_launches": serve["per_batch"][name],
-         "experiment_launches": experiment["launches"][name]}
+         "experiment_launches": experiment["launches"][name],
+         "corpus_launches": corpus["launches"][name]}
         for name in segment_kernels]}
     # the search: per plan of 800 simulations (ms: CUDA events around the
     # plan's launches and syncs; plain_ms: the plain version's plan on the
@@ -2871,6 +3392,28 @@ def main() -> int:
           f"calibration {experiment['calibration']}; gates {r['gates']}; params.pt "
           f"{experiment['params_bytes']} bytes; launches {experiment['launches']}; "
           f"small f32 experiment card vs CPU max |Δ| {small_experiment['gap']:.1e}; "
+          f"on {smi}")
+    print(f"training paths on the Training cell ({TRAIN_STEPS} steps, segment): "
+          f"steps/s in turns {json.dumps(resident['steps_per_s'])}, busy share "
+          f"{json.dumps(resident['busy'])}, streamed = "
+          f"scheduled = superstep bit for bit, {resident['per_step']} launches a step; "
+          f"upload {json.dumps({k: round(v, 3) for k, v in resident['upload_gbps'].items()})} "
+          f"GB/s; elastic {ELASTIC_STEPS} steps at {elastic['steps_per_sec']:.3f} steps/s, "
+          f"resume bit-equal, a checkpoint {elastic['state_bytes']} bytes saved in "
+          f"{elastic['save_s'][0]:.3f}-{elastic['save_s'][1]:.3f} s; telemetry step "
+          f"{watch['step_ms']['on']:.1f} ms vs {watch['step_ms']['off']:.1f} ms without, "
+          f"grad_norm relative error {watch['grad_norm_err']:.2e}; NaN halt at step "
+          f"{watch['nan_step']}; on {smi}")
+    r = corpus["report"]
+    print(f"disk corpus joint-100h (cut: {CORPUS_HOURS} h, {CORPUS_SHARD_WINDOWS} "
+          f"windows a shard, {CORPUS_STEPS} steps, ckpt_every {CORPUS_CKPT_EVERY}) "
+          f"through run_experiment, fused mode: {r['steps_per_sec']} steps/s after "
+          f"step 0; {corpus['shards']} shards trained; data wait "
+          f"{corpus['data_wait_s']:.3f} s; upload {corpus['upload_gbps']} GB/s; "
+          f"{corpus['wall_s']:.1f} s, split "
+          f"{json.dumps({k: round(v, 3) for k, v in corpus['split'].items()})}; held-out "
+          f"{json.dumps({k: r['metrics'][k] for k in HELD_OUT})}; calibration "
+          f"{corpus['calibration']}; gates {r['gates']}; launches {corpus['launches']}; "
           f"on {smi}")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

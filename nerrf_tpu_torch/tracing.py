@@ -7,11 +7,17 @@ ring.  ``device=True`` also opens a ``torch.profiler.record_function`` region
 of the same name, so the stage shows up in a profiler trace beside the
 kernels it launched.  Chrome-trace export and the metrics dual-write come
 with the port's tracing slice.
+
+:func:`enabled` (``NERRF_TRACE=1`` in the environment) opts the training
+loops into per-step spans that synchronize the card each step
+(``data_wait``, ``device_step``), as the reference's
+``DEFAULT_TRACER.enabled`` does; off, they open none.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import deque
@@ -33,6 +39,13 @@ class Span:
 
 _LOCK = threading.Lock()
 _SPANS: deque = deque(maxlen=65536)
+_ENABLED = os.environ.get("NERRF_TRACE") == "1"
+
+
+def enabled() -> bool:
+    """Whether hot loops open their per-step synced spans."""
+    return _ENABLED
+
 
 
 @contextlib.contextmanager

@@ -13,15 +13,21 @@ Produces under ``--out``: the experiment config as run
 operating threshold when the calibration reaches one, and ``metrics.json``
 with the quality gates evaluated on the held-out split.
 
-The run trains on one device: the card unless ``device='cpu'``.  It builds
-the experiment's in-memory corpus; an experiment whose ``corpus_dir`` names
-a corpus that was never generated (no ``manifest.json``) falls back to the
-in-memory corpus with the reference's log line.  Left out, each refused
-with ``NotImplementedError`` when asked for: the disk-sharded corpus, the
-elastic full-state checkpoints (``ckpt_every``), the compile cache and the
-training-health plane (``metrics_port``, ``flight_dir``, ``archive_dir``)
-(ROADMAP A.3); the registry publish (``publish_to``, A.6); the sharded
-trainer over a device mesh (A.8).
+The run trains on one device: the card unless ``device='cpu'``.  An
+experiment whose ``corpus_dir`` holds a generated corpus (``manifest.json``;
+``python -m nerrf_tpu_torch.train.corpus``) trains from it, rotating its
+shards through the card (``loop.train_sharded_stream``) and evaluating on
+its held-out traces; a ``corpus_dir`` that was never generated falls back to
+the in-memory corpus with the reference's log line.  ``ckpt_every > 0``
+writes full-state checkpoints under ``train_state/`` and resumes from the
+newest (``elastic.train_elastic``, or the sharded trainer's own).  A
+``monitor`` (``trainwatch.TrainHealthMonitor``) turns the in-step telemetry
+on and halts a diverged run, which then writes a ``metrics.json`` saying
+why and no checkpoint.  Left out, each refused with ``NotImplementedError``
+when asked for: the compile cache (``compile_cache``, ROADMAP B.D1), the
+registry publish (``publish_to``) and the training-health plane's server,
+flight recorder and archive (``metrics_port``, ``flight_dir``,
+``archive_dir``) (A.6), and the sharded trainer over a device mesh (A.8).
 """
 
 from __future__ import annotations
@@ -49,41 +55,73 @@ def run_experiment(name_or_path: str, out_dir: str | Path,
                    metrics_port: int = -1,
                    flight_dir: str | None = None,
                    archive_dir: str | None = None,
-                   device=None) -> dict:
+                   device=None,
+                   monitor=None) -> dict:
     """Train the experiment ``name_or_path`` (a registry name, a
     ``configs/<name>.json`` or any experiment JSON) on ``device`` and write
     its artifacts under ``out_dir``; returns the ``metrics.json`` report.
-    ``num_steps`` overrides the experiment's; ``calibrate=False`` skips the
-    held-out threshold calibration."""
+    ``num_steps`` overrides the experiment's; ``ckpt_every`` checkpoints the
+    full state every so many steps and resumes from the newest;
+    ``calibrate=False`` skips the held-out threshold calibration;
+    ``monitor`` watches the run's health (telemetry on)."""
     left_out = {
-        "ckpt_every": (ckpt_every > 0, "elastic checkpoints (ROADMAP A.3)"),
         "publish_to": (publish_to is not None, "the model registry (ROADMAP A.6)"),
-        "compile_cache": (compile_cache is not None, "the compile cache (ROADMAP A.3)"),
-        "metrics_port": (metrics_port >= 0, "the training-health plane (ROADMAP A.3)"),
-        "flight_dir": (flight_dir is not None, "the training flight recorder (ROADMAP A.3)"),
-        "archive_dir": (archive_dir is not None, "the telemetry archive (ROADMAP A.3)"),
+        "compile_cache": (compile_cache is not None,
+                          "the compile cache (a capture cache of CUDA graphs, "
+                          "ROADMAP B.D1)"),
+        "metrics_port": (metrics_port >= 0,
+                         "the training-health metrics server (ROADMAP A.6)"),
+        "flight_dir": (flight_dir is not None,
+                       "the training flight recorder (ROADMAP A.6)"),
+        "archive_dir": (archive_dir is not None,
+                        "the telemetry archive (ROADMAP A.6)"),
     }
     for name, (asked, what) in left_out.items():
         if asked:
             raise NotImplementedError(f"run_experiment({name}=...): {what} is not ported")
     dev = resolve_device(device)
-    return _run_experiment(name_or_path, out_dir, num_steps, calibrate, dev)
+    return _run_experiment(name_or_path, out_dir, num_steps, ckpt_every,
+                           calibrate, dev, monitor)
 
 
-def _run_experiment(name_or_path, out_dir, num_steps, calibrate, dev) -> dict:
+def _halted_report(exp, cfg, out: Path, monitor, steps_per_sec) -> dict:
+    """The divergence-halt exit: the weights of a run the monitor stopped
+    are not finite, so nothing is saved or calibrated.  ``metrics.json``
+    says why there is no model, with a failing gate."""
+    step, reason = monitor.diverged
+    report = {
+        "experiment": exp.name,
+        "num_steps": cfg.num_steps,
+        "steps_per_sec": round(steps_per_sec, 3),
+        "metrics": {},
+        "diverged": {"step": step, "reason": reason},
+        "gates": {"not_diverged": False},
+    }
+    (out / "metrics.json").write_text(json.dumps(report, indent=2) + "\n")
+    _log(f"training diverged at step {step} ({reason}); NOT saving a "
+         f"checkpoint — restart from the last good checkpoint")
+    return report
+
+
+def _run_experiment(name_or_path, out_dir, num_steps, ckpt_every, calibrate,
+                    dev, monitor) -> dict:
     import dataclasses
 
     from nerrf_tpu_torch.config import get_experiment
     from nerrf_tpu_torch.train.data import build_dataset
-    from nerrf_tpu_torch.train.loop import train_nerrfnet
 
     exp = get_experiment(name_or_path)
     cfg = exp.train
     if num_steps is not None:
         cfg = dataclasses.replace(cfg, num_steps=num_steps)
+    if monitor is not None and not cfg.telemetry:
+        # the health plane is armed: the in-step telemetry comes with it
+        # (without grad and update norms divergence detection is loss-only)
+        cfg = dataclasses.replace(cfg, telemetry=True)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     exp.save(out / "experiment.json")
+    ckpt_dir = (out / "train_state") if ckpt_every > 0 else None
 
     t0 = time.time()
     if exp.corpus_dir:
@@ -91,9 +129,8 @@ def _run_experiment(name_or_path, out_dir, num_steps, calibrate, dev) -> dict:
         if not cdir.is_absolute():
             cdir = Path(__file__).resolve().parents[2] / cdir
         if (cdir / "manifest.json").exists():
-            raise NotImplementedError(
-                f"experiment {exp.name}: the disk corpus at {cdir} is not "
-                f"ported (ROADMAP A.3)")
+            return _run_on_disk_corpus(exp, cfg, cdir, out, ckpt_dir, ckpt_every,
+                                       calibrate, dev, monitor, t0)
         _log(f"corpus_dir {cdir} not generated "
              f"(python scripts/gen_corpus.py --out {cdir}) — falling back "
              f"to the in-memory corpus "
@@ -109,13 +146,59 @@ def _run_experiment(name_or_path, out_dir, num_steps, calibrate, dev) -> dict:
         eval_ds = build_dataset(eval_traces, exp.dataset) if eval_traces else None
     _log(f"dataset: {len(train_ds)} train windows"
          + (f" / {len(eval_ds)} eval" if eval_ds else ""))
-    res = train_nerrfnet(train_ds, eval_ds, cfg, log=_log, device=dev)
+    if ckpt_dir is not None:
+        from nerrf_tpu_torch.train.elastic import train_elastic
+
+        res = train_elastic(train_ds, eval_ds, cfg, ckpt_dir=ckpt_dir,
+                            save_every=ckpt_every, log=_log, monitor=monitor,
+                            device=dev)
+    else:
+        from nerrf_tpu_torch.train.loop import train_nerrfnet
+
+        res = train_nerrfnet(train_ds, eval_ds, cfg, log=_log, device=dev,
+                             monitor=monitor)
+    if monitor is not None and monitor.diverged is not None:
+        return _halted_report(exp, cfg, out, monitor, res.steps_per_sec)
     return _finish(exp, cfg, out, dev, res.metrics, res.steps_per_sec,
                    res.state.model, t0, calibrate=calibrate)
 
 
+def _run_on_disk_corpus(exp, cfg, cdir, out, ckpt_dir, ckpt_every, calibrate,
+                        dev, monitor, t0) -> dict:
+    """The disk-sharded corpus branch: train by shard rotation, evaluate on
+    the corpus's held-out traces, and add the corpus's size to the report."""
+    from nerrf_tpu_torch.train.corpus import ShardedCorpus
+    from nerrf_tpu_torch.train.loop import train_sharded_stream
+
+    sc = ShardedCorpus(cdir)
+    _log(f"experiment {exp.name}: disk corpus {sc.hours:.1f}h, "
+         f"{sc.train_windows} train windows ({len(sc.train_shards)} shards)")
+    # the shards' shapes are authoritative (the manifest's auto-fit)
+    cap = sc.manifest.get("graph_capacity")
+    g = exp.dataset.graph
+    if cap and (cap["max_nodes"] != g.max_nodes or cap["max_edges"] != g.max_edges):
+        _log(f"WARNING: corpus capacities {cap} != experiment config "
+             f"({g.max_nodes}n/{g.max_edges}e) — training uses the corpus "
+             f"shapes; update the config/regenerate to align")
+    with span("build_dataset"):
+        eval_ds = sc.eval_dataset()
+    _log(f"eval split: {len(eval_ds)} held-out-trace windows")
+    res = train_sharded_stream(sc, cfg, eval_ds=eval_ds, log=_log,
+                               ckpt_dir=ckpt_dir, save_every=ckpt_every,
+                               monitor=monitor, device=dev)
+    if monitor is not None and monitor.diverged is not None:
+        return _halted_report(exp, cfg, out, monitor, res.steps_per_sec)
+    extra = {
+        "corpus_hours": round(sc.hours, 2),
+        "corpus_train_windows": sc.train_windows,
+        "corpus_eval_windows": int(sc.manifest["eval_windows"]),
+    }
+    return _finish(exp, cfg, out, dev, res.metrics, res.steps_per_sec,
+                   res.state.model, t0, extra, calibrate=calibrate)
+
+
 def _finish(exp, cfg, out: Path, dev, metrics, steps_per_sec, model, t0,
-            calibrate: bool = True) -> dict:
+            extra: dict | None = None, calibrate: bool = True) -> dict:
     from nerrf_tpu_torch.train.checkpoint import (
         calibrate_and_resave,
         save_checkpoint,
@@ -149,6 +232,7 @@ def _finish(exp, cfg, out: Path, dev, metrics, steps_per_sec, model, t0,
                if cfg.seq_loss_weight > 0 else {}),
         },
         "wall_seconds": round(time.time() - t0, 1),
+        **(extra or {}),
     }
     (out / "metrics.json").write_text(json.dumps(report, indent=2) + "\n")
     _log(f"done: {report['metrics']} at {steps_per_sec:.1f} steps/s")
@@ -164,12 +248,15 @@ def main(argv=None) -> int:
     ap.add_argument("--out", required=True)
     ap.add_argument("--steps", type=int, default=None,
                     help="override the experiment's num_steps")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="full-state checkpoints every N steps, resuming "
+                         "from the newest")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where to train (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
     report = run_experiment(args.experiment, args.out, args.steps,
-                            device=args.device)
+                            ckpt_every=args.ckpt_every, device=args.device)
     return 0 if all(report["gates"].values()) else 1
 
 

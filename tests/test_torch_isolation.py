@@ -48,7 +48,8 @@ def test_importing_the_port_loads_no_jax_module():
         "import nerrf_tpu_torch.pipeline, nerrf_tpu_torch.convert\n"
         "import nerrf_tpu_torch.ops.kernels, nerrf_tpu_torch.train.loop\n"
         "import nerrf_tpu_torch.config, nerrf_tpu_torch.train.checkpoint\n"
-        "import nerrf_tpu_torch.train.run\n"
+        "import nerrf_tpu_torch.train.run, nerrf_tpu_torch.train.corpus\n"
+        "import nerrf_tpu_torch.train.elastic, nerrf_tpu_torch.trainwatch\n"
         f"bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n")
@@ -95,3 +96,18 @@ def test_training_raises_without_cuda(monkeypatch):
 def test_entry_points_take_only_cuda_or_cpu():
     with pytest.raises(ValueError, match="runs on 'cuda' or 'cpu'"):
         port_device.resolve_device("meta")
+
+
+def test_training_paths_raise_without_cuda(monkeypatch, tmp_path):
+    from nerrf_tpu_torch.train import elastic, loop
+    from nerrf_tpu_torch.train.data import WindowDataset
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = WindowDataset({"node_feat": torch.zeros(1, 4, 24).numpy()})
+    cfg = loop.TrainConfig(model=JointConfig().small, num_steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loop.device_put_chunked(ds.arrays)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        elastic.train_elastic(ds, cfg=cfg, ckpt_dir=tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loop.train_sharded_stream(object(), cfg)
