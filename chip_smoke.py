@@ -109,6 +109,23 @@ launches, the gate approved, the restore verified, no byte lost and no
 clean file reverted; then the same incident detected with the experiment's
 checkpoint (28/2/3/2/0 launches a batch).
 
+Then the online response chain (``run_respond_chain``): the reference
+bench's four staged attack families and one incident without a snapshot
+context through a live ``ResponseRouter`` on the card (every family one
+verified plan, the no-context incident rejected with its journaled reason,
+no recompile after ``start()``, the ``mcts_search`` launches derived from
+the router's waves); the M1 incident trace (one window) and the detection
+cell's seed-5 trace (15 windows) over the gRPC wire (``TraceReplayServer``
+on 127.0.0.1:0 → ``TrackerClient`` with the native decoder →
+``TraceStore`` with the native engine → ``query``), detected bit-equal to
+the originals; and ``OnlineDetectionService`` with the experiment's
+checkpoint ``connect``ed to each server in turn, ``attach_respond`` to a
+second router, each run read alone: its result bit-equal to
+``model_detect``, 28/2/3/2/0 launches a batch, every alert admitted or
+counted below the severity gate, every admitted incident answered (rejected
+with a reason: no snapshot context binds an alert's ``ino:`` targets), the
+``mcts_search`` launches derived from that run's waves, no recompile.
+
 Prints the card's name and power limit, one JSON line with each kernel's
 launches (and its launches per serve batch and per experiment run), error,
 times (ms, host_us, device_ms, library_ms, library_device_ms) and bound,
@@ -3156,7 +3173,381 @@ def run_undo_path(model_dir: str) -> dict:
               f"gate: {untouched}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return dict(heuristic=heuristic, model=model_run)
+    return dict(heuristic=heuristic, model=model_run, trace=trace)
+
+
+# --- the respond chain: staged families, the wire, serve → router --------------
+
+# the reference bench's corpus (benchmarks/run_respond_bench.py part_corpus,
+# full run): 96 simulations a plan, 6 files a staged incident, family seed
+# 11, the no-context incident at seed 23; its record's plans restore 6 files
+# in 7 actions (benchmarks/results/respond_bench_cpu.json)
+RESPOND_SIMS = 96
+RESPOND_FILES = 6
+RESPOND_REF = {"plan_actions": 7, "files_restored": 6}
+NO_CONTEXT = "no snapshot context bound for this stream — cannot replay"
+
+
+def _router_waves(journal, top: int, skip: int = 0) -> list:
+    """[(incidents, plan_seconds)] of each batch a router planned, from its
+    ``plan_emitted`` records after the first ``skip`` (one a planned
+    incident, a batch's records in a row: one worker plans), and the waves
+    each took (ceil(n / top))."""
+    recs = journal.tail(kinds=("plan_emitted",))[skip:]
+    out, i = [], 0
+    while i < len(recs):
+        n = recs[i].data["batch"]
+        out.append((n, recs[i].data["plan_seconds"], math.ceil(n / top)))
+        i += n
+    return out
+
+
+def _search_launches(waves: list) -> int:
+    """``mcts_search`` launches of the router's waves: ⌈sims/128⌉ chunks a
+    wave (one launch covers every tree of the wave)."""
+    return sum(w for _, _, w in waves) * math.ceil(RESPOND_SIMS / 128)
+
+
+def run_respond_chain(model_dir: str, m1) -> dict:
+    """The online response chain on the card, three legs, each with the
+    counters set to 0 just before it and read just after:
+
+    1. the reference bench's staged families (``stage_incident`` at seed 11,
+       ``heuristic_detect``) and one incident without a snapshot context
+       (seed 23) submitted to a started ``ResponseRouter``: every family one
+       verified plan, the no-context incident rejected with its journaled
+       reason, ``drain()`` true, no recompile after ``start()``, and the
+       ``mcts_search`` launches derived from the router's waves;
+    2. the M1 incident trace (``run_undo_path``'s) served by the port's
+       ``TraceReplayServer`` on 127.0.0.1:0, drained by its ``TrackerClient``
+       (the native decoder) into a ``TraceStore`` (the native engine) and
+       queried back: ``model_detect`` with the experiment's checkpoint on the
+       queried trace bit-equal to the original's, 28/2/3/2/0 launches a
+       batch.
+       The detection cell's 120 s seed-5 trace (15 windows) takes the same
+       way, under the same gates: M1's times are one request's, s5's the
+       rates;
+    3. ``OnlineDetectionService`` with that checkpoint, ``attach_respond`` to
+       a second router, ``connect``ed to each server in turn (M1, then s5),
+       each run read alone: the result bit-equal to ``model_detect``,
+       28/2/3/2/0 launches in every batch, the router's admitted and
+       below-``severity_min`` incidents adding up to the sink's alerts, a
+       plan result for every admitted incident (rejected with a reason: an
+       alert's targets are ``ino:`` pseudo-paths and no snapshot context is
+       bound), ``mcts_search`` launches derived from that run's waves, no
+       serve or router recompile after warmup.  A third ``connect``, of s5,
+       is profiled for the busy share."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from nerrf_tpu_torch.data import Trace
+    from nerrf_tpu_torch.flight.journal import EventJournal
+    from nerrf_tpu_torch.graph import TraceStore, store_native_available
+    from nerrf_tpu_torch.ingest.bridge import native_available
+    from nerrf_tpu_torch.ingest.service import TraceReplayServer, TrackerClient
+    from nerrf_tpu_torch.models import NerrfNet
+    from nerrf_tpu_torch.observability import MetricsRegistry
+    from nerrf_tpu_torch.ops import LAUNCHES, reset_launches
+    from nerrf_tpu_torch.ops import mcts as ops_mcts
+    from nerrf_tpu_torch.pipeline import fit_capacity, heuristic_detect, model_detect
+    from nerrf_tpu_torch.respond import (FAMILIES, RespondConfig, ResponseRouter,
+                                         stage_incident)
+    from nerrf_tpu_torch.serve import ServeConfig, bucket_tag
+    from nerrf_tpu_torch.train.checkpoint import load_calibration, load_checkpoint
+    from nerrf_tpu_torch.train.data import DatasetConfig, windows_of_trace
+
+    phase_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="nerrf-respond-"))
+    srvs = []
+    try:
+        # --- 1. the staged families through a live router ---------------------
+        reg, jr = MetricsRegistry(), EventJournal(registry=MetricsRegistry())
+        cfg = RespondConfig(num_simulations=RESPOND_SIMS)
+        router = ResponseRouter(cfg, registry=reg, journal=jr, device="cuda")
+        router.start()
+        # staged and detected first, then submitted back to back: the
+        # incidents/s below are the router's (planning and verification)
+        families, incidents = {}, []
+        for fam in FAMILIES:
+            t0 = time.perf_counter()
+            staged = stage_incident(tmp, fam, seed=11, files=RESPOND_FILES)
+            det = heuristic_detect(staged.trace)
+            incidents.append((fam, det, staged.verify_context()))
+            families[fam] = {"flagged_files": len(det.flagged_files()),
+                             "stage_s": time.perf_counter() - t0}
+        lost = stage_incident(tmp, FAMILIES[0], seed=23, files=RESPOND_FILES)
+        incidents.append(("no-context", heuristic_detect(lost.trace), None))
+        try:
+            _sync()
+            reset_launches()
+            ops_mcts.reset_launches()
+            t0 = time.perf_counter()
+            for stream, det, ctx in incidents:
+                router.submit_detection(stream, det, context=ctx)
+            drained = router.drain(timeout=300.0)
+            corpus_s = time.perf_counter() - t0
+        finally:
+            router.stop(timeout=60.0)
+        launches, seg = dict(ops_mcts.LAUNCHES), dict(LAUNCHES)
+        results, stats = router.results(), router.stats()
+        waves = _router_waves(jr, cfg.batch_slots[-1])
+        want = _search_launches(waves)
+        if not drained or router._thread is not None:
+            _fail(f"respond corpus: drained {drained}, worker joined "
+                  f"{router._thread is None}")
+        if stats["recompiles"] or launches["mcts_search"] != want or any(seg.values()):
+            _fail(f"respond corpus: recompiles {stats['recompiles']}, search "
+                  f"launches {launches} (want {want} over waves {waves}), other "
+                  f"kernels {seg}")
+        plan_s = {r.stream: r.data["plan_seconds"]
+                  for r in jr.tail(kinds=("plan_emitted",))}
+        for fam in FAMILIES:
+            vps = [vp for vp in results if vp.incident.stream == fam]
+            if len(vps) != 1 or not vps[0].verified:
+                _fail(f"respond corpus: {fam}: "
+                      f"{[(vp.verified, vp.reason) for vp in vps]}")
+            families[fam].update(plan_s=plan_s[fam],
+                                 plan_actions=len(vps[0].plan.actions),
+                                 files_restored=vps[0].gate.rehearsal.files_restored)
+        rejected = [vp for vp in results if vp.incident.stream == "no-context"]
+        journaled = [r.data["reason"] for r in jr.tail(kinds=("plan_rejected",))]
+        if [(vp.verified, vp.reason) for vp in rejected] != [(False, NO_CONTEXT)] \
+                or journaled != [NO_CONTEXT]:
+            _fail(f"respond corpus: the no-context incident gave "
+                  f"{[(vp.verified, vp.reason) for vp in rejected]}, journaled "
+                  f"{journaled}")
+        plan_p50 = float(np.percentile([s for _, s, _ in waves], 50))
+        corpus = dict(families=families, stats=stats, waves=waves,
+                      launches=launches["mcts_search"],
+                      incidents_per_s=len(results) / corpus_s,
+                      plan_p50_s=plan_p50, warmup_s=router.warmup_seconds)
+        print(f"respond corpus (the reference bench's: {RESPOND_SIMS} simulations, "
+              f"{RESPOND_FILES} files, seed 11; one ResponseRouter on the card): "
+              f"{len(results)} incidents in {stats['batches']} batches, waves "
+              f"{[n for n, _, _ in waves]}, {len(results) / corpus_s:.3f} incidents/s "
+              f"from the first submit to drained ({corpus_s:.4f} s); "
+              f"respond_plan_seconds p50 "
+              f"{plan_p50:.4f} s; mcts_search launches {launches['mcts_search']} "
+              f"(derived {want}); 0 recompiles after a {router.warmup_seconds:.3f} s "
+              f"warmup; per family (plan actions and files restored; the "
+              f"reference's record {RESPOND_REF['plan_actions']} and "
+              f"{RESPOND_REF['files_restored']}): " + json.dumps(
+                  {f: {k: (round(v, 4) if isinstance(v, float) else v)
+                       for k, v in d.items()} for f, d in families.items()})
+              + f"; no-context rejected: {NO_CONTEXT!r}")
+
+        # --- 2. the wire into the store -----------------------------------------
+        state, mcfg = load_checkpoint(model_dir)
+        with torch.device("cuda"):
+            model = NerrfNet(mcfg)
+        model.load_state_dict(state, strict=True)
+        model.eval()
+        threshold = load_calibration(model_dir).get("node_threshold")
+        per_batch = fused_forward_launches(mcfg.gnn.num_layers)
+        # the native host libraries are built (make, from native/) before
+        # the clock
+        t0 = time.perf_counter()
+        native = (native_available(), store_native_available())
+        native_build_s = time.perf_counter() - t0
+        # two traces over the wire: M1 (one window: a single request's
+        # latency) and the detection cell's 120 s seed-5 trace (15 windows:
+        # the rates)
+        streams = {"m1": m1, "s5": detect_trace()[0]}
+        targets = {}
+        for sid, tr in streams.items():
+            srvs.append(TraceReplayServer(tr.events, tr.strings, address="127.0.0.1:0"))
+            targets[sid] = f"127.0.0.1:{srvs[-1].start()}"
+        fields = ("file_scores", "file_window_scores", "proc_scores", "file_bytes",
+                  "threshold")
+        wire = dict(native_build_s=native_build_s)
+        for sid, tr in streams.items():
+            client = TrackerClient(targets[sid])
+            t0 = time.perf_counter()
+            with TraceStore(tmp / f"wire_store_{sid}") as store:
+                for block, strings in client.iter_blocks(timeout=120.0):
+                    store.append(block, strings)
+                store.flush()
+                events, strings = store.query(0, 2 ** 63 - 1)
+                engines = tuple("native" if x.is_native else "python"
+                                for x in (client.bridge, store))
+            wire_s = time.perf_counter() - t0
+            n_wire = int(events.num_valid)
+            if engines != ("native", "native") or n_wire != tr.events.num_valid:
+                _fail(f"respond wire {sid}: engines {engines}, {n_wire} of "
+                      f"{tr.events.num_valid} events back from the store")
+            wired = Trace(events=events, strings=strings, ground_truth=None,
+                          labels=None, name=f"{sid}-wire")
+            windows = len(windows_of_trace(tr, fit_capacity(tr, DatasetConfig())))
+            batches = math.ceil(windows / 8)
+            dets = {}
+            for name, t in (("original", tr), ("wire", wired)):
+                _sync()
+                reset_launches()
+                dets[name] = model_detect(t, model, threshold=threshold, device="cuda")
+                _sync()
+                got = dict(LAUNCHES)
+                if got != {k: batches * v for k, v in per_batch.items()}:
+                    _fail(f"respond wire {sid}: model_detect on the {name} trace "
+                          f"launched {got}, want {batches} x {per_batch}")
+            differ = [f for f in fields
+                      if getattr(dets["wire"], f) != getattr(dets["original"], f)]
+            if differ:
+                _fail(f"respond wire {sid}: model_detect on the queried trace "
+                      f"differs in {differ}")
+            wire[sid] = dict(events=n_wire, seconds=wire_s, events_per_s=n_wire / wire_s,
+                             windows=windows,
+                             flagged=len(dets["wire"].flagged_files()))
+            print(f"respond wire {sid} (TraceReplayServer → TrackerClient, "
+                  f"{engines[0]} decoder → TraceStore, {engines[1]} engine → "
+                  f"query): {n_wire} events ({windows} windows) in {wire_s:.4f} s "
+                  f"({n_wire / wire_s:.1f} events/s); model_detect on the queried "
+                  f"trace bit-equal to the original's ({', '.join(fields)}), "
+                  f"{wire[sid]['flagged']} files flagged at threshold {threshold}")
+        print(f"respond wire: the libraries {native} built from native/ in "
+              f"{native_build_s:.3f} s before the clock")
+
+        # --- 3. the wire into serve, into a router --------------------------------
+        fits = [fit_capacity(tr, DatasetConfig()) for tr in streams.values()]
+        bucket = (max(f.graph.max_nodes for f in fits),
+                  max(f.graph.max_edges for f in fits),
+                  max(f.max_seqs for f in fits))
+        scfg = ServeConfig(buckets=(bucket,), batch_size=SERVE_BATCH, threshold=threshold)
+        reg2, jr2 = MetricsRegistry(), EventJournal(registry=MetricsRegistry())
+        router2 = ResponseRouter(cfg, registry=reg2, journal=jr2, device="cuda").start()
+        svc = _counting_service()(model, scfg, registry=reg2, journal=jr2, device="cuda")
+        svc.attach_respond(router2)
+
+        def incidents(outcome):
+            return reg2.value("respond_incidents_total", labels={"outcome": outcome})
+
+        def connect_leg(sid):
+            """One stream connected to its server, the counters set to 0
+            just before and every count read just after the router drained."""
+            plans0 = len(jr2.tail(kinds=("plan_emitted",)))
+            results0, batches0 = len(router2.results()), len(svc.batch_launches)
+            admitted0, below0 = incidents("admitted"), incidents("below_min")
+            scored0 = _counter_total(reg2, "serve_windows_scored_total")
+            _sync()
+            reset_launches()
+            ops_mcts.reset_launches()
+            t0 = time.perf_counter()
+            run = svc.connect(sid, targets[sid], timeout=120.0)
+            if not run.done.wait(300.0) or run.error is not None:
+                _fail(f"respond serve {sid}: connect ended with {run.error!r}")
+            serve_s = time.perf_counter() - t0
+            if not router2.drain(timeout=300.0):
+                _fail(f"respond serve {sid}: the router did not drain")
+            chain_s = time.perf_counter() - t0
+            _sync()
+            launches = dict(LAUNCHES)
+            search = ops_mcts.LAUNCHES["mcts_search"]
+            waves = _router_waves(jr2, cfg.batch_slots[-1], skip=plans0)
+            alerts = svc.sink.drain()
+            admitted = incidents("admitted") - admitted0
+            below = incidents("below_min") - below0
+            results = router2.results()[results0:]
+            n_batches = len(svc.batch_launches) - batches0
+            windows = int(_counter_total(reg2, "serve_windows_scored_total") - scored0)
+            want_admitted = sum(a.severity >= cfg.severity_min for a in alerts)
+            if launches != {k: n_batches * v for k, v in per_batch.items()}:
+                _fail(f"respond serve {sid}: launched {launches} in {n_batches} "
+                      f"batches, want {per_batch} each")
+            if admitted + below != len(alerts) or admitted != want_admitted \
+                    or len(results) != admitted:
+                _fail(f"respond serve {sid}: {len(alerts)} alerts, {want_admitted} at "
+                      f"severity >= {cfg.severity_min}; the router admitted "
+                      f"{admitted}, {below} below the gate, {len(results)} plan "
+                      "results")
+            if any(vp.verified or not vp.reason for vp in results) \
+                    or search != _search_launches(waves):
+                _fail(f"respond serve {sid}: results "
+                      f"{[(vp.verified, vp.reason) for vp in results]}, search "
+                      f"launches {search} over waves {waves}")
+            # alert → plan result: the window scored (the alert leaves the
+            # demux right after), the incident queued, the verdict journaled
+            queued_t = {r.trace_id: r.t_perf
+                        for r in jr2.tail(kinds=("incident_enqueued",))}
+            verdict_t = {r.trace_id: r.t_perf
+                         for r in jr2.tail(kinds=("plan_rejected", "plan_verified"))}
+            answered = [a for a in alerts if a.trace_id in verdict_t]
+            lat = [verdict_t[a.trace_id] - a.t_scored for a in answered]
+            to_queue = [queued_t[a.trace_id] - a.t_scored for a in answered]
+            p50 = lambda xs: float(np.percentile(xs, 50)) * 1e3 if xs else None  # noqa: E731
+            events = int(streams[sid].events.num_valid)
+            return dict(run=run, windows=windows, batches=n_batches, events=events,
+                        alerts=len(alerts), admitted=int(admitted), below=int(below),
+                        rejected=len(results), reasons=sorted({vp.reason for vp in results}),
+                        serve_s=serve_s, chain_s=chain_s,
+                        windows_per_s=windows / serve_s, events_per_s=events / serve_s,
+                        alert_to_plan_p50_ms=p50(lat), alert_to_queue_p50_ms=p50(to_queue),
+                        answered=len(lat),
+                        launches={**launches, "mcts_search": search}, waves=waves)
+
+        legs = {}
+        try:
+            svc.start()
+            if svc.batch_launches != [per_batch]:
+                _fail(f"respond serve: warmup launches {svc.batch_launches}")
+            for sid in streams:
+                legs[sid] = connect_leg(sid)
+            # the busy share: s5 again, profiled, over its unprofiled wall time
+            busy = device_busy_share(
+                "the serve leg (connect, s5)",
+                lambda: svc.connect("s5-profiled", targets["s5"],
+                                    timeout=120.0).done.wait(300.0),
+                legs["s5"]["serve_s"])
+            if not router2.drain(timeout=300.0):
+                _fail("respond serve: the router did not drain the profiled run")
+        finally:
+            svc.stop()
+            router2.stop(timeout=60.0)
+        _serve_gates(reg2, svc, 1, per_batch, "respond serve")
+        stats2 = router2.stats()
+        if stats2["recompiles"]:
+            _fail(f"respond serve: {stats2['recompiles']} router recompiles")
+        if not legs["m1"]["alerts"]:
+            _fail(f"respond serve: the experiment's checkpoint raised no alert on M1 "
+                  f"at its threshold ({threshold}, 0.5 when None)")
+        for sid, leg in legs.items():
+            want = model_detect(streams[sid], model, ds_cfg=scfg.dataset_config(bucket),
+                                auto_capacity=False, batch_size=SERVE_BATCH,
+                                threshold=threshold, device="cuda")
+            run = leg.pop("run")
+            differ = [f for f in fields if getattr(run.result, f) != getattr(want, f)]
+            if differ or run.result.detector != "serve[max]":
+                _fail(f"respond serve {sid}: {differ or run.result.detector} differ "
+                      "from model_detect")
+            kind = ("a single request: its latencies, not rates" if sid == "m1"
+                    else "the rates")
+            print(f"respond serve {sid} ({kind}; OnlineDetectionService "
+                  f"{bucket_tag(bucket)} with the experiment's checkpoint, connect "
+                  f"to the replay server, attach_respond): {leg['events']} events, "
+                  f"{leg['windows']} windows scored in {leg['batches']} batches "
+                  f"(launches {per_batch} each) in {leg['serve_s']:.4f} s from "
+                  f"connect to the stream's end ({leg['windows_per_s']:.3f} "
+                  f"windows/s, {leg['events_per_s']:.1f} events/s), result "
+                  f"bit-equal to model_detect; {leg['alerts']} alerts, "
+                  f"{leg['admitted']} admitted at severity >= {cfg.severity_min}, "
+                  f"{leg['below']} below; {leg['rejected']} plan results, all "
+                  f"rejected with a reason ({leg['reasons']}); alert → plan result "
+                  f"p50 {leg['alert_to_plan_p50_ms']} ms over {leg['answered']} "
+                  f"(scored → queued {leg['alert_to_queue_p50_ms']} ms); mcts_search "
+                  f"launches {leg['launches']['mcts_search']} over waves "
+                  f"{[n for n, _, _ in leg['waves']]}")
+        print(f"respond serve: 0 serve and 0 router recompiles after warmup; busy "
+              f"share of the s5 leg {'not measured' if busy is None else f'{busy:.3f}'}")
+        serve = dict(bucket=bucket_tag(bucket), legs=legs, busy=busy,
+                     launches=legs["m1"]["launches"])
+    finally:
+        for srv in srvs:
+            srv.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = time.perf_counter() - phase_t0
+    print(f"respond-chain phase: {total:.1f} s of command time")
+    return dict(corpus=corpus, wire=wire, serve=serve, seconds=total)
 
 
 def kernel_times() -> dict:
@@ -3257,6 +3648,7 @@ def main() -> int:
             planner = run_planner_cell(bench, value["net"])
             batched = run_batched_planner(bench, value["net"])
             undo = run_undo_path(experiment["model_dir"])
+            respond = run_respond_chain(experiment["model_dir"], undo["trace"])
         finally:
             shutil.rmtree(experiment["model_dir"], ignore_errors=True)
         print(f"undo-path phases: {time.perf_counter() - undo_t0:.1f} s of command time")
@@ -3302,7 +3694,8 @@ def main() -> int:
          "band_free_device_ms": runs[path[name]][1][name].get("band_free_device_ms"),
          "serve_launches": serve["per_batch"][name],
          "experiment_launches": experiment["launches"][name],
-         "corpus_launches": corpus["launches"][name]}
+         "corpus_launches": corpus["launches"][name],
+         "respond_serve_launches": respond["serve"]["launches"][name]}
         for name in segment_kernels]}
     # the search: per plan of 800 simulations (ms: CUDA events around the
     # plan's launches and syncs; plain_ms: the plain version's plan on the
@@ -3321,6 +3714,8 @@ def main() -> int:
         "device_plan_ms": planner["device_plan_ms"], "per": "plan",
         "rollouts_per_s": planner["cell"]["kernel"]["rollouts_per_s"],
         "mean_select_depth": planner["depth"],
+        "respond_corpus_launches": respond["corpus"]["launches"],
+        "respond_serve_launches": respond["serve"]["launches"]["mcts_search"],
         "value_net_max_rel_err": value["value_err"]})
     print("kernel errors by case: " + json.dumps(errors))
     chunked = ("per_call_ms", "per_call_host_us", "band_free_device_ms",
@@ -3415,6 +3810,21 @@ def main() -> int:
           f"{json.dumps({k: r['metrics'][k] for k in HELD_OUT})}; calibration "
           f"{corpus['calibration']}; gates {r['gates']}; launches {corpus['launches']}; "
           f"on {smi}")
+    rc, rs = respond["corpus"], respond["serve"]
+    m1s, s5s = rs["legs"]["m1"], rs["legs"]["s5"]
+    print(f"respond chain ({respond['seconds']:.1f} s): staged families "
+          f"{json.dumps({f: [round(d['stage_s'], 3), d['plan_s']] for f, d in rc['families'].items()})} "
+          f"(stage s, plan s), each verified; router {rc['stats']['batches']} "
+          f"batches, {rc['incidents_per_s']:.3f} incidents/s, respond_plan_seconds "
+          f"p50 {rc['plan_p50_s']:.4f} s; wire (s5) "
+          f"{respond['wire']['s5']['events_per_s']:.1f} events/s through client → "
+          f"store; serve over connect (s5) {s5s['windows_per_s']:.3f} windows/s, "
+          f"{s5s['events_per_s']:.1f} events/s, {s5s['alerts']} alerts, alert → plan "
+          f"result p50 {s5s['alert_to_plan_p50_ms']} ms, busy share "
+          f"{'not measured' if rs['busy'] is None else round(rs['busy'], 3)}; M1 as "
+          f"one request: wire {respond['wire']['m1']['seconds']:.4f} s, connect "
+          f"{m1s['serve_s']:.4f} s, {m1s['alerts']} alerts, alert → plan result "
+          f"p50 {m1s['alert_to_plan_p50_ms']} ms; on {smi}")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

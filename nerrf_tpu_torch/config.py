@@ -13,10 +13,11 @@ Serialization rules (kept deliberately small, the reference's):
     name (``"bfloat16"``, ``"float32"``) and decode as ``torch.<name>``;
   * unknown keys on load are an error (config drift should fail loudly).
 
-``MeshConfig``, ``MCTSConfig`` and ``StreamConfig`` are data-only copies of
-the reference's (``parallel/mesh.py``, ``planner/mcts.py``,
-``models/stream.py``), here so that every experiment parses; each moves to
-its own module when the port takes that module (ROADMAP A.8, A.4, A.5).
+``MCTSConfig`` is the planner's own (``planner/mcts.py``), as in the
+reference.  ``MeshConfig`` and ``StreamConfig`` are data-only copies of the
+reference's (``parallel/mesh.py``, ``models/stream.py``), here so that every
+experiment parses; each moves to its own module when the port takes that
+module (ROADMAP A.7, A.5).
 
 CLI::
 
@@ -41,6 +42,7 @@ from nerrf_tpu_torch.graph.builder import GraphConfig
 from nerrf_tpu_torch.models.graphsage import GraphSAGEConfig
 from nerrf_tpu_torch.models.joint import JointConfig
 from nerrf_tpu_torch.models.lstm import LSTMConfig
+from nerrf_tpu_torch.planner.mcts import MCTSConfig
 from nerrf_tpu_torch.train.data import DatasetConfig
 from nerrf_tpu_torch.train.loop import TrainConfig
 
@@ -54,7 +56,7 @@ CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """The reference's device mesh shape (``parallel/mesh.py``; moves there
-    with ROADMAP A.8).  The port trains on one card."""
+    with ROADMAP A.7).  The port trains on one card."""
 
     dp: int = -1  # -1: use all remaining devices
     tp: int = 1
@@ -69,20 +71,6 @@ class MeshConfig:
         if dp * tp * sp != n_devices:
             raise ValueError(f"dp*tp*sp={dp * tp * sp} != {n_devices} devices")
         return dp, tp, sp
-
-
-@dataclasses.dataclass(frozen=True)
-class MCTSConfig:
-    """The reference's planner search settings (``planner/mcts.py``; moves
-    there with ROADMAP A.4)."""
-
-    num_simulations: int = 800
-    batch_size: int = 64
-    c_puct: float = 1.5
-    virtual_loss: float = 3.0
-    max_nodes: int = 4096
-    timeout_seconds: float = 300.0
-    plan_actions: int = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,10 +179,10 @@ class Experiment:
     mesh: MeshConfig = MeshConfig()
     mcts: MCTSConfig = MCTSConfig()
     stream: Optional[StreamConfig] = None
-    # the reference's disk-sharded corpus, for runs whose window tensors
-    # exceed host memory: when it is generated the reference's run.py
-    # takes the shard-rotation path (not ported, ROADMAP A.3); when it is
-    # absent, the in-memory ``corpus`` is generated instead
+    # the disk-sharded corpus, for runs whose window tensors exceed host
+    # memory: when it is generated run.py trains by shard rotation
+    # (train_sharded_stream); when it is absent, the in-memory ``corpus``
+    # is generated instead
     corpus_dir: Optional[str] = None
 
     def to_json(self, indent: int = 2) -> str:

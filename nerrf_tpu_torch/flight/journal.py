@@ -8,7 +8,7 @@ record carries a process-monotonic sequence number, wall-clock and
 perf-counter timestamps (the perf stamp aligns with span times), a record
 ``kind``, and the stream/window/trace IDs it touched.
 
-Record kinds the port's serve plane writes (producers in parentheses):
+Record kinds the port writes (producers in parentheses):
 
     batch_close       a bucket's shared batch assembled (serve/batcher)
     batch_failed      a device batch's scoring raised (serve/batcher)
@@ -25,6 +25,13 @@ Record kinds the port's serve plane writes (producers in parentheses):
     readiness         admission opened/closed (serve/service)
     config            serve config fingerprint at start (serve/service)
     registry_swap     live weights hot-swapped (serve/service)
+    reconnect         a followed stream's wire session restarted
+                      (serve/service connect)
+    incident_enqueued an incident admitted or evicted (respond/incidents)
+    plan_emitted      a batched plan left the planner (respond/router)
+    plan_verified     a plan passed the sandbox gate (respond/verify)
+    plan_rejected     a plan quarantined, with its reason (respond/verify)
+    exception         a router wave raised; the loop went on (respond/router)
 
 ``KNOWN_KINDS`` keeps the reference's full list, so records the two
 packages write stay readable by the same readers.  The ring records

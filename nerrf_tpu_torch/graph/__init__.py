@@ -8,8 +8,11 @@ from nerrf_tpu_torch.graph.builder import (
     measure_window,
     snapshot_windows,
 )
+from nerrf_tpu_torch.graph.store import TraceStore, store_native_available
 
 __all__ = [
+    "TraceStore",
+    "store_native_available",
     "GraphConfig",
     "GraphBatch",
     "WindowStats",

@@ -15,6 +15,7 @@ from nerrf_tpu_torch.serve.config import (
 from nerrf_tpu_torch.serve.service import (
     OnlineDetectionService,
     StreamHandle,
+    StreamRun,
     init_untrained_model,
 )
 from nerrf_tpu_torch.serve.windower import StreamWindower
@@ -27,6 +28,7 @@ __all__ = [
     "ScoredWindow",
     "ServeConfig",
     "StreamHandle",
+    "StreamRun",
     "StreamWindower",
     "WindowAlert",
     "WindowRequest",

@@ -24,10 +24,12 @@ bounded alert sink (drop-on-full, counted), deadline-based batch close,
 per-bucket in-flight limits, poison bisection and stream quarantine, a
 scorer watchdog, and clean stream join/leave while batches are in flight.
 
-Not ported yet: ``connect`` (the wire ingest), shadow scoring, the compile
-cache, and the device-time, quality, archive, learning, response, flight
-and SLO planes; without the device-time plane there is no SLO-aware
-shedding, as in the reference.
+``connect`` drains a Tracker endpoint (the gRPC wire of `ingest.service`)
+as one stream, and ``attach_respond`` hands every alert to the respond
+tier's `ResponseRouter`.  Not ported yet: shadow scoring, the compile
+cache, and the device-time, quality, archive, learning, flight and SLO
+planes; without the device-time plane there is no SLO-aware shedding, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -85,6 +87,18 @@ class StreamHandle:
         self.skipped = 0
         self.rejected = 0
         self.closing = False
+
+
+@dataclasses.dataclass
+class StreamRun:
+    """A `connect`-spawned drain: result or error lands when the wire
+    stream ends and the stream has left."""
+
+    stream: str
+    thread: threading.Thread
+    done: threading.Event
+    result: Optional[DetectionResult] = None
+    error: Optional[BaseException] = None
 
 
 class OnlineDetectionService:
@@ -148,6 +162,8 @@ class OnlineDetectionService:
         # (stream, window_idx, latency_sec, late, model_version) — exact
         # admit→demux percentiles and per-window version stamps
         self._window_log = window_log
+        # optional respond.ResponseRouter (attach_respond)
+        self._respond = None
 
     # -- scoring --------------------------------------------------------------
 
@@ -230,6 +246,12 @@ class OnlineDetectionService:
             self._batcher.mark_warm(bucket)
             if log:
                 log(f"serve bucket {tag} warm ({self.warmup_seconds[tag]}s)")
+
+    def attach_respond(self, router) -> None:
+        """Bind a respond.ResponseRouter: every WindowAlert leaving the
+        demux boundary is also offered to the incident queue (the router
+        applies its own severity admission)."""
+        self._respond = router
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -350,6 +372,112 @@ class OnlineDetectionService:
                 help="tracker streams currently admitted")
         self.sink.on_detection(stream_id, det)
         return det
+
+    def connect(self, stream_id: str, target: str,
+                max_events: Optional[int] = None,
+                timeout: float = 30.0,
+                follow: bool = False,
+                reconnect_sec: float = 2.0,
+                reconnect_max_sec: float = 30.0) -> StreamRun:
+        """Drain a live Tracker endpoint as one stream (join → feed per
+        decoded block → leave at end-of-stream), on its own actor thread.
+        Each block is decoded by the client's `IngestBridge` (the native
+        decoder when ``libnerrf_ingest.so`` builds).
+
+        ``follow`` makes the actor RESIDENT (the serve pod's mode, same
+        contract as `nerrf ingest --follow`): when the wire stream ends —
+        clean end-of-replay or a gRPC deadline — the session finalizes
+        (DetectionResult in ``run.result``) and the actor reconnects as
+        ``<stream_id>#<n>``, forever, until the service stops admitting.
+        Without it a 'resident' deployment would exit at the first stream
+        end and crash-loop through the warmup sweep.
+
+        Reconnect pacing is capped exponential backoff with jitter from
+        ``reconnect_sec`` up to ``reconnect_max_sec``: a session that
+        never produced a block doubles the delay (a dead endpoint is not
+        hammered, and the jitter de-synchronizes a fleet reconnecting to
+        one recovered tracker), while a session that fed at least one
+        block resets to the base (a live-but-flaky wire reconnects
+        promptly).  Every reconnect is journaled and counted into
+        ``nerrf_serve_reconnects_total{stream}``."""
+        import random
+
+        from nerrf_tpu_torch.ingest.service import TrackerClient
+
+        done = threading.Event()
+        run = StreamRun(stream=stream_id, thread=None, done=done)
+
+        def drain() -> None:
+            session = 0
+            backoff = max(reconnect_sec, 0.001)
+            try:
+                while True:
+                    sid = stream_id if session == 0 \
+                        else f"{stream_id}#{session}"
+                    joined = False
+                    blocks = 0
+                    try:
+                        self.join(sid)
+                        joined = True
+                        client = TrackerClient(target)
+                        for events, strings in client.iter_blocks(
+                                max_events=max_events, timeout=timeout):
+                            self.feed(sid, events, strings)
+                            blocks += 1
+                        run.result = self.leave(sid)
+                        run.error = None
+                    except BaseException as e:  # noqa: BLE001 — via run.error
+                        run.error = e
+                        # only tear down a stream THIS drain joined — when
+                        # join() itself failed (duplicate id), the live
+                        # stream under that id belongs to another actor
+                        if joined:
+                            try:
+                                run.result = self.leave(sid, timeout=5.0)
+                            except Exception:  # noqa: BLE001
+                                pass
+                    if not (follow and self._admission_open):
+                        return
+                    session += 1
+                    # healthy = the wire produced data this session: reset
+                    # to the base; a dead endpoint (0 blocks) backs off
+                    if blocks > 0:
+                        backoff = max(reconnect_sec, 0.001)
+                    delay = backoff * (0.5 + random.random() / 2.0)
+                    if blocks == 0:
+                        backoff = min(backoff * 2.0, reconnect_max_sec)
+                    self._reg.counter_inc(
+                        "serve_reconnects_total",
+                        labels={"stream": stream_id},
+                        help="resident-stream wire reconnects (the "
+                             "follow-mode session restarts)")
+                    self._journal.record(
+                        "reconnect", stream=stream_id, session=session,
+                        healthy=blocks > 0, delay_sec=round(delay, 3),
+                        error=(f"{type(run.error).__name__}: {run.error}"
+                               if run.error is not None else None))
+                    # interruptible sleep: a stopping service must not
+                    # hold the actor for a full capped backoff
+                    deadline = time.monotonic() + delay
+                    while self._admission_open:
+                        left = deadline - time.monotonic()
+                        if left <= 0:
+                            break
+                        time.sleep(min(0.25, left))
+                    if not self._admission_open:
+                        # stopped mid-backoff: exit WITHOUT attempting
+                        # another join — it would raise "not admitting"
+                        # and overwrite run.error on a session that
+                        # finalized cleanly
+                        return
+            finally:
+                done.set()
+
+        t = threading.Thread(target=drain, daemon=True,
+                             name=f"nerrf-serve-{stream_id}")
+        run.thread = t
+        t.start()
+        return run
 
     # -- admission ------------------------------------------------------------
 
@@ -473,8 +601,8 @@ class OnlineDetectionService:
                     (s.stream, s.window_idx, s.t_scored - s.t_admit, s.late,
                      s.model_version))
             # alerting: hot windows only, never blocking (bounded sink).
-            # Fail-open per window: a raising sink loses at most this
-            # window's alert, never the ledger resolution below — an
+            # Fail-open per window: a raising sink or router loses at most
+            # this window's alert, never the ledger resolution below — an
             # unresolved window wedges leave()
             try:
                 mask = s.node_mask.astype(bool)
@@ -487,15 +615,23 @@ class OnlineDetectionService:
                             int(s.node_key[i]), float(s.probs[i]))
                            for i in hot_slots[order][:16]]
                     max_prob = float(s.probs[mask].max())
-                    self.sink.emit(WindowAlert(
+                    alert = WindowAlert(
                         stream=s.stream, window_idx=s.window_idx,
                         lo_ns=s.lo_ns, hi_ns=s.hi_ns,
                         max_prob=max_prob, hot=hot,
                         t_admit=s.t_admit, t_scored=s.t_scored,
                         late=s.late, model_version=s.model_version,
                         trace_id=s.trace_id,
-                        # computed ONCE here, at the demux boundary
-                        severity=calibrated_severity(max_prob, alert_thr)))
+                        # computed ONCE here, at the demux boundary: the
+                        # sink's consumers and the respond tier's
+                        # admission gate read the same number
+                        severity=calibrated_severity(max_prob, alert_thr))
+                    self.sink.emit(alert)
+                    if self._respond is not None:
+                        # the router applies its own severity admission
+                        # and bounded queue; inside the fail-open block,
+                        # so planning never wedges the ledger resolution
+                        self._respond.offer_alert(alert)
             except Exception as e:  # noqa: BLE001 — demux must resolve
                 self._journal.record(
                     "demux_drop", stream=s.stream, window_id=s.window_idx,

@@ -133,3 +133,13 @@ def test_cli_list_and_dump_match_the_reference(capsys, tmp_path):
     assert capsys.readouterr().out == jconfig.EXPERIMENTS["joint-100h"].to_json()
     assert config.main(["dump", "toy-graphsage", "--out", str(tmp_path / "t.json")]) == 0
     assert (tmp_path / "t.json").read_text() == jconfig.EXPERIMENTS["toy-graphsage"].to_json()
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.stem)
+def test_experiment_mcts_is_the_planners_class(path):
+    from nerrf_tpu_torch.planner import MCTSConfig
+
+    assert config.MCTSConfig is MCTSConfig
+    exp = config.get_experiment(path.stem)
+    assert isinstance(exp.mcts, MCTSConfig)
+    assert isinstance(config.Experiment.from_json(exp.to_json()).mcts, MCTSConfig)

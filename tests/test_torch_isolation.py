@@ -50,6 +50,8 @@ def test_importing_the_port_loads_no_jax_module():
         "import nerrf_tpu_torch.config, nerrf_tpu_torch.train.checkpoint\n"
         "import nerrf_tpu_torch.train.run, nerrf_tpu_torch.train.corpus\n"
         "import nerrf_tpu_torch.train.elastic, nerrf_tpu_torch.trainwatch\n"
+        "import nerrf_tpu_torch.respond, nerrf_tpu_torch.chaos\n"
+        "import nerrf_tpu_torch.ingest.service, nerrf_tpu_torch.graph.store\n"
         f"bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n")
@@ -111,3 +113,12 @@ def test_training_paths_raise_without_cuda(monkeypatch, tmp_path):
         elastic.train_elastic(ds, cfg=cfg, ckpt_dir=tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         loop.train_sharded_stream(object(), cfg)
+
+
+def test_respond_tier_raises_without_cuda(monkeypatch):
+    from nerrf_tpu_torch.respond import ResponseRouter
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ResponseRouter()
+    assert ResponseRouter(device="cpu").planner.device.type == "cpu"
