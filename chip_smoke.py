@@ -126,6 +126,17 @@ counted below the severity gate, every admitted incident answered (rejected
 with a reason: no snapshot context binds an alert's ``ino:`` targets), the
 ``mcts_search`` launches derived from that run's waves, no recompile.
 
+Then the command line (``run_cli_path``, ``python -m nerrf_tpu_torch.cli``):
+the README's ``simulate``/``undo``/``status`` as subprocesses (exit 0, the
+incident recovered and verified, no byte lost, no clean file reverted),
+``serve`` of a CSV trace as a subprocess drained by ``ingest`` (every
+event back, bit-equal in ``model_detect``), and in-process with the
+counters read around each: ``undo --model-dir`` with ``--trace-out`` and
+``trace``, ``train-detector`` at the CLI's defaults (exit 0, the checkpoint
+reloaded bit-equal), ``warmup``, ``serve-detect`` over two streams (each
+bit-equal to ``model_detect``, 28/2/3/2/0 a forward, no recompile) and
+``respond`` (every family verified), each leg's launches derived.
+
 Prints the card's name and power limit, one JSON line with each kernel's
 launches (and its launches per serve batch and per experiment run), error,
 times (ms, host_us, device_ms, library_ms, library_device_ms) and bound,
@@ -3188,12 +3199,12 @@ RESPOND_REF = {"plan_actions": 7, "files_restored": 6}
 NO_CONTEXT = "no snapshot context bound for this stream — cannot replay"
 
 
-def _router_waves(journal, top: int, skip: int = 0) -> list:
+def _router_waves(journal, top: int, skip: int = 0, since_seq=None) -> list:
     """[(incidents, plan_seconds)] of each batch a router planned, from its
-    ``plan_emitted`` records after the first ``skip`` (one a planned
-    incident, a batch's records in a row: one worker plans), and the waves
-    each took (ceil(n / top))."""
-    recs = journal.tail(kinds=("plan_emitted",))[skip:]
+    ``plan_emitted`` records after the first ``skip`` (or after the journal's
+    sequence number ``since_seq``; one a planned incident, a batch's records
+    in a row: one worker plans), and the waves each took (ceil(n / top))."""
+    recs = journal.tail(kinds=("plan_emitted",), since_seq=since_seq)[skip:]
     out, i = [], 0
     while i < len(recs):
         n = recs[i].data["batch"]
@@ -3550,6 +3561,466 @@ def run_respond_chain(model_dir: str, m1) -> dict:
     return dict(corpus=corpus, wire=wire, serve=serve, seconds=total)
 
 
+# --- the command line: the README's commands and every ported subcommand ------
+
+# the README's quick start, as a user types it (the incident directory D is a
+# temporary directory)
+CLI_README = (("simulate", "--incident", "{D}", "--files", "20", "--seed", "5"),
+              ("undo", "--incident", "{D}", "--simulations", "300"),
+              ("status", "--incident", "{D}"))
+# seconds the `serve` subprocess serves the seed-5 CSV: its start-up (the
+# interpreter and the imports, about 10 s), the ingest (about 1 s) and the
+# README's commands run inside them
+CLI_SERVE_SECONDS = 40
+# train-detector at the CLI's own defaults (the reference's flags: 12 traces,
+# 3 held out, hidden 48, 4 GNN layers and a 1-layer LSTM, 300 steps,
+# 256n/512e/128s windows), with --ckpt-every 100, which takes train_elastic
+CLI_CKPT_EVERY = 100
+CLI_SERVE_BUCKET = (4096, 4096, 4096)
+
+
+def _cli_argv(*argv) -> list:
+    """``python -m nerrf_tpu_torch.cli ARGV``, run from the repository root
+    as a user runs it."""
+    return [sys.executable, "-m", "nerrf_tpu_torch.cli", *map(str, argv)]
+
+
+def _cli_run(*argv) -> tuple:
+    """``cli.main(ARGV)`` in this process (so the launch counters can be
+    read): (exit code, its standard output, its log)."""
+    import contextlib
+    import io
+
+    from nerrf_tpu_torch import cli
+
+    out, tee = io.StringIO(), _Tee(sys.stderr)
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(tee):
+        rc = cli.main([str(a) for a in argv])
+    return rc, out.getvalue(), tee.text()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _wait_port(port: int, proc, timeout: float = 120.0) -> float:
+    """Seconds until ``port`` accepts a connection (``proc`` still up)."""
+    import socket
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if proc.poll() is not None:
+            _fail(f"cli serve exited with {proc.returncode} before listening: "
+                  f"{proc.stderr.read()[-2000:]}")
+        with socket.socket() as s:
+            if s.connect_ex(("127.0.0.1", port)) == 0:
+                return time.perf_counter() - t0
+        time.sleep(0.1)
+    _fail(f"cli serve did not listen on {port} within {timeout} s")
+
+
+def _resolved_columns(events, strings) -> dict:
+    """The valid events' columns with every string id replaced by its
+    string: equal for two traces whose string tables number alike or not."""
+    import numpy as np
+
+    fields = ("ts_ns", "pid", "tid", "syscall", "flags", "ret_val", "bytes",
+              "inode", "mode", "uid", "gid")
+    v = np.asarray(events.valid, bool)
+    out = {f: np.asarray(getattr(events, f))[v].tolist() for f in fields}
+    for f in ("comm_id", "path_id", "new_path_id"):
+        out[f] = [strings.lookup(int(i)) for i in np.asarray(getattr(events, f))[v]]
+    return out
+
+
+def _launch_counts() -> dict:
+    from nerrf_tpu_torch.ops import LAUNCHES
+    from nerrf_tpu_torch.ops import mcts as ops_mcts
+
+    return {**dict(LAUNCHES), "mcts_search": ops_mcts.LAUNCHES["mcts_search"]}
+
+
+def _reset_counts() -> None:
+    from nerrf_tpu_torch.ops import mcts as ops_mcts
+    from nerrf_tpu_torch.ops import reset_launches
+
+    _sync()
+    reset_launches()
+    ops_mcts.reset_launches()
+
+
+def run_cli_path(model_dir: str, undo_mttr_s: float) -> dict:
+    """The command line (``python -m nerrf_tpu_torch.cli``) on the card, each
+    in-process leg with the counters set to 0 just before it and read just
+    after:
+
+    1. ``serve --trace <the detection cell's seed-5 trace as CSV> --duration
+       N --metrics-port -1`` as a subprocess, drained by ``ingest --target …
+       --store-dir S --metrics-port 0``: every event stored, the store's
+       query equal to the trace event for event, and ``model_detect`` on it
+       bit-equal to ``model_detect`` on the trace;
+    2. the README's three commands as subprocesses (simulate, undo at 300
+       simulations, status): exit codes 0, 0, 0, ``"recovered"``,
+       ``report.json`` verified, no byte lost, no clean file reverted;
+    3. ``undo --model-dir <the experiment's checkpoint> --trace-out`` on the
+       Undo cell's M1 incident, staged as ``simulate`` stages one: its
+       launches the boot warmup's one 1-simulation ``mcts_search`` plus
+       ⌈800/128⌉ for the plan, and the detection's batches (derived from the
+       trace's windows) × 28/2/3/2/0; the exit code, plan and gate reported,
+       not gated; ``trace --file`` on its trace: exit 0 and a table holding
+       ``mcts_plan``;
+    4. ``train-detector`` at the CLI's defaults with ``--ckpt-every 100``:
+       exit 0 (its ``edge_auc >= 0.9`` rule), the launches 300 fused steps
+       of a 4-layer model plus the held-out and calibration forwards, the
+       checkpoint reloaded bit-equal to the trained weights, the
+       calibration written or reported unreachable;
+    5. ``warmup --model-dir … --buckets 4096x4096x4096``: exit 0, no
+       ``planner_error``, one forward and one search launch;
+    6. ``serve-detect`` with the checkpoint, the seed-5 trace as JSONL and
+       as CSV, ``--out``: each stream's detection bit-equal to
+       ``model_detect`` on its trace, 28/2/3/2/0 launches in every forward,
+       no recompile after warmup;
+    7. ``respond`` at its defaults (four families, 96 simulations): exit 0,
+       every family verified, the ``mcts_search`` launches the router's
+       warmup (one a batch slot, and the bucket's one) plus its waves."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from nerrf_tpu_torch import cli
+    from nerrf_tpu_torch import serve as serve_pkg
+    from nerrf_tpu_torch.data import Trace, datasets, make_corpus
+    from nerrf_tpu_torch.data.loaders import load_trace_jsonl
+    from nerrf_tpu_torch.flight.journal import DEFAULT_JOURNAL
+    from nerrf_tpu_torch.graph import GraphConfig, TraceStore
+    from nerrf_tpu_torch.observability import DEFAULT_REGISTRY
+    from nerrf_tpu_torch.pipeline import calibration_traces, fit_capacity, model_detect
+    from nerrf_tpu_torch.respond import RespondConfig
+    from nerrf_tpu_torch.rollback import FileSimConfig, SnapshotStore, run_file_attack
+    from nerrf_tpu_torch.rollback.filesim import seed_files
+    from nerrf_tpu_torch.schema.events import events_to_jsonl
+    from nerrf_tpu_torch.serve import ServeConfig, bucket_tag
+    from nerrf_tpu_torch.train import elastic
+    from nerrf_tpu_torch.train.checkpoint import load_calibration, load_checkpoint
+    from nerrf_tpu_torch.train.data import DatasetConfig, build_dataset, windows_of_trace
+
+    phase_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="nerrf-cli-"))
+    dev = torch.device("cuda")
+    per_forward = fused_forward_launches(load_checkpoint(model_dir)[1].gnn.num_layers)
+    threshold = load_calibration(model_dir).get("node_threshold")
+    total = {k: 0 for k in (*per_forward, "mcts_search")}
+    out = {}
+
+    def count(leg: dict) -> None:
+        for k in total:
+            total[k] += leg.get(k, 0)
+
+    s5 = detect_trace()[0]
+    (tmp / "s5.jsonl").write_text(events_to_jsonl(s5.events, s5.strings))
+    datasets.write_trace_csv(s5, tmp / "s5.csv")
+    serve_proc = None
+    try:
+        # --- 1. serve as a subprocess, ingest against it ----------------------
+        port = _free_port()
+        serve_proc = subprocess.Popen(
+            _cli_argv("serve", "--trace", tmp / "s5.csv", "--address",
+                      f"127.0.0.1:{port}", "--duration", CLI_SERVE_SECONDS,
+                      "--metrics-port", -1),
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        up_s = _wait_port(port, serve_proc)
+        _reset_counts()
+        t0 = time.perf_counter()
+        rc, text, _ = _cli_run("ingest", "--target", f"127.0.0.1:{port}",
+                               "--store-dir", tmp / "store", "--metrics-port", 0)
+        ingest_s = time.perf_counter() - t0
+        ingested = json.loads(text)
+        csv_trace = cli._load_any_trace(str(tmp / "s5.csv"))
+        with TraceStore(tmp / "store") as st:
+            events, strings = st.query(0, 2 ** 63 - 1)
+        queried = Trace(events=events, strings=strings, ground_truth=None,
+                        labels=None, name="s5-ingest")
+        n = int(csv_trace.events.num_valid)
+        if rc != 0 or ingested["events"] != n or ingested["engine"] != "native" or \
+                _resolved_columns(events, strings) != \
+                _resolved_columns(csv_trace.events, csv_trace.strings):
+            _fail(f"cli ingest: exit {rc}, {ingested} of {n} events, the query "
+                  f"differs from the served trace")
+        if any(_launch_counts().values()):
+            _fail(f"cli ingest launched {_launch_counts()}")
+        out["ingest"] = dict(events=n, seconds=ingest_s, events_per_s=n / ingest_s,
+                             serve_up_s=up_s, segments=ingested["segments_live"])
+
+        # --- 2. the README's three commands, as subprocesses -------------------
+        inc = tmp / "D"
+        readme = []
+        for argv in CLI_README:
+            t0 = time.perf_counter()
+            proc = subprocess.run(_cli_argv(*(a.format(D=inc) for a in argv)),
+                                  cwd=ROOT, capture_output=True, text=True, timeout=600)
+            readme.append(dict(rc=proc.returncode, s=time.perf_counter() - t0,
+                               stdout=proc.stdout, log=proc.stderr))
+        status = json.loads(readme[2]["stdout"]) if readme[2]["rc"] == 0 else {}
+        report = json.loads((inc / "report.json").read_text()) \
+            if (inc / "report.json").exists() else {}
+        store = SnapshotStore(inc / "store")
+        manifest = store.load_manifest("pre-attack")
+        residual = store.diff(manifest, inc / "victim")
+        lost = sum(manifest.files[k][1] for k, v in residual.items()
+                   if v in ("missing", "modified") and k in manifest.files)
+        ext = FileSimConfig().ransom_ext
+        plan = json.loads((inc / "plan.json").read_text())
+        reverted = [Path(a["target"]).name for a in plan["actions"]
+                    if a["kind"] == "revert_file"]
+        fp = sum(1 for name in reverted
+                 if name.removesuffix(ext) not in manifest.files)
+        meta = json.loads((inc / "incident.json").read_text())
+        if [r["rc"] for r in readme] != [0, 0, 0] or status.get("state") != "recovered" \
+                or not report.get("verified") or lost or fp or \
+                meta["files_encrypted"] != len(manifest.files):
+            _fail(f"cli README commands: exit codes {[r['rc'] for r in readme]}, "
+                  f"state {status.get('state')}, verified {report.get('verified')}, "
+                  f"{lost} bytes lost, {fp} false-positive undos; logs "
+                  f"{[r['log'][-1500:] for r in readme]}")
+        out["readme"] = dict(seconds=[r["s"] for r in readme],
+                             mttr_s=report["mttr_seconds"],
+                             files_restored=report["files_restored"],
+                             plan_actions=len(plan["actions"]))
+        print("cli README undo's log: " + " | ".join(
+            ln.strip() for ln in readme[1]["log"].splitlines() if ln.startswith("[nerrf]")))
+        serve_rc = serve_proc.wait(timeout=CLI_SERVE_SECONDS + 120)
+        serve_log = serve_proc.stderr.read()
+        if serve_rc != 0 or f"serving {n} events" not in serve_log:
+            _fail(f"cli serve exited {serve_rc}: {serve_log[-2000:]}")
+
+        # --- 3. undo --model-dir on the M1 incident, traced ---------------------
+        m1 = tmp / "M1"
+        cfg = FileSimConfig(**UNDO_FILES)
+        seed_files(m1 / "victim", cfg)
+        SnapshotStore(m1 / "store").snapshot(m1 / "victim", snapshot_id="pre-attack")
+        trace, encrypted = run_file_attack(m1 / "victim", cfg)
+        (m1 / "trace.jsonl").write_text(events_to_jsonl(trace.events, trace.strings))
+        (m1 / "incident.json").write_text(json.dumps({
+            "created": time.time(), "attack_family": trace.ground_truth.attack_family,
+            "target": str(m1 / "victim"), "snapshot_id": "pre-attack",
+            "files_encrypted": len(encrypted), "attack_seconds": 0.0}, indent=2))
+        loaded = load_trace_jsonl(m1 / "trace.jsonl")
+        windows = len(windows_of_trace(loaded, fit_capacity(loaded, DatasetConfig())))
+        batches = math.ceil(windows / 8)
+        want = {k: batches * v for k, v in per_forward.items()}
+        want["mcts_search"] = 1 + math.ceil(MCTS_SIMS / 128)
+        _reset_counts()
+        t0 = time.perf_counter()
+        rc, _, log = _cli_run("undo", "--incident", m1, "--model-dir", model_dir,
+                              "--trace-out", tmp / "undo.trace.json")
+        undo_s = time.perf_counter() - t0
+        got = _launch_counts()
+        count(got)
+        if got != want:
+            _fail(f"cli undo --model-dir: launches {got} != {want} ({windows} "
+                  f"windows, {batches} batches; the boot warmup's 1 + the plan's "
+                  f"{math.ceil(MCTS_SIMS / 128)} searches)")
+        trc, table, _ = _cli_run("trace", "--file", tmp / "undo.trace.json")
+        if trc != 0 or "mcts_plan" not in table:
+            _fail(f"cli trace: exit {trc}, table {table!r}")
+        gate = json.loads((m1 / "gate.json").read_text()) \
+            if (m1 / "gate.json").exists() else {}
+        m1_report = json.loads((m1 / "report.json").read_text()) \
+            if (m1 / "report.json").exists() else {}
+        out["undo_model"] = dict(
+            rc=rc, seconds=undo_s, windows=windows, batches=batches, launches=got,
+            plan_actions=len(json.loads((m1 / "plan.json").read_text())["actions"]),
+            approved=gate.get("approved"), reason=gate.get("reason"),
+            mttr_s=m1_report.get("mttr_seconds"), verified=m1_report.get("verified"),
+            detect_line=next((ln for ln in log.splitlines() if "detect[" in ln), ""),
+            stages={ln.split()[0]: float(ln.split()[2]) for ln in table.splitlines()[2:-1]})
+        print("cli undo --model-dir (M1, the experiment's checkpoint): exit "
+              f"{rc}; {out['undo_model']['detect_line'].strip()}; plan "
+              f"{out['undo_model']['plan_actions']} actions; gate "
+              f"approved={gate.get('approved')} ({gate.get('reason')}); MTTR "
+              f"{m1_report.get('mttr_seconds')} s; launches {got}; `trace` table's "
+              f"total ms by stage {out['undo_model']['stages']}")
+
+        # --- 4. train-detector at the CLI's defaults ----------------------------
+        td = tmp / "detector"
+        flags = vars(cli.build_parser().parse_args(["train-detector", "--model-dir", str(td)]))
+        train = {k: flags[k] for k in ("traces", "seed", "hidden", "layers", "steps")}
+        ds_cfg = DatasetConfig(graph=GraphConfig(max_nodes=256, max_edges=512),
+                               seq_len=100, max_seqs=128)
+        corpus = make_corpus(train["traces"], attack_fraction=0.5,
+                             base_seed=train["seed"], duration_sec=150.0,
+                             num_target_files=8, benign_rate_hz=25.0,
+                             hard_scenarios=True)
+        n_eval = max(2, train["traces"] // 4)
+        eval_batches = math.ceil(len(build_dataset(corpus[-n_eval:], ds_cfg)) / 8)
+        cal_batches = sum(math.ceil(len(windows_of_trace(
+            tr, fit_capacity(tr, DatasetConfig()))) / 8) for tr in calibration_traces())
+        step = step_launches("fused", train["layers"])
+        fwd = fused_forward_launches(train["layers"])
+        want = {k: train["steps"] * step[k] + (eval_batches + cal_batches) * fwd[k]
+                for k in step}
+        want["mcts_search"] = 0
+        kept, real = {}, elastic.train_elastic
+
+        def keeping(*a, **k):
+            kept["result"] = real(*a, **k)
+            return kept["result"]
+
+        elastic.train_elastic = keeping
+        try:
+            _reset_counts()
+            t0 = time.perf_counter()
+            rc, _, log = _cli_run("train-detector", "--model-dir", td,
+                                  "--ckpt-every", CLI_CKPT_EVERY)
+            train_s = time.perf_counter() - t0
+        finally:
+            elastic.train_elastic = real
+        got = _launch_counts()
+        count(got)
+        res = kept["result"]
+        if rc != 0 or got != want:
+            _fail(f"cli train-detector: exit {rc} (metrics {res.metrics}), launches "
+                  f"{got} != {want} ({train['steps']} steps of {step}, "
+                  f"{eval_batches} + {cal_batches} forwards of {fwd})")
+        sd, tcfg = load_checkpoint(td)
+        trained = res.state.model.state_dict()
+        differ = [k for k in trained if not torch.equal(sd[k], trained[k].cpu())]
+        if differ or set(sd) != set(trained) or tcfg != res.state.model.cfg:
+            _fail(f"cli train-detector: the reloaded checkpoint differs ({differ[:4]})")
+        calibration = _check_calibration(td, log, "cli train-detector")
+        out["train"] = dict(rc=rc, flags=train, seconds=train_s, steps_per_s=res.steps_per_sec,
+                            metrics={k: round(float(res.metrics[k]), 4) for k in HELD_OUT},
+                            calibration=calibration, launches=got)
+        print(f"cli train-detector ({train}, --ckpt-every {CLI_CKPT_EVERY}): exit "
+              f"{rc} in {train_s:.1f} s, "
+              f"{res.steps_per_sec:.3f} steps/s after step 0; held-out "
+              f"{json.dumps(out['train']['metrics'])}; {calibration}; launches {got} "
+              f"({train['steps']} x {step} + {eval_batches + cal_batches} x "
+              f"{fwd}); the checkpoint reloads bit-equal")
+
+        # --- 5. warmup ------------------------------------------------------------
+        tag = "x".join(map(str, CLI_SERVE_BUCKET))
+        _reset_counts()
+        rc, text, _ = _cli_run("warmup", "--model-dir", model_dir, "--buckets", tag)
+        got = _launch_counts()
+        count(got)
+        warm = json.loads(text) if rc == 0 else {}
+        want = {**per_forward, "mcts_search": 1}
+        if rc != 0 or "planner_error" in warm or got != want or \
+                list(warm.get("detector", {})) != [bucket_tag(CLI_SERVE_BUCKET)]:
+            _fail(f"cli warmup: exit {rc}, {warm}, launches {got} != {want}")
+        out["warmup"] = warm
+
+        # --- 6. serve-detect, the seed-5 trace as JSONL and as CSV ---------------
+        counting = _counting_service()
+        services = []
+
+        class Kept(counting):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                services.append(self)
+
+        recompiles = lambda: DEFAULT_REGISTRY.value(  # noqa: E731
+            "serve_recompiles_total", labels={"bucket": bucket_tag(CLI_SERVE_BUCKET)})
+        before = recompiles()
+        real_svc, serve_pkg.OnlineDetectionService = serve_pkg.OnlineDetectionService, Kept
+        try:
+            _reset_counts()
+            t0 = time.perf_counter()
+            rc, text, _ = _cli_run(
+                "serve-detect", "--model-dir", model_dir, "--trace", tmp / "s5.jsonl",
+                "--trace", tmp / "s5.csv", "--buckets", tag, "--out", tmp / "sd",
+                "--metrics-port", -1)
+            sd_s = time.perf_counter() - t0
+        finally:
+            serve_pkg.OnlineDetectionService = real_svc
+        got = _launch_counts()
+        count(got)
+        summary = json.loads(text) if rc == 0 else {}
+        per = services[0].batch_launches if services else []
+        scfg = ServeConfig(buckets=(CLI_SERVE_BUCKET,))
+        model = cli._load_model(model_dir, dev)
+        dets = {}
+        for name, tr in (("trace0:s5", load_trace_jsonl(tmp / "s5.jsonl")),
+                         ("trace1:s5", csv_trace)):
+            want_det = model_detect(tr, model, ds_cfg=scfg.dataset_config(CLI_SERVE_BUCKET),
+                                    auto_capacity=False, batch_size=scfg.batch_size,
+                                    threshold=threshold, device="cuda")
+            f = tmp / "sd" / f"detect_{name.replace(':', '_')}.json"
+            have = json.loads(f.read_text()) if f.exists() else {}
+            dets[name] = want_det
+            if have.get("file_scores") != want_det.file_scores or \
+                    have.get("proc_scores") != {str(k): v for k, v in
+                                                want_det.proc_scores.items()} or \
+                    have.get("threshold") != want_det.threshold:
+                _fail(f"cli serve-detect: stream {name} differs from model_detect")
+        if rc != 0 or not per or any(b != {**per_forward} for b in per) or \
+                recompiles() != before or summary["recompiles_after_warmup"] != before or \
+                any(not e["done"] or e["error"] for e in summary["streams"].values()):
+            _fail(f"cli serve-detect: exit {rc}, launches per forward {per}, "
+                  f"recompiles {recompiles() - before}, streams {summary.get('streams')}")
+        out["serve_detect"] = dict(seconds=sd_s, forwards=len(per), launches=got,
+                                   windows=2 * len(windows_of_trace(
+                                       csv_trace, scfg.dataset_config(CLI_SERVE_BUCKET))),
+                                   alerts=summary["alerts"])
+        # the ingest leg's store, in model_detect: bit-equal to the served trace
+        again = model_detect(queried, model, ds_cfg=scfg.dataset_config(CLI_SERVE_BUCKET),
+                             auto_capacity=False, batch_size=scfg.batch_size,
+                             threshold=threshold, device="cuda")
+        fields = ("file_scores", "file_window_scores", "proc_scores", "file_bytes",
+                  "threshold")
+        if any(getattr(again, f) != getattr(dets["trace1:s5"], f) for f in fields):
+            _fail("cli ingest: model_detect on the store's query differs from the trace's")
+
+        # --- 7. respond at its defaults -----------------------------------------
+        seq0 = DEFAULT_JOURNAL.seq
+        _reset_counts()
+        t0 = time.perf_counter()
+        rc, text, _ = _cli_run("respond", "--work-dir", tmp / "respond")
+        respond_s = time.perf_counter() - t0
+        got = _launch_counts()
+        count(got)
+        rep = json.loads(text) if text.strip() else {}
+        rcfg = RespondConfig()
+        waves = _router_waves(DEFAULT_JOURNAL, rcfg.batch_slots[-1], since_seq=seq0)
+        want = {k: 0 for k in per_forward}
+        want["mcts_search"] = 1 + len(rcfg.batch_slots) + _search_launches(waves)
+        fams = rep.get("families", {})
+        if rc != 0 or got != want or len(fams) != 4 or \
+                not all(v["verified"] for v in fams.values()):
+            _fail(f"cli respond: exit {rc}, launches {got} != {want} (waves {waves}), "
+                  f"families {fams}")
+        out["respond"] = dict(seconds=respond_s, waves=[w for w, _, _ in waves],
+                              stats=rep["stats"])
+    finally:
+        if serve_proc is not None and serve_proc.poll() is None:
+            serve_proc.kill()
+            serve_proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - phase_t0
+    out["undo_cell_mttr_s"] = undo_mttr_s
+    print(f"cli phase ({out['seconds']:.1f} s): README commands "
+          f"{[round(x, 1) for x in out['readme']['seconds']]} s (exit 0, 0, 0; "
+          f"recovered, {out['readme']['files_restored']} files, MTTR "
+          f"{out['readme']['mttr_s']} s); undo --model-dir MTTR "
+          f"{out['undo_model']['mttr_s']} s beside the Undo cell's {undo_mttr_s:.3f} s; "
+          f"train-detector {out['train']['steps_per_s']:.3f} steps/s, edge_auc "
+          f"{out['train']['metrics']['edge_auc']}; "
+          f"serve up in {out['ingest']['serve_up_s']:.1f} s, ingest "
+          f"{out['ingest']['events_per_s']:.1f} events/s; serve-detect "
+          f"{out['serve_detect']['windows']} windows over two streams in "
+          f"{out['serve_detect']['forwards']} forwards, {out['serve_detect']['seconds']:.1f} "
+          f"s; respond waves {out['respond']['waves']} in {out['respond']['seconds']:.1f} s; "
+          f"launches {total}")
+    return out
+
+
 def kernel_times() -> dict:
     """Each kernel's times at its call sites on the first batch of both
     rungs (:func:`time_kernels`: device ms per launch, band-free and the
@@ -3577,6 +4048,35 @@ def kernel_times() -> dict:
     return out
 
 
+def lstm_times(iters: int = 10) -> dict:
+    """The LSTM tower's forward on the detection cell's first batch (8
+    windows of the 4096n/4096e/4096s rung: 32768 sequences of 100 steps, the
+    full-width 2x256 BiLSTM in bfloat16, random weights from seed 0) for the
+    package on ``sys.path``: ms a forward (CUDA events, after 2 warm-up
+    forwards), the peak of allocated device memory during the forwards, and
+    a checksum of ``seq_logit``."""
+    import torch
+
+    from nerrf_tpu_torch.models import JointConfig, build_nerrfnet
+    from nerrf_tpu_torch.pipeline import pad_batch
+    from nerrf_tpu_torch.train.data import windows_of_trace
+
+    model = build_nerrfnet(JointConfig(), seed=0, device="cuda")
+    trace, ds = detect_trace()
+    batch = pad_batch(windows_of_trace(trace, ds)[:8], 8)
+    feat = torch.as_tensor(batch["seq_feat"], device="cuda")
+    mask = torch.as_tensor(batch["seq_mask"], device="cuda")
+    with torch.inference_mode():
+        logit = model.lstm(feat, mask)["seq_logit"].float()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: model.lstm(feat, mask), iters=iters, warmup=2)
+        peak = torch.cuda.max_memory_allocated()
+    return {"lstm_forward_ms": ms, "peak_allocated_bytes": peak,
+            "sequences": int(feat.shape[0] * feat.shape[1]),
+            "seq_logit_sum": float(logit.sum()), "seq_logit_abs_sum": float(logit.abs().sum())}
+
+
 def main() -> int:
     try:
         import torch
@@ -3587,10 +4087,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke runs on the card",
               file=sys.stderr)
         return 2
-    # --kernel-times ROOT: only the kernel times of the package under ROOT
-    # (another tree of this repository), to hold two trees against each
-    # other in one call, in turns
-    times_of = sys.argv[2] if sys.argv[1:2] == ["--kernel-times"] else None
+    # --kernel-times ROOT (or --lstm-times ROOT): only the kernel times (or
+    # the LSTM tower's forward) of the package under ROOT (another tree of
+    # this repository), to hold two trees against each other in one call, in
+    # turns
+    mode = sys.argv[1] if sys.argv[1:2] in (["--kernel-times"], ["--lstm-times"]) else None
+    times_of = sys.argv[2] if mode else None
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.abspath(times_of) if times_of else here)
     try:
@@ -3605,7 +4107,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     if times_of:
-        print(json.dumps({"root": times_of, "card": smi, **kernel_times()}))
+        times = kernel_times() if mode == "--kernel-times" else lstm_times()
+        print(json.dumps({"root": times_of, "card": smi, **times}))
         return 0
     try:
         t0 = time.perf_counter()
@@ -3649,6 +4152,7 @@ def main() -> int:
             batched = run_batched_planner(bench, value["net"])
             undo = run_undo_path(experiment["model_dir"])
             respond = run_respond_chain(experiment["model_dir"], undo["trace"])
+            cli_phase = run_cli_path(experiment["model_dir"], undo["heuristic"]["mttr_s"])
         finally:
             shutil.rmtree(experiment["model_dir"], ignore_errors=True)
         print(f"undo-path phases: {time.perf_counter() - undo_t0:.1f} s of command time")
@@ -3695,7 +4199,8 @@ def main() -> int:
          "serve_launches": serve["per_batch"][name],
          "experiment_launches": experiment["launches"][name],
          "corpus_launches": corpus["launches"][name],
-         "respond_serve_launches": respond["serve"]["launches"][name]}
+         "respond_serve_launches": respond["serve"]["launches"][name],
+         "cli_launches": cli_phase["launches"][name]}
         for name in segment_kernels]}
     # the search: per plan of 800 simulations (ms: CUDA events around the
     # plan's launches and syncs; plain_ms: the plain version's plan on the
@@ -3716,6 +4221,7 @@ def main() -> int:
         "mean_select_depth": planner["depth"],
         "respond_corpus_launches": respond["corpus"]["launches"],
         "respond_serve_launches": respond["serve"]["launches"]["mcts_search"],
+        "cli_launches": cli_phase["launches"]["mcts_search"],
         "value_net_max_rel_err": value["value_err"]})
     print("kernel errors by case: " + json.dumps(errors))
     chunked = ("per_call_ms", "per_call_host_us", "band_free_device_ms",

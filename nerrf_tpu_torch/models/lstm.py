@@ -4,10 +4,11 @@
 [B, S, T, F] per-file event sequences (left-padded, ``seq_mask`` marking real
 events) → ``seq_logit`` [B, S] and ``seq_emb`` [B, S, hidden].  The math is
 the reference's (its ``fused`` and ``rnn`` impls compute the same function),
-with both directions batched in one time loop as its ``fused`` impl does;
-unlike that impl, the input projection runs per step inside the loop
-rather than hoisted over all T (the same products and rounding points; the
-hoist is ROADMAP B.L1's):
+with both directions batched in one time loop and the input projection
+hoisted over all T, as its ``fused`` impl does (one ``bmm`` a direction
+before the loop, one ``h·W_hh`` ``bmm`` a step inside it; the projection
+rounded to the compute type before the loop, as the reference rounds
+``xin``):
 
 * ``in_proj`` Dense + gelu, masked; then flipped to the prefix-first layout
   so ``lengths`` bounds each sequence's valid prefix;
@@ -128,12 +129,17 @@ class ImpactLSTM(nn.Module):
         wh = torch.stack([fw.weight_hh.t(), bw.weight_hh.t()]).to(dt)   # [2,H,4H]
         bias = torch.stack([fw.bias_ih + fw.bias_hh,
                             bw.bias_ih + bw.bias_hh]).to(dt)[:, None, :]
+        # the input projection of every step, hoisted out of the loop: one
+        # product a direction over all T, time-major so each step reads one
+        # [2, R, 4H] slice
         xs = torch.stack([x, _flip_valid(x, lengths)])                  # [2,R,T,in]
+        xs = xs.transpose(1, 2).reshape(2, T * R, -1)                   # [2,T·R,in]
+        xin = torch.bmm(xs, wi).view(2, T, R, 4 * H)
         h = torch.zeros(2, R, H, dtype=dt, device=x.device)
         c = torch.zeros_like(h)
         hs = torch.empty(T, 2, R, H, dtype=dt, device=x.device)
         for t in range(T):
-            gates = torch.bmm(xs[:, :, t], wi) + torch.bmm(h, wh) + bias
+            gates = xin[:, t] + torch.bmm(h, wh) + bias
             gi, gf, gg, go = gates.chunk(4, dim=-1)
             c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
             h = torch.sigmoid(go) * torch.tanh(c)

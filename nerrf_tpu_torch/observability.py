@@ -1,15 +1,21 @@
-"""Host-side metrics: the registry the serve plane reports into.
+"""Host-side metrics: the registry the pipeline reports into, and its
+HTTP endpoint.
 
-A host copy of the reference's ``nerrf_tpu/observability.py`` registry,
-kept identical: ``MetricsRegistry`` (thread-safe counters, gauges and
+A host copy of the reference's ``nerrf_tpu/observability.py``, kept
+identical: ``MetricsRegistry`` (thread-safe counters, gauges and
 fixed-bucket histograms with labels, rendered in the Prometheus text
-exposition format) and ``DEFAULT_REGISTRY``.  The HTTP endpoint and the
-profiler wrapper come with the port's CLI.
+exposition format), ``DEFAULT_REGISTRY`` and ``MetricsServer`` (stdlib HTTP
+on a daemon thread: ``/metrics``, ``/healthz``, ``/readyz``).  The
+reference's ``trace_profile`` wraps the JAX profiler; its counterpart over
+``torch.profiler`` comes with the device-time plane (ROADMAP A.6).
 """
 
 from __future__ import annotations
 
+import http.server
+import json
 import threading
+import time
 import warnings
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -238,3 +244,98 @@ class MetricsRegistry:
 
 # The default registry the pipeline components report into.
 DEFAULT_REGISTRY = MetricsRegistry()
+
+
+class MetricsServer:
+    """Serves /metrics (text exposition), /healthz and /readyz from a
+    daemon thread.
+
+    The two probes answer different questions (and the K8s manifests in
+    deploy/ wire them to different probe types):
+
+      * ``/healthz`` — LIVENESS: the process is up and serving HTTP.
+        Always 200 once the server thread runs; a failure means restart me.
+      * ``/readyz`` — READINESS: the subsystem behind this server is ready
+        for traffic.  Driven by ``ready_check`` (e.g. the serve plane's
+        "warmup done + admission open"); 503 while booting or draining so
+        the Service stops routing, WITHOUT restarting a pod that is merely
+        still compiling its bucket programs.  With no ``ready_check`` the
+        server is ready as soon as it is live.
+
+    ``ready_check`` returns a bool, ``(bool, reason)``, or
+    ``(bool, reason, extra_dict)`` — extra keys (e.g. the serve plane's
+    live ``model_version``) are merged into the /readyz JSON payload so
+    probes and dashboards can see *which* model is serving.  It is called
+    per probe and must be cheap.  An exception counts as unready (the
+    reason is the exception) — a broken check must fail closed.
+    """
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 host: str = "127.0.0.1", port: int = 0,
+                 ready_check=None) -> None:
+        registry = registry or DEFAULT_REGISTRY
+        start_ts = time.time()
+
+        def readiness() -> Tuple[bool, str, dict]:
+            if ready_check is None:
+                return True, "ok", {}
+            try:
+                got = ready_check()
+            except Exception as e:  # noqa: BLE001 — fail closed
+                return False, f"{type(e).__name__}: {e}", {}
+            if isinstance(got, tuple):
+                extra = dict(got[2]) if len(got) > 2 and got[2] else {}
+                return bool(got[0]), str(got[1]), extra
+            return bool(got), "ok" if got else "not ready", {}
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self) -> None:  # noqa: N802 (stdlib API)
+                code = 200
+                if self.path.startswith("/metrics"):
+                    body = registry.render().encode()
+                    ctype = "text/plain; version=0.0.4; charset=utf-8"
+                elif self.path.startswith("/healthz"):
+                    body = (
+                        '{"status":"ok","uptime_sec":%.1f}\n'
+                        % (time.time() - start_ts)
+                    ).encode()
+                    ctype = "application/json"
+                elif self.path.startswith("/readyz"):
+                    ok, reason, extra = readiness()
+                    code = 200 if ok else 503
+                    body = (json.dumps({
+                        "status": "ready" if ok else "unready",
+                        "reason": reason,
+                        "uptime_sec": round(time.time() - start_ts, 1),
+                        **extra,
+                    }) + "\n").encode()
+                    ctype = "application/json"
+                else:
+                    self.send_error(404)
+                    return
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args) -> None:  # silence per-request spam
+                del args
+
+        self._httpd = http.server.ThreadingHTTPServer((host, port), Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="nerrf-metrics", daemon=True
+        )
+        self._thread.start()
+
+    def close(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=5)
+
+    def __enter__(self) -> "MetricsServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -51,6 +51,7 @@ from nerrf_tpu_torch.planner.domain import (
 )
 from nerrf_tpu_torch.planner.mcts import MCTSConfig, extract_plan
 from nerrf_tpu_torch.planner.value_net import ValueNet
+from nerrf_tpu_torch.tracing import span as trace_span
 
 # Simulations per launch of a plan: the reference's chunk, between which the
 # wall-clock budget is checked.
@@ -261,19 +262,25 @@ class DeviceMCTS:
         The search runs in launches of ≤128 simulations with a wall-clock
         check between them (a sync each): a kernel cannot be interrupted, so
         chunking is what keeps the ≤5 min planning budget a real contract,
-        as in the reference."""
-        t0 = time.perf_counter()
-        tree = self.init_tree()
-        run_chunks(tree, self._ctx, self._weights, self.cfg, t0)
-        host = tree_to_host(tree)
-        elapsed = time.perf_counter() - t0
-        visits = host["visits"][0]
-        # project the padded action axis back onto the domain's action space
-        # (pad slots are never legal, so dropping them loses nothing)
-        return extract_plan(
-            self.domain, self.cfg,
-            children=host["children"][0][:, self._action_map()],
-            visits=visits, value_sum=host["value_sum"][0],
-            is_terminal=host["terminal"][0], expanded=host["expanded"][0],
-            sims=int(visits[0]), elapsed=elapsed, root=0,
-        )
+        as in the reference.  Recorded as the host planner's ``mcts_plan``
+        span (the reference's device search opens none), so a traced undo
+        shows the search whichever planner ran it."""
+        with trace_span("mcts_plan", simulations=self.cfg.num_simulations,
+                        device=True) as sp:
+            t0 = time.perf_counter()
+            tree = self.init_tree()
+            run_chunks(tree, self._ctx, self._weights, self.cfg, t0)
+            host = tree_to_host(tree)
+            elapsed = time.perf_counter() - t0
+            visits = host["visits"][0]
+            # project the padded action axis back onto the domain's action
+            # space (pad slots are never legal, so dropping them loses nothing)
+            plan = extract_plan(
+                self.domain, self.cfg,
+                children=host["children"][0][:, self._action_map()],
+                visits=visits, value_sum=host["value_sum"][0],
+                is_terminal=host["terminal"][0], expanded=host["expanded"][0],
+                sims=int(visits[0]), elapsed=elapsed, root=0,
+            )
+            sp.args["rollouts"] = plan.rollouts
+        return plan

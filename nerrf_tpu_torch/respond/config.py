@@ -45,6 +45,10 @@ class RespondConfig:
     # property of admission, not of traffic.
     max_files: int = 128
     max_procs: int = 16
+    # Verification: replay every emitted plan through the sandbox gate
+    # before surfacing. Disabling this surfaces UNVERIFIED plans and
+    # exists only for throughput benchmarking.
+    verify: bool = True
 
     def mcts_config(self) -> MCTSConfig:
         return MCTSConfig(num_simulations=self.num_simulations,

@@ -194,7 +194,13 @@ class ResponseRouter:
                 expected_reward=round(float(plan.expected_reward), 4),
                 rollouts=plan.rollouts, batch=len(batch),
                 plan_seconds=round(plan_sec, 4))
-            out.append(self.verifier.verify(inc, plan))
+            if self.cfg.verify:
+                out.append(self.verifier.verify(inc, plan))
+            else:
+                out.append(VerifiedPlan(
+                    incident=inc, plan=plan, verified=False,
+                    reason="verification disabled (cfg.verify=False) — "
+                           "plan is UNVERIFIED"))
         with self._lock:
             self._results.extend(out)
             self._batches += 1

@@ -217,6 +217,25 @@ def test_lstm_lengths_mask_padding():
                                    rtol=1e-6, atol=1e-6)
 
 
+def test_lstm_time_loop_runs_one_bmm_a_step(monkeypatch):
+    # the input projection is hoisted out of the time loop, as the
+    # reference's fused impl does: per layer one bmm over all T (both
+    # directions), then one h·W_hh bmm a step
+    calls = []
+    real_bmm = torch.bmm
+    monkeypatch.setattr(torch, "bmm",
+                        lambda a, b: calls.append(tuple(a.shape)) or real_bmm(a, b))
+    S, T, F, H, L = 3, 7, 12, 8, 2
+    tm = ImpactLSTM(LSTMConfig(hidden=H, num_layers=L, dtype=torch.float32))
+    with torch.no_grad():
+        tm(torch.zeros(S, T, F), torch.ones(S, T, dtype=torch.bool))
+    assert len(calls) == L * (T + 1)
+    for layer in range(L):
+        hoisted, *steps = calls[layer * (T + 1):(layer + 1) * (T + 1)]
+        assert hoisted == (2, T * S, H)
+        assert steps == [(2, S, H)] * T
+
+
 def test_fusion_routes_unmatched_sequences_to_dropped_slot(batch, small_params):
     # seq_node_idx = -1 routes a sequence to slot n, which is dropped: such a
     # sequence changes its own seq_logit but no node or edge output

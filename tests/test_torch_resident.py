@@ -221,7 +221,7 @@ def test_journal_and_gauges_of_a_run(datasets):
 def test_traced_steps_report_the_host_fractions(datasets, monkeypatch):
     ds, _ = datasets
     cfg = tloop.TrainConfig(model=TINY, batch_size=4, num_steps=3, warmup_steps=1)
-    monkeypatch.setattr(tracing, "_ENABLED", True)
+    monkeypatch.setattr(tracing.DEFAULT_TRACER, "enabled", True)
     monkeypatch.setenv("NERRF_RESIDENT_MAX_BYTES", "0")
     since = time.perf_counter()
     tloop.train_nerrfnet(ds, cfg=cfg, device="cpu")
