@@ -6,7 +6,7 @@ Run from the root of the repository, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's six CUDA kernels from ``nerrf_tpu_torch/ops/csrc/``
+It builds the port's seven CUDA sources from ``nerrf_tpu_torch/ops/csrc/``
 (``nvcc``, ``sm_90a``, one process per source, all started together), holds
 the five sparse-aggregation kernels against their plain PyTorch versions on
 the card (float32 and
@@ -137,6 +137,19 @@ reloaded bit-equal), ``warmup``, ``serve-detect`` over two streams (each
 bit-equal to ``model_detect``, 28/2/3/2/0 a forward, no recompile) and
 ``respond`` (every family verified), each leg's launches derived.
 
+Then StreamNet (``run_stream_path``): the three attention entry points of
+``flash_attention.cu`` against the plain version (forward O and dQ, dK, dV
+against its autograd, within TOL·(1 + Σ|terms|), two kernel runs
+bit-equal) at the stream leg's and the probe's shapes, a ragged T with two
+16-wide heads and the 32- and 64-wide heads, causal and not, f32 and bf16,
+timed beside ``scaled_dot_product_attention`` and the bound; bench.py's
+stream leg (``StreamNet(StreamConfig())`` at full width over its corpus's
+first 6 traces as 12 x 4096 events, step 0 and 50 steps, the launches
+derived from the model, two dropout-0 gradients bit-equal); and
+``run_stream_eval.py``'s quality probe at its defaults (the record's
+segment and event counts, 300 steps, the logit-space threshold, held-out
+event AUC >= 0.90, the stream checkpoint reloaded bit-equal).
+
 Prints the card's name and power limit, one JSON line with each kernel's
 launches (and its launches per serve batch and per experiment run), error,
 times (ms, host_us, device_ms, library_ms, library_device_ms) and bound,
@@ -149,6 +162,10 @@ and the disk corpus run's lines (steps/s in turns, the upload's GB/s,
 checkpoint bytes and seconds, the telemetry's cost, shards rotated, data
 wait, held-out metrics).  Exits non-zero, with no result
 line, when a phase fails or there is no card.
+
+``python3 chip_smoke.py --stream-probe SEED [SEED ...]`` runs only the
+stream quality probe, once for each init seed (the spread of its held-out
+event AUC over inits), and prints one JSON line of their readings.
 """
 
 from __future__ import annotations
@@ -264,7 +281,9 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 def device_split(fn, iters: int = 20, warmup: int = 3) -> dict:
     """Device time of one ``fn()`` call by kernel, from a ``torch.profiler``
     trace of ``iters`` calls after ``warmup``: {kernel name: ms per call},
-    the card's own events only (not the host-side operators)."""
+    the card's own events only (not the host-side operators); {} when no
+    trace caught a device event (not measured: :func:`split_ms` and
+    :func:`port_kernel_ms` give None for it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -274,7 +293,7 @@ def device_split(fn, iters: int = 20, warmup: int = 3) -> dict:
     self_us = lambda e: getattr(e, "self_device_time_total",
                                 getattr(e, "self_cuda_time_total", 0.0))
     split = {}
-    for _ in range(3):  # a trace that caught no device event is taken again
+    for _ in range(5):  # a trace that caught no device event is taken again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -291,9 +310,17 @@ def device_split(fn, iters: int = 20, warmup: int = 3) -> dict:
     return split
 
 
-def port_kernel_ms(split: dict) -> float:
-    """The port's own kernels' share of a :func:`device_split`."""
-    return sum(v for k, v in split.items() if k.startswith("nerrf::"))
+def split_ms(split: dict):
+    """All the kernels' time of a :func:`device_split`, None if it caught
+    none (a failed measurement, never 0)."""
+    return sum(split.values()) if split else None
+
+
+def port_kernel_ms(split: dict):
+    """The port's own kernels' share of a :func:`device_split`, None if it
+    caught none of them."""
+    ours = [v for k, v in split.items() if k.startswith("nerrf::")]
+    return sum(ours) if ours else None
 
 
 def host_us(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -631,7 +658,7 @@ def time_kernels(batch: dict, report: dict, tag: str) -> dict:
         res = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=None if library is None else cuda_ms(library),
                    library_device_ms=None if library is None
-                   else sum(device_split(library).values()),
+                   else split_ms(device_split(library)),
                    device_ms=port_kernel_ms(device_split(call)))
         res["host_us"], res["host_us_untrimmed"] = host_us_trimmed_untrimmed(call)
         if per_call is not None:
@@ -4021,6 +4048,506 @@ def run_cli_path(model_dir: str, undo_mttr_s: float) -> dict:
     return out
 
 
+# --- StreamNet (ROADMAP A.5): the attention kernels, bench.py's stream leg
+# and run_stream_eval.py's quality probe -----------------------------------
+
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W): the
+# attention's bound, its inputs being bf16 (the kernels run on the CUDA
+# cores; the bound is what the card could do)
+BF16_OPS_PER_S = 989e12
+# bench.py's stream leg (bench.py:131-134, :347-378): its corpus's first 6
+# traces as 4096-event segments, step 0 timed apart, then
+# min(50, max(3, 200 // 4)) steps (200 is bench.py's default step count);
+# BENCH_r01.json's activations read bf16[12,4096,128]
+STREAM_CORPUS = dict(n_traces=12, attack_fraction=0.5, base_seed=42,
+                     duration_sec=180.0, num_target_files=24, benign_rate_hz=40.0)
+STREAM_LEG_TRACES, STREAM_LEG_LEN, STREAM_LEG_B = 6, 4096, 12
+STREAM_LEG_STEPS = min(50, max(3, 200 // 4))
+# benchmarks/run_stream_eval.py at its defaults: 16 traces a split from
+# _traces' scenario rotation (seeds 500, +3571, +7919; 120 s, 16 files,
+# 30 Hz), segments of 1024 events, batches of 8, 300 steps; its exit
+# condition is held-out event AUC >= 0.90 (run_stream_eval.py:242).  The
+# reference's record of that run (a CPU's) gives the counts gated here
+PROBE_SPLITS = (("train", 0), ("calib", 3571), ("eval", 7919))
+PROBE_TRACES, PROBE_SEED, PROBE_LEN, PROBE_STEPS, PROBE_BATCH = 16, 500, 1024, 300, 8
+PROBE_AUC_MIN = 0.90
+PROBE_INIT_SEED = 1  # the script's init key (jax.random.PRNGKey(1))
+PROBE_RECORD = os.path.join(ROOT, "benchmarks", "results", "stream_probe_cpu.json")
+# the attention kernels against the plain version, (B, T, H, D), causal,
+# dtype: the stream leg's and the probe's shapes (the leg's T in float32 too,
+# at the tight bound), a ragged T with two 16-wide heads (the tests'
+# config), and the other two head widths
+ATTENTION_CASES = (
+    ((12, 4096, 1, 128), True, "bfloat16"),
+    ((2, 4096, 1, 128), True, "float32"),
+    ((8, 1024, 1, 128), True, "bfloat16"),
+    ((8, 1024, 1, 128), True, "float32"),
+    ((8, 1024, 1, 128), False, "bfloat16"),
+    ((2, 1100, 2, 16), True, "float32"),
+    ((2, 1100, 2, 16), False, "float32"),
+    ((2, 1100, 2, 16), True, "bfloat16"),
+    ((2, 777, 2, 32), True, "float32"),
+    ((2, 777, 2, 32), False, "bfloat16"),
+    ((3, 640, 2, 64), True, "float32"),
+    ((3, 640, 2, 64), False, "bfloat16"),
+)
+
+
+def _attention_scales(q, k, v, do, causal):
+    """Σ|terms| of each element of O, dQ, dK and dV (the TOL form's scale),
+    from the plain version's probabilities P: P·|V|; scale·A·|K| and
+    scale·Aᵀ·|Q| with A = P∘(|dO|·|V|ᵀ + |Δ|), Δ = rowsum(dO∘O); Pᵀ·|dO|."""
+    import torch
+
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).tril()
+        s = torch.where(keep, s, torch.full((), -1e30, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    del s
+    delta = (do * torch.einsum("bhqk,bkhd->bqhd", p, v)).sum(-1)      # [B, T, H]
+    a = p * (torch.einsum("bqhd,bkhd->bhqk", do.abs(), v.abs())
+             + delta.abs().permute(0, 2, 1)[..., None])
+    return (torch.einsum("bhqk,bkhd->bqhd", p, v.abs()),
+            scale * torch.einsum("bhqk,bkhd->bqhd", a, k.abs()),
+            scale * torch.einsum("bhqk,bqhd->bkhd", a, q.abs()),
+            torch.einsum("bhqk,bqhd->bkhd", p, do.abs()))
+
+
+def _attention_inputs(shape, dtype, seed):
+    """q, k, v as StreamNet gives them (views of one [B, T, 3, H, D]
+    projection, a leaf that takes the gradients) and a cotangent dO."""
+    import torch
+
+    B, T, H, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(B, T, 3, H, D, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
+    return qkv.requires_grad_(), do
+
+
+def check_attention() -> dict:
+    """Each attention kernel against the plain version on the card
+    (ATTENTION_CASES): O, and dQ, dK and dV against the plain version's
+    autograd, within TOL·(1 + Σ|terms|); two kernel runs bit-equal."""
+    import torch
+
+    from nerrf_tpu_torch.ops import attention, plain_ops
+
+    errors = {name: {} for name in attention.LAUNCHES}
+    for i, (shape, causal, dtn) in enumerate(ATTENTION_CASES):
+        qkv, do = _attention_inputs(shape, getattr(torch, dtn), 100 + i)
+
+        def run():
+            qkv.grad = None
+            o = attention.causal_attention(*qkv.unbind(2), causal)
+            o.backward(do)
+            _sync()
+            return o.detach(), qkv.grad
+
+        got, again = run(), run()
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            _fail(f"attention {shape} causal={causal} {dtn}: two kernel runs differ")
+        with plain_ops():
+            want = run()
+        scales = _attention_scales(*qkv.detach().unbind(2), do, causal)
+        tag = f"{'x'.join(map(str, shape))}{' causal' if causal else ''} {dtn}"
+        errors["attention_fwd"][tag] = _close(f"attention_fwd {tag}", got[0], want[0],
+                                              dtn, scales[0])
+        errors["attention_bwd_dq"][tag] = _close(
+            f"attention_bwd_dq {tag}", got[1][:, :, 0], want[1][:, :, 0], dtn, scales[1])
+        for j, part in ((1, "dK"), (2, "dV")):
+            errors["attention_bwd_dkdv"][f"{tag} {part}"] = _close(
+                f"attention_bwd_dkdv {tag} {part}", got[1][:, :, j], want[1][:, :, j],
+                dtn, scales[j + 1])
+        del qkv, do, got, again, want, scales
+        torch.cuda.empty_cache()
+    print("attention kernels vs plain version, max |Δ| by case: " + json.dumps(errors))
+    return errors
+
+
+def attention_work(B, T, H, D, causal, itemsize=2) -> dict:
+    """Operations and bytes of each entry point on [B, T, H, D] inputs: the
+    visible (query, key) pairs (T(T+1)/2 a head when causal) times 2·D per
+    product; the forward's two products (q·k, p·v), dQ's three (q·k, dO·v,
+    dS·k), dK/dV's four (q·k, dO·v, Pᵀ·dO, dSᵀ·q).  Bytes: each input read
+    once, each output written once (lse and its reads in f32)."""
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    x = B * T * H * D * itemsize
+    lse = B * H * T * 4
+    return {"attention_fwd": (2 * 2 * D * pairs, 3 * x + x + lse),
+            "attention_bwd_dq": (3 * 2 * D * pairs, 5 * x + lse + x),
+            "attention_bwd_dkdv": (4 * 2 * D * pairs, 5 * x + lse + 2 * x)}
+
+
+def time_attention(shape, causal: bool = True) -> dict:
+    """Each entry point at ``shape`` in bf16, causal: ms a call (CUDA events)
+    and device ms a launch (profiler), beside the plain version's autograd
+    for the same outputs, the library's attention
+    (``scaled_dot_product_attention``: its forward for attention_fwd, its
+    whole backward, dQ, dK and dV together, for the two backward entry
+    points; never called by the port) and the bound (the larger of the
+    operations over the bf16 tensor-core peak and the bytes over HBM)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nerrf_tpu_torch.ops import attention, kernels
+
+    B, T, H, D = shape
+    qkv, do = _attention_inputs(shape, torch.bfloat16, 7)
+    q, k, v = (x.detach() for x in qkv.unbind(2))
+    scale = D ** -0.5
+    o = torch.empty(B, T, H, D, dtype=q.dtype, device="cuda")
+    lse = torch.empty(B, H, T, dtype=torch.float32, device="cuda")
+    dq, dk, dv = (torch.empty_like(o) for _ in range(3))
+    rows = dict(o=o, dout=do, lse=lse)
+    kernel = {
+        "attention_fwd": lambda: kernels.launch_attention(
+            "attention_fwd", q, k, v, causal, scale, o, lse),
+        "attention_bwd_dq": lambda: kernels.launch_attention(
+            "attention_bwd_dq", q, k, v, causal, scale, dq, **rows),
+        "attention_bwd_dkdv": lambda: kernels.launch_attention(
+            "attention_bwd_dkdv", q, k, v, causal, scale, dk, dv, **rows)}
+    kernel["attention_fwd"]()
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out_plain = attention.attention_dense(*leaves, causal)
+    plain = {
+        "attention_fwd": lambda: attention.attention_dense(q, k, v, causal),
+        "attention_bwd_dq": lambda: torch.autograd.grad(out_plain, leaves[:1], do,
+                                                        retain_graph=True),
+        "attention_bwd_dkdv": lambda: torch.autograd.grad(out_plain, leaves[1:], do,
+                                                          retain_graph=True)}
+    lib_in = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    sdpa = lambda: F.scaled_dot_product_attention(*lib_in, is_causal=causal)
+    out_lib = sdpa()
+    lib_bwd = lambda: torch.autograd.grad(out_lib, lib_in, do.transpose(1, 2),
+                                          retain_graph=True)
+    library = {"attention_fwd": sdpa, "attention_bwd_dq": lib_bwd,
+               "attention_bwd_dkdv": lib_bwd}
+    work = attention_work(B, T, H, D, causal)
+    out = {}
+    with torch.no_grad():
+        for name in attention.LAUNCHES:
+            ops, nbytes = work[name]
+            t_ops, t_bytes = ops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            ms = cuda_ms(kernel[name], iters=10, warmup=2)
+            out[name] = {
+                "ms": ms, "device_ms": port_kernel_ms(device_split(kernel[name], iters=5,
+                                                                   warmup=1)),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "gflop": ops / 1e9, "tflops": ops / ms / 1e9,
+                "library_ms": None, "library_device_ms": None}
+            with torch.enable_grad():
+                out[name]["plain_ms"] = cuda_ms(plain[name], iters=3, warmup=1)
+                out[name]["library_ms"] = cuda_ms(library[name], iters=10, warmup=2)
+                out[name]["library_device_ms"] = split_ms(
+                    device_split(library[name], iters=5, warmup=1))
+    del out_plain, out_lib
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_step_launches(model) -> dict:
+    """Attention launches of one StreamNet training step, from the model:
+    each block's attention forward, again in the backward's recompute when
+    the blocks are rematerialised, and its backward's two kernels."""
+    from nerrf_tpu_torch.models.stream import _Block
+
+    layers = sum(isinstance(m, _Block) for m in model.modules())
+    return {"attention_fwd": layers * (2 if model.cfg.remat else 1),
+            "attention_bwd_dq": layers, "attention_bwd_dkdv": layers}
+
+
+def _attention_counts() -> dict:
+    from nerrf_tpu_torch.ops import attention
+
+    return dict(attention.LAUNCHES)
+
+
+def _reset_attention_counts() -> None:
+    from nerrf_tpu_torch.ops import attention
+
+    _sync()
+    attention.reset_launches()
+
+
+def run_stream_leg() -> dict:
+    """bench.py's stream leg on the card: ``StreamNet(StreamConfig())`` at
+    full width (dim 128, one 128-wide head, 4 layers, bf16, remat, dropout
+    0.1) over its corpus's first 6 traces as 4096-event segments, through
+    ``make_stream_train_step``; step 0 timed apart, then 50 steps, with the
+    attention counters from 0.  Gates: B × T = 12 × 4096; finite losses; the
+    launches derived from the model (:func:`stream_step_launches`); two
+    gradients from one state at dropout 0 bit-equal."""
+    import dataclasses
+
+    import torch
+
+    from nerrf_tpu_torch.data import build_streams, make_corpus
+    from nerrf_tpu_torch.models import StreamConfig, StreamNet
+    from nerrf_tpu_torch.models.stream import stream_loss
+    from nerrf_tpu_torch.parallel import make_stream_train_step
+
+    t0 = time.perf_counter()
+    sb = build_streams(make_corpus(**STREAM_CORPUS)[:STREAM_LEG_TRACES],
+                       max_len=STREAM_LEG_LEN)
+    data_s = time.perf_counter() - t0
+    B, T = sb.feat.shape[:2]
+    if (B, T) != (STREAM_LEG_B, STREAM_LEG_LEN):
+        _fail(f"stream leg: {B} x {T} segments; bench.py's record has "
+              f"{STREAM_LEG_B} x {STREAM_LEG_LEN}")
+    cfg = StreamConfig()
+    model = StreamNet(cfg).cuda()
+    init_fn, step_fn, place = make_stream_train_step(model)
+    placed = place(sb.arrays())
+    state = init_fn(2)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    per_step = stream_step_launches(model)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_attention_counts()
+    t = time.perf_counter()
+    state, loss, gen = step_fn(state, placed, gen)
+    loss0 = float(loss)
+    step0_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for _ in range(STREAM_LEG_STEPS):
+        state, loss, gen = step_fn(state, placed, gen)
+    loss_last = float(loss)
+    wall_s = time.perf_counter() - t
+    launches = _attention_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: n * (STREAM_LEG_STEPS + 1) for k, n in per_step.items()}
+    if launches != want:
+        _fail(f"stream leg: attention launches {launches}, derived {want}")
+    if not (math.isfinite(loss0) and math.isfinite(loss_last)):
+        _fail(f"stream leg: losses {loss0}, {loss_last}")
+    steps = lambda: [step_fn(state, placed, gen) for _ in range(2)]
+    steps()
+    _sync()
+    t = time.perf_counter()
+    steps()
+    _sync()
+    busy = device_busy_share("2 stream-leg steps", steps, time.perf_counter() - t)
+    # two gradients from one state at dropout 0
+    twin = StreamNet(dataclasses.replace(cfg, dropout=0.0)).cuda()
+    twin.load_state_dict(model.state_dict())
+
+    def grads():
+        twin.zero_grad(set_to_none=True)
+        out = twin(placed["feat"], placed["mask"])
+        stream_loss(out, placed["label"], placed["mask"]).backward()
+        _sync()
+        return [p.grad.clone() for p in twin.parameters()]
+
+    g1, g2 = grads(), grads()
+    if not all(torch.equal(a, b) for a, b in zip(g1, g2)):
+        _fail("stream leg: two gradients from one state differ")
+    res = {"B": B, "T": T, "data_s": data_s, "step0_s": step0_s,
+           "steps": STREAM_LEG_STEPS, "wall_s": wall_s,
+           "ms_per_step": wall_s / STREAM_LEG_STEPS * 1e3,
+           "events_per_s": B * T * STREAM_LEG_STEPS / wall_s,
+           "loss0": loss0, "loss": loss_last, "busy": busy, "per_step": per_step,
+           "launches": launches, "peak_allocated_bytes": peak,
+           "valid_events": int(sb.mask.sum())}
+    print(f"stream leg (bench.py): {B} x {T} events a step ({res['valid_events']} "
+          f"real), step 0 {step0_s:.3f} s, {STREAM_LEG_STEPS} steps in {wall_s:.3f} s: "
+          f"{res['ms_per_step']:.2f} ms a step, {res['events_per_s']:.1f} events/s; "
+          f"busy share {'not measured' if busy is None else round(busy, 3)}; "
+          f"loss {loss0:.4f} -> {loss_last:.4f}; launches {launches} "
+          f"({per_step} a step); two dropout-0 gradients bit-equal; peak "
+          f"allocated {peak} bytes; data {data_s:.1f} s")
+    del state, model, twin, placed
+    torch.cuda.empty_cache()
+    return res
+
+
+def _probe_traces(n: int, base_seed: int):
+    """run_stream_eval.py's ``_traces(n, base_seed, 120.0, 16, 30.0)``:
+    attack traces at even i over the attack families, benign ones at odd i
+    over the background and the hard negatives."""
+    from nerrf_tpu_torch.data import SimConfig, simulate_trace
+
+    atk = ("standard", "inplace-stealth", "slow-drip", "partial-encrypt",
+           "multi-process", "interleaved-backup", "benign-comm", "exfil-encrypt")
+    ben = ("standard", "benign-mass-rename", "benign-atomic-rewrite")
+    out = []
+    for i in range(n):
+        attack = i % 2 == 0
+        scenario = atk[(i // 2) % len(atk)] if attack else ben[(i // 2) % len(ben)]
+        out.append(simulate_trace(SimConfig(
+            duration_sec=120.0, num_target_files=16, benign_rate_hz=30.0,
+            attack=attack, scenario=scenario, seed=base_seed + 101 * i,
+            attack_start_sec=120.0 * 0.35),
+            name=f"stream-{'atk' if attack else 'ben'}-{i}"))
+    return out
+
+
+def _score_split(model, sb, place):
+    """Masked per-event logits of every segment, in batches of PROBE_BATCH
+    (the tail wrapped to a full batch, as the script does)."""
+    import numpy as np
+    import torch
+
+    arrs = sb.arrays()
+    scores, labels = [], []
+    with torch.inference_mode():
+        for i in range(0, len(sb), PROBE_BATCH):
+            idx = np.arange(i, min(i + PROBE_BATCH, len(sb)))
+            batch = place({k: v[np.resize(idx, PROBE_BATCH)] for k, v in arrs.items()})
+            logits = model(batch["feat"], batch["mask"])["event_logits"].float().cpu().numpy()
+            for j in range(len(idx)):
+                m = arrs["mask"][idx[j]]
+                scores.append(logits[j][m])
+                labels.append(arrs["label"][idx[j]][m])
+    return np.concatenate(scores), np.concatenate(labels)
+
+
+def run_stream_probe(init_seed: int = PROBE_INIT_SEED) -> dict:
+    """run_stream_eval.py on the card at its defaults: train
+    ``StreamNet(StreamConfig())`` 300 steps on 16 traces' 1024-event
+    segments (batches of 8 drawn as the script draws them), calibrate the
+    best-F1 per-event cut on 16 more traces in logit space, report held-out
+    event AUC and F1 at that cut on 16 more; save the stream checkpoint and
+    reload it.  Gates: the segment and event counts of the reference's
+    record; the launches derived from the model; the reloaded model's
+    held-out logits bit-equal (the caller gates the held-out event AUC).
+    ``init_seed`` seeds the params; the batch order and the dropout stream
+    stay the script's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerrf_tpu_torch.data import build_streams
+    from nerrf_tpu_torch.models import StreamConfig, StreamNet
+    from nerrf_tpu_torch.parallel import make_stream_train_step
+    from nerrf_tpu_torch.train.checkpoint import load_stream_checkpoint, save_stream_checkpoint
+    from nerrf_tpu_torch.train.metrics import best_f1, f1_at_threshold, roc_auc
+
+    with open(PROBE_RECORD) as f:
+        record = json.load(f)
+    t0 = time.perf_counter()
+    sb = {name: build_streams(_probe_traces(PROBE_TRACES, PROBE_SEED + off),
+                              max_len=PROBE_LEN) for name, off in PROBE_SPLITS}
+    data_s = time.perf_counter() - t0
+    counts = {"train_segments": len(sb["train"]), "eval_segments": len(sb["eval"]),
+              "calib_events": int(sb["calib"].mask.sum()),
+              "eval_events": int(sb["eval"].mask.sum())}
+    want = {"train_segments": record["train"]["segments"],
+            "eval_segments": record["eval"]["segments"],
+            "calib_events": record["calibration"]["events"],
+            "eval_events": record["eval"]["events"]}
+    if counts != want:
+        _fail(f"stream probe: {counts}, the reference's record {want}")
+
+    cfg = StreamConfig()
+    model = StreamNet(cfg).cuda()
+    init_fn, step_fn, place = make_stream_train_step(model)
+    arrays, n = sb["train"].arrays(), len(sb["train"])
+    order = np.random.default_rng(PROBE_SEED)
+
+    def draw():
+        # one draw of PROBE_BATCH segments a step, as the script draws them
+        idx = order.choice(n, size=PROBE_BATCH, replace=n < PROBE_BATCH)
+        return place({k: v[idx] for k, v in arrays.items()})
+
+    draw()  # the script draws its first batch for init_fn before the loop
+    state = init_fn(init_seed)
+    gen = torch.Generator(device="cuda").manual_seed(PROBE_SEED)
+    _reset_attention_counts()
+    t = time.perf_counter()
+    for _ in range(PROBE_STEPS):
+        state, loss, gen = step_fn(state, draw(), gen)
+    final_loss = float(loss)
+    train_s = time.perf_counter() - t
+    model.eval()
+    cs, cl = _score_split(model, sb["calib"], place)
+    s, l = _score_split(model, sb["eval"], place)
+    calib_f1, t_cal = best_f1(cl, cs)
+    auc = roc_auc(l, s)
+    at_cal = f1_at_threshold(l, s, t_cal)
+    calibration = {"stream_event_threshold": round(float(t_cal), 4),
+                   "stream_event_threshold_kind": "calib-split-best-f1",
+                   "calib_f1": round(float(calib_f1), 4)}
+    ckpt = tempfile.mkdtemp(prefix="nerrf-stream-probe-")
+    try:
+        t = time.perf_counter()
+        save_stream_checkpoint(os.path.join(ckpt, "stream"), model.state_dict(), cfg,
+                               calibration=calibration)
+        save_s = time.perf_counter() - t
+        sd, cfg2, cal2 = load_stream_checkpoint(os.path.join(ckpt, "stream"))
+        params_bytes = os.path.getsize(os.path.join(ckpt, "stream", "params.pt"))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if cfg2 != cfg or cal2.get("stream_event_threshold_space") != "logit":
+        _fail(f"stream probe: reloaded {cfg2}, calibration {cal2}")
+    reloaded = StreamNet(cfg2).cuda().eval()
+    reloaded.load_state_dict(sd)
+    s2, _ = _score_split(reloaded, sb["eval"], place)
+    launches = _attention_counts()
+    if not np.array_equal(s2, s):
+        _fail("stream probe: the reloaded checkpoint's held-out logits differ")
+    # each step's launches, then one attention_fwd a layer in every scoring
+    # forward: the calibration split, the held-out split, and the held-out
+    # split again on the reloaded model
+    batches = lambda split: -(-len(sb[split]) // PROBE_BATCH)
+    per_step = stream_step_launches(model)
+    want_launches = {k: n * PROBE_STEPS for k, n in per_step.items()}
+    want_launches["attention_fwd"] += (
+        (batches("calib") + 2 * batches("eval")) * per_step["attention_bwd_dq"])
+    if launches != want_launches:
+        _fail(f"stream probe: attention launches {launches}, derived {want_launches}")
+    res = {"init_seed": init_seed, "counts": counts, "train_s": train_s,
+           "steps_per_s": PROBE_STEPS / train_s, "final_loss": final_loss,
+           "event_auc": auc, "event_f1_at_threshold": at_cal["f1"],
+           "event_precision_at_threshold": at_cal["precision"],
+           "event_recall_at_threshold": at_cal["recall"],
+           "event_best_f1": best_f1(l, s)[0], "stream_event_threshold": t_cal,
+           "calib_f1": calib_f1, "positive_rate": float(l.mean()), "launches": launches,
+           "params_bytes": params_bytes, "save_s": save_s, "data_s": data_s,
+           "record": record["metrics"] | {
+               "stream_event_threshold": record["calibration"]["stream_event_threshold"],
+               "calib_f1": record["calibration"]["calib_f1"]}}
+    print(f"stream probe (run_stream_eval.py defaults, init seed {init_seed}): "
+          f"{counts}; {PROBE_STEPS} steps "
+          f"in {train_s:.3f} s ({res['steps_per_s']:.3f} steps/s), loss {final_loss:.4f}; "
+          f"held-out event_auc {auc:.4f}, event_f1_at_threshold {at_cal['f1']:.4f} "
+          f"(precision {at_cal['precision']:.4f}, recall {at_cal['recall']:.4f}, "
+          f"best {res['event_best_f1']:.4f}), threshold {t_cal:.4f} (logit), calib_f1 "
+          f"{calib_f1:.4f}; the reference's record (a CPU run) "
+          f"{json.dumps(res['record'])}; checkpoint {params_bytes} bytes saved in "
+          f"{save_s:.3f} s, reloaded bit-equal; launches {launches}; data {data_s:.1f} s")
+    del model, reloaded, state
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_stream_path() -> dict:
+    """The StreamNet phase: the attention kernels against the plain version
+    and timed at the leg's and the probe's shapes, then the stream leg and
+    the quality probe, each with the counters from 0."""
+    t0 = time.perf_counter()
+    errors = check_attention()
+    timing = {"leg": time_attention((STREAM_LEG_B, STREAM_LEG_LEN, 1, 128)),
+              "probe": time_attention((PROBE_BATCH, PROBE_LEN, 1, 128))}
+    for tag, tm in timing.items():
+        print(f"attention kernel times at the {tag} shape (bf16, causal; ms: CUDA "
+              f"events, device_ms: profiler; plain_ms: the plain version's autograd "
+              f"for the same outputs; library_ms: scaled_dot_product_attention's "
+              f"forward, or its whole backward): " + json.dumps(tm))
+    leg = run_stream_leg()
+    probe = run_stream_probe()
+    if not probe["event_auc"] >= PROBE_AUC_MIN:
+        _fail(f"stream probe: held-out event AUC {probe['event_auc']:.4f} < {PROBE_AUC_MIN}")
+    seconds = time.perf_counter() - t0
+    print(f"stream phase: {seconds:.1f} s of command time")
+    return {"errors": errors, "timing": timing, "leg": leg, "probe": probe,
+            "seconds": seconds}
+
+
 def kernel_times() -> dict:
     """Each kernel's times at its call sites on the first batch of both
     rungs (:func:`time_kernels`: device ms per launch, band-free and the
@@ -4110,6 +4637,14 @@ def main() -> int:
         times = kernel_times() if mode == "--kernel-times" else lstm_times()
         print(json.dumps({"root": times_of, "card": smi, **times}))
         return 0
+    if sys.argv[1:2] == ["--stream-probe"]:
+        kernels.build()
+        keep = ("init_seed", "event_auc", "event_f1_at_threshold",
+                "stream_event_threshold", "calib_f1", "final_loss", "steps_per_s")
+        probes = [run_stream_probe(int(seed)) for seed in sys.argv[2:]]
+        print(json.dumps({"card": smi, "stream_probe": [
+            {k: probe[k] for k in keep} for probe in probes]}))
+        return 0
     try:
         t0 = time.perf_counter()
         built = kernels.build()
@@ -4156,6 +4691,8 @@ def main() -> int:
         finally:
             shutil.rmtree(experiment["model_dir"], ignore_errors=True)
         print(f"undo-path phases: {time.perf_counter() - undo_t0:.1f} s of command time")
+        stream = run_stream_path()
+        errors.update(stream["errors"])
         errors["mcts_search"] = {case: 0.0 for case in mcts_check}
         timing = time_kernels(train["batch"], errors, "train")
         split = gather_host_split(train["batch"])
@@ -4223,6 +4760,26 @@ def main() -> int:
         "respond_serve_launches": respond["serve"]["launches"]["mcts_search"],
         "cli_launches": cli_phase["launches"]["mcts_search"],
         "value_net_max_rel_err": value["value_err"]})
+    # the attention kernels on StreamNet's training step: launches from the
+    # stream leg's run (step 0 and 50 steps), times at its shape
+    # (12 x 4096 x 1 x 128, bf16, causal); the probe's launches and times
+    # (8 x 1024) beside them
+    for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv"):
+        leg_t, probe_t = stream["timing"]["leg"][name], stream["timing"]["probe"][name]
+        line["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "nerrf_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": "nerrf_tpu/parallel/ring.py:58",
+            "path": "StreamNet training step (bench.py's stream leg)",
+            "launches": stream["leg"]["launches"][name],
+            "max_abs_err": max(errors[name].values()),
+            **{k: leg_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "library_device_ms", "device_ms",
+                                     "tflops")},
+            "probe_launches": stream["probe"]["launches"][name],
+            "probe_ms": probe_t["ms"], "probe_device_ms": probe_t["device_ms"],
+            "probe_bound_ms": probe_t["bound_ms"],
+            "probe_library_ms": probe_t["library_ms"]})
     print("kernel errors by case: " + json.dumps(errors))
     chunked = ("per_call_ms", "per_call_host_us", "band_free_device_ms",
                "pad_spread_device_ms")
@@ -4331,6 +4888,15 @@ def main() -> int:
           f"one request: wire {respond['wire']['m1']['seconds']:.4f} s, connect "
           f"{m1s['serve_s']:.4f} s, {m1s['alerts']} alerts, alert → plan result "
           f"p50 {m1s['alert_to_plan_p50_ms']} ms; on {smi}")
+    leg, probe = stream["leg"], stream["probe"]
+    print(f"stream ({stream['seconds']:.1f} s): bench.py's leg {leg['B']} x {leg['T']}, "
+          f"{leg['ms_per_step']:.2f} ms a step, {leg['events_per_s']:.1f} events/s, "
+          f"busy share {'not measured' if leg['busy'] is None else round(leg['busy'], 3)}, "
+          f"{leg['per_step']} launches a step; the probe {probe['steps_per_s']:.3f} "
+          f"steps/s, held-out event_auc {probe['event_auc']:.4f}, "
+          f"event_f1_at_threshold {probe['event_f1_at_threshold']:.4f}, threshold "
+          f"{probe['stream_event_threshold']:.4f} (logit) beside the reference's record "
+          f"{json.dumps(probe['record'])}; on {smi}")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,11 +13,11 @@ Serialization rules (kept deliberately small, the reference's):
     name (``"bfloat16"``, ``"float32"``) and decode as ``torch.<name>``;
   * unknown keys on load are an error (config drift should fail loudly).
 
-``MCTSConfig`` is the planner's own (``planner/mcts.py``), as in the
-reference.  ``MeshConfig`` and ``StreamConfig`` are data-only copies of the
-reference's (``parallel/mesh.py``, ``models/stream.py``), here so that every
-experiment parses; each moves to its own module when the port takes that
-module (ROADMAP A.7, A.5).
+``MCTSConfig`` is the planner's own (``planner/mcts.py``) and
+``StreamConfig`` StreamNet's (``models/stream.py``), as in the reference.
+``MeshConfig`` is a data-only copy of the reference's (``parallel/mesh.py``),
+here so that every experiment parses; it moves to its own module when the
+port takes that module (ROADMAP A.7).
 
 CLI::
 
@@ -42,6 +42,7 @@ from nerrf_tpu_torch.graph.builder import GraphConfig
 from nerrf_tpu_torch.models.graphsage import GraphSAGEConfig
 from nerrf_tpu_torch.models.joint import JointConfig
 from nerrf_tpu_torch.models.lstm import LSTMConfig
+from nerrf_tpu_torch.models.stream import StreamConfig
 from nerrf_tpu_torch.planner.mcts import MCTSConfig
 from nerrf_tpu_torch.train.data import DatasetConfig
 from nerrf_tpu_torch.train.loop import TrainConfig
@@ -50,7 +51,7 @@ CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
 
 
 # --------------------------------------------------------------------------
-# the configs of modules the port has not taken yet (data only)
+# the config of a module the port has not taken yet (data only)
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -71,20 +72,6 @@ class MeshConfig:
         if dp * tp * sp != n_devices:
             raise ValueError(f"dp*tp*sp={dp * tp * sp} != {n_devices} devices")
         return dp, tp, sp
-
-
-@dataclasses.dataclass(frozen=True)
-class StreamConfig:
-    """The reference's StreamNet widths (``models/stream.py``; moves there
-    with ROADMAP A.5)."""
-
-    dim: int = 128
-    num_heads: int = 1
-    num_layers: int = 4
-    mlp_mult: int = 4
-    dropout: float = 0.1
-    dtype: Any = torch.bfloat16
-    remat: bool = True
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Flax ``NerrfNet`` (and value-net) params → the port's ``state_dict``.
+"""Flax ``NerrfNet`` (and value-net, StreamNet) params → the port's ``state_dict``.
 
 Takes the reference's param tree as nested dicts of numpy arrays (``{"lstm":
 {"in_proj": {"kernel": ..., "bias": ...}, ...}, "gnn": {...}}``, e.g.
@@ -104,6 +104,28 @@ def value_net_to_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
     while f"Dense_{i}" in p:
         _dense(sd, f"Dense_{i}", p[f"Dense_{i}"])
         i += 1
+    return sd
+
+
+def stream_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``StreamNet`` tree (``embed``, ``block_i/{attn_ln, qkv, proj,
+    mlp_ln, mlp_in, mlp_out}``, ``final_ln``, ``head``; with or without the
+    outer ``"params"``) → the port's ``StreamNet`` state.  ``qkv`` stays one
+    Dense: both packages split its output into q, k, v by thirds and a head
+    as a contiguous D-wide slice of each."""
+    p = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    _dense(sd, "embed", p["embed"])
+    i = 0
+    while f"block_{i}" in p:
+        b = p[f"block_{i}"]
+        for name in ("attn_ln", "mlp_ln"):
+            _norm(sd, f"blocks.{i}.{name}", b[name])
+        for name in ("qkv", "proj", "mlp_in", "mlp_out"):
+            _dense(sd, f"blocks.{i}.{name}", b[name])
+        i += 1
+    _norm(sd, "final_ln", p["final_ln"])
+    _dense(sd, "head", p["head"])
     return sd
 
 

@@ -1,6 +1,12 @@
 from nerrf_tpu_torch.models.graphsage import GraphSAGEConfig, GraphSAGET
 from nerrf_tpu_torch.models.joint import JointConfig, NerrfNet, build_nerrfnet
 from nerrf_tpu_torch.models.lstm import ImpactLSTM, LSTMConfig
+from nerrf_tpu_torch.models.stream import (
+    StreamConfig,
+    StreamNet,
+    build_streamnet,
+    stream_loss,
+)
 
 __all__ = [
     "GraphSAGET",
@@ -10,4 +16,8 @@ __all__ = [
     "NerrfNet",
     "JointConfig",
     "build_nerrfnet",
+    "StreamNet",
+    "StreamConfig",
+    "build_streamnet",
+    "stream_loss",
 ]

@@ -35,18 +35,33 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def dropout_mask(shape, rate: float, gen: Optional[torch.Generator],
+                 device) -> Optional[torch.Tensor]:
+    """The keep mask :func:`dropout` draws from ``gen`` (on ``device``) for
+    a tensor of ``shape``; None when ``gen`` is None or ``rate`` is 0."""
+    if gen is None or rate == 0.0:
+        return None
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+
+
+def apply_dropout(x: torch.Tensor, mask: Optional[torch.Tensor],
+                  rate: float) -> torch.Tensor:
+    """``x`` where ``mask`` keeps it, scaled by ``1 / (1 - rate)``, zero
+    elsewhere; ``x`` itself when ``mask`` is None."""
+    if mask is None:
+        return x
+    keep = 1.0 - rate
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+
+
 def dropout(x: torch.Tensor, rate: float,
             gen: Optional[torch.Generator]) -> torch.Tensor:
     """``x`` with each element kept with probability ``1 - rate`` and scaled
     by ``1 / (1 - rate)``, the rest zero; an identity when ``gen`` is None
     (inference) or ``rate`` is 0.  The mask comes from ``gen``, which lies
     on ``x``'s device."""
-    if gen is None or rate == 0.0:
-        return x
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                  device=x.device))
+    return apply_dropout(x, dropout_mask(x.shape, rate, gen, x.device), rate)
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:

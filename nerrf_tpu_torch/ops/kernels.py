@@ -8,8 +8,8 @@ with ``ctypes``: every pointer and the stream pass as ``c_void_p``, every
 C entry returns ``cudaGetLastError()`` and the launcher raises unless it is
 0.  Launchers launch on the current stream and allocate nothing but the
 chunked reductions' scratch, kept per (device, stream) and reused; the wrappers
-in :mod:`nerrf_tpu_torch.ops.segment` check inputs, allocate the outputs
-and count the launches.
+in :mod:`nerrf_tpu_torch.ops.segment`, :mod:`.mcts` and :mod:`.attention`
+check inputs, allocate the outputs and count the launches.
 
 Nothing here runs at import: the CPU build of PyTorch imports this module
 too, and has neither ``nvcc`` nor a card.
@@ -32,7 +32,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("sage_aggregate", "gather_rows", "segment_sum",
-           "segment_sum_sorted", "gather_rows_sorted", "mcts_search")
+           "segment_sum_sorted", "gather_rows_sorted", "mcts_search",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # flags of one source only: the search is bit-equal to its plain version,
@@ -40,9 +41,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # a*b + c into one fused multiply-add there
 SOURCE_FLAGS = {"mcts_search": ("-fmad=false",)}
 # C entry points that live in another source's library: {entry: library}
-ENTRY_LIBRARY = {"mcts_value": "mcts_search"}
+ENTRY_LIBRARY = {"mcts_value": "mcts_search", "attention_fwd": "flash_attention",
+                 "attention_bwd_dq": "flash_attention",
+                 "attention_bwd_dkdv": "flash_attention"}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
     # msg, dtype, ptr_f, gidx_f, w_f, ptr_r, gidx_r, w_r, B, N, E, F, partial,
     # live, arrivals, out, stream
@@ -63,6 +66,15 @@ _ARGTYPES = {
     "mcts_search": [_P] * 17 + [_I] * 6 + [_P],
     # features, consts, weights, hidden, N, out, stream
     "mcts_value": [_P, _P, _P, _I, _I, _P, _P],
+    # q, k, v, dtype, sb, st, sh, B, T, H, D, causal, scale, o, lse, stream
+    "attention_fwd": [_P, _P, _P, _I, _L, _L, _L, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    # q, k, v, dtype, sb, st, sh, o, dout, lse, B, T, H, D, causal, scale, dq,
+    # stream
+    "attention_bwd_dq": [_P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _F, _P, _P],
+    # ... as attention_bwd_dq, then dk, dv, stream
+    "attention_bwd_dkdv": [_P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _F, _P, _P, _P],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # rows per chunk of the chunked reductions (kChunkRows, csrc/segment_chunks.cuh)
@@ -246,3 +258,25 @@ def launch_segment_sum(name: str, data, plan, out) -> None:
             plan.ptr.data_ptr(), B, N, S, F, *scratch, out.data_ptr(),
             stream=stream)
 
+
+
+# head widths the attention kernels are instantiated for (csrc/flash_attention.cu)
+ATTENTION_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def launch_attention(name: str, q, k, v, causal: bool, scale: float, *outs,
+                     o=None, dout=None, lse=None) -> None:
+    """``attention_fwd`` (outs: o, lse), ``attention_bwd_dq`` (outs: dq) or
+    ``attention_bwd_dkdv`` (outs: dk, dv) over q, k, v [B, T, H, D] of one
+    layout (any strides, D's 1); o, dout, the gradients contiguous [B, T, H,
+    D], lse [B, H, T] float32."""
+    B, T, H, D = q.shape
+    if D not in ATTENTION_HEAD_DIMS:
+        raise ValueError(f"{name}: head width {D}; the kernel takes {ATTENTION_HEAD_DIMS}")
+    if B * H > 65535:
+        raise ValueError(f"{name}: {B} x {H} heads; the kernel takes at most 65535")
+    sb, st, sh, _ = q.stride()
+    rows = () if name == "attention_fwd" else (o.data_ptr(), dout.data_ptr(), lse.data_ptr())
+    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), dtype_code(q),
+            sb, st, sh, *rows, B, T, H, D, int(causal), scale,
+            *(t.data_ptr() for t in outs))

@@ -15,12 +15,16 @@ does not: a checkpoint loads as the default-dtype config.
 ``load_checkpoint`` returns ``(state_dict, JointConfig)``; the caller builds
 ``NerrfNet(cfg)`` on its device and loads the state into it.
 
-Left out (ROADMAP A.5, A.6): the reference quality profile that the
+A StreamNet checkpoint (``save/load_stream_checkpoint``) is ``params.pt``
+beside the reference's ``stream_config.json``: the model's fields with its
+dtype's name, the stream feature width, the schema version and the
+calibrated per-event threshold, which lives in logit space.
+
+Left out (ROADMAP A.6): the reference quality profile that the
 reference's ``calibrate_and_resave`` writes beside the sidecar (a
-checkpoint here ships without a drift baseline, and says so in the log),
-the StreamNet checkpoints (``save/load_stream_checkpoint``) and the
-producer of the ``provenance`` stamp (``save_checkpoint`` writes one when
-it is given).
+checkpoint here ships without a drift baseline, and says so in the log)
+and the producer of the ``provenance`` stamp (``save_checkpoint`` writes
+one when it is given).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from nerrf_tpu_torch.tracing import span as trace_span
 
 PARAMS_FILENAME = "params.pt"
 CONFIG_FILENAME = "model_config.json"
+STREAM_CONFIG_FILENAME = "stream_config.json"
 
 # Sidecar schema version, stamped into every checkpoint and validated at
 # load.  The feature-dim stamp below catches the known drift axes (node/
@@ -271,3 +276,64 @@ def calibrate_and_resave(path: str | Path, model, node_loss_weight: float = 1.0,
     save_checkpoint(path, model.state_dict(), model.cfg,
                     calibration=calibration, provenance=provenance)
     return calibration
+
+
+def save_stream_checkpoint(path: str | Path, state_dict: Mapping[str, torch.Tensor],
+                           cfg, calibration: dict | None = None) -> None:
+    """Publish a ``StreamNet``'s ``state_dict`` and the reference's
+    ``stream_config.json`` for ``cfg`` (a ``StreamConfig``) at ``path``,
+    atomically.  ``stream_event_threshold`` is a cut on raw event logits
+    (the calibration sweeps ``event_logits``, never sigmoided), unlike the
+    joint model's probability ``node_threshold``: when ``calibration``
+    carries the threshold but not its space, ``"logit"`` is stamped in."""
+    from nerrf_tpu_torch.data.stream import STREAM_FEATURE_DIM
+
+    meta = {
+        "stream": {"dim": cfg.dim, "num_heads": cfg.num_heads,
+                   "num_layers": cfg.num_layers, "mlp_mult": cfg.mlp_mult,
+                   "dropout": cfg.dropout, "remat": cfg.remat,
+                   "dtype": str(cfg.dtype).removeprefix("torch.")},
+        "features": {"stream": STREAM_FEATURE_DIM},
+        "schema_version": SCHEMA_VERSION,
+    }
+    if calibration:
+        if "stream_event_threshold" in calibration:
+            calibration = {"stream_event_threshold_space": "logit", **calibration}
+        meta["calibration"] = calibration
+    host = {k: v.detach().cpu() for k, v in state_dict.items()}
+    with _atomic_dir(path) as tmp:
+        with trace_span("checkpoint", kind="stream_params"):
+            torch.save(host, tmp / PARAMS_FILENAME)
+        (tmp / STREAM_CONFIG_FILENAME).write_text(json.dumps(meta, indent=2))
+
+
+def load_stream_checkpoint(path: str | Path):
+    """``(state_dict, StreamConfig, calibration)`` of the stream checkpoint
+    at ``path``, the tensors on the CPU, after the schema-version and
+    feature-width checks."""
+    from nerrf_tpu_torch.data.stream import STREAM_FEATURE_DIM
+    from nerrf_tpu_torch.models.stream import StreamConfig
+
+    path = Path(path).absolute()
+    meta = _read_sidecar(path, STREAM_CONFIG_FILENAME)
+    _check_schema_version(meta, path)
+    got = (meta.get("features") or {}).get("stream")
+    if got is not None and got != STREAM_FEATURE_DIM:
+        raise ValueError(
+            f"retrain: feature layout changed — stream checkpoint {path} "
+            f"was trained with {got}-dim event features, current code "
+            f"produces {STREAM_FEATURE_DIM}")
+    if "stream" not in meta:
+        raise ValueError(
+            f"corrupt checkpoint sidecar {path / STREAM_CONFIG_FILENAME}: "
+            f"missing the 'stream' model-config field")
+    fields = dict(meta["stream"])
+    dt = getattr(torch, str(fields.get("dtype")), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"corrupt checkpoint sidecar {path / STREAM_CONFIG_FILENAME}: "
+                         f"unknown dtype {fields.get('dtype')!r}")
+    fields["dtype"] = dt
+    cfg = StreamConfig(**fields)
+    state_dict = torch.load(path / PARAMS_FILENAME, map_location="cpu",
+                            weights_only=True)
+    return state_dict, cfg, meta.get("calibration") or {}

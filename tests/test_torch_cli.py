@@ -302,6 +302,24 @@ def test_serve_and_ingest_return_every_event(small_trace, tmp_path, monkeypatch)
     start = TraceReplayServer.start
     monkeypatch.setattr(TraceReplayServer, "start",
                         lambda self: ports.append(start(self)) or ports[-1])
+    # `serve --duration 4` sleeps 4 s and then stops its server; ingest has
+    # to connect and drain inside that window, and its first call builds
+    # the native store library, which under load can outlast it.  The serve
+    # thread's sleep waits instead for ingest to return (at most 120 s).
+    ingested = threading.Event()
+
+    class _Clock:
+        def __getattr__(self, name):
+            return getattr(time, name)
+
+        @staticmethod
+        def sleep(seconds):
+            if threading.current_thread() is served:
+                ingested.wait(120)
+            else:
+                time.sleep(seconds)
+
+    monkeypatch.setattr(cli, "time", _Clock())
     rcs = []
     served = threading.Thread(target=lambda: rcs.append(cli.main([
         "serve", "--trace", str(root / "s5.csv"), "--address", "127.0.0.1:0",
@@ -311,9 +329,12 @@ def test_serve_and_ingest_return_every_event(small_trace, tmp_path, monkeypatch)
     while not ports and time.monotonic() < deadline:
         time.sleep(0.02)
     assert ports, "the replay server did not start"
-    rc, out, _ = _run(cli.main, ["ingest", "--target", f"127.0.0.1:{ports[0]}",
-                                 "--store-dir", tmp_path / "store",
-                                 "--metrics-port", "0"])
+    try:
+        rc, out, _ = _run(cli.main, ["ingest", "--target", f"127.0.0.1:{ports[0]}",
+                                     "--store-dir", tmp_path / "store",
+                                     "--metrics-port", "0"])
+    finally:
+        ingested.set()
     served.join(30)
     assert not served.is_alive() and rcs == [0]
     assert rc == 0
