@@ -173,6 +173,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -4076,7 +4077,8 @@ PROBE_RECORD = os.path.join(ROOT, "benchmarks", "results", "stream_probe_cpu.jso
 # the attention kernels against the plain version, (B, T, H, D), causal,
 # dtype: the stream leg's and the probe's shapes (the leg's T in float32 too,
 # at the tight bound), a ragged T with two 16-wide heads (the tests'
-# config), and the other two head widths
+# config), the other two head widths, and ragged cases of bf16 at D = 64
+# and 128, the widths of the tensor-core route (kernels.attention_route)
 ATTENTION_CASES = (
     ((12, 4096, 1, 128), True, "bfloat16"),
     ((2, 4096, 1, 128), True, "float32"),
@@ -4090,7 +4092,87 @@ ATTENTION_CASES = (
     ((2, 777, 2, 32), False, "bfloat16"),
     ((3, 640, 2, 64), True, "float32"),
     ((3, 640, 2, 64), False, "bfloat16"),
+    # the tensor-core route's widths at a ragged T: past a 128-row tile, a
+    # 64-row box and the 128-key tile, and T below one tile
+    ((2, 1100, 2, 128), True, "bfloat16"),
+    ((3, 777, 2, 64), True, "bfloat16"),
+    ((2, 100, 1, 128), True, "bfloat16"),
 )
+
+
+# the tensor-core attention entries (kernels.ATTENTION_TMA_ENTRIES at
+# kernels.ATTENTION_TMA_HEAD_DIMS) must hold wgmma (HGMMA) and TMA loads
+# (UTMALDG) in their SASS
+SASS_REQUIRED = ("HGMMA", "UTMALDG")
+SASS_SYMBOL = {"attention_fwd": "attention_fwd_sm90",
+               "attention_bwd_dkdv": "attention_bwd_dkdv_sm90"}
+
+
+def _cuda_tool(name: str) -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which(name)
+    if found is None and CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", name)):
+        found = os.path.join(CUDA_HOME, "bin", name)
+    if found is None:
+        _fail(f"{name} not found")
+    return found
+
+
+def _ptxas_lines(log_path) -> dict:
+    """{mangled entry: its ptxas -v lines on registers, spills and shared
+    memory} from a library's build log."""
+    out, entry = {}, None
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            out[entry] = []
+        elif entry and any(w in line for w in ("registers", "spill", "smem")):
+            out[entry].append(line.split("info    :")[-1].strip())
+    return out
+
+
+def check_attention_sass() -> dict:
+    """The built flash_attention library read back: ``cuobjdump -sass``
+    counts each tensor-core entry's HGMMA (wgmma), UTMALDG (TMA load) and
+    UTMASTG (TMA store) instructions and fails if HGMMA or UTMALDG is 0;
+    beside them the entry's ``ptxas -v`` lines from the build log (fails on
+    a spill at D = 128) and the dynamic shared memory a launch asks for."""
+    from nerrf_tpu_torch.ops import kernels
+
+    lib = kernels.library_path("flash_attention")
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(SASS_REQUIRED + ("UTMASTG",), 0)
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += op in line
+    ptxas = _ptxas_lines(lib.with_suffix(".log"))
+    out = {}
+    for name in kernels.ATTENTION_TMA_ENTRIES:
+        for D in kernels.ATTENTION_TMA_HEAD_DIMS:
+            found = [f for f in counts if SASS_SYMBOL[name] in f and f"ILi{D}E" in f]
+            if len(found) != 1:
+                _fail(f"attention SASS: {len(found)} functions for {name} at D = {D}")
+            entry = found[0]
+            c = counts[entry]
+            if not all(c[op] for op in SASS_REQUIRED):
+                _fail(f"attention SASS: {name} at D = {D} has {c}")
+            lines = ptxas.get(entry, [])
+            spilled = sum(int(n) for line in lines
+                          for n in re.findall(r"(\d+) bytes spill", line))
+            if D == 128 and spilled:
+                _fail(f"attention SASS: {name} at D = 128 spills ({lines})")
+            out[f"{name} D={D}"] = {**c, "ptxas": lines,
+                                    "dynamic_shared_bytes": kernels.attention_smem(name, D)}
+    print("attention tensor-core entries (SASS instruction counts from cuobjdump -sass; "
+          "ptxas -v lines: registers a thread at launch, before setmaxnreg, and spills; "
+          "the dynamic shared memory of a launch): " + json.dumps(out))
+    return out
 
 
 def _attention_scales(q, k, v, do, causal):
@@ -4131,10 +4213,12 @@ def _attention_inputs(shape, dtype, seed):
 def check_attention() -> dict:
     """Each attention kernel against the plain version on the card
     (ATTENTION_CASES): O, and dQ, dK and dV against the plain version's
-    autograd, within TOL·(1 + Σ|terms|); two kernel runs bit-equal."""
+    autograd, within TOL·(1 + Σ|terms|); two kernel runs bit-equal.  Each
+    case's tag names the route of the forward, dQ and dK/dV ("wgmma": tensor
+    cores on TMA tiles, "fma": CUDA cores)."""
     import torch
 
-    from nerrf_tpu_torch.ops import attention, plain_ops
+    from nerrf_tpu_torch.ops import attention, kernels, plain_ops
 
     errors = {name: {} for name in attention.LAUNCHES}
     for i, (shape, causal, dtn) in enumerate(ATTENTION_CASES):
@@ -4153,7 +4237,9 @@ def check_attention() -> dict:
         with plain_ops():
             want = run()
         scales = _attention_scales(*qkv.detach().unbind(2), do, causal)
-        tag = f"{'x'.join(map(str, shape))}{' causal' if causal else ''} {dtn}"
+        route = "/".join(kernels.attention_route(name, qkv.dtype, shape[-1])
+                         for name in attention.LAUNCHES)
+        tag = f"{'x'.join(map(str, shape))}{' causal' if causal else ''} {dtn} [{route}]"
         errors["attention_fwd"][tag] = _close(f"attention_fwd {tag}", got[0], want[0],
                                               dtn, scales[0])
         errors["attention_bwd_dq"][tag] = _close(
@@ -4164,7 +4250,8 @@ def check_attention() -> dict:
                 dtn, scales[j + 1])
         del qkv, do, got, again, want, scales
         torch.cuda.empty_cache()
-    print("attention kernels vs plain version, max |Δ| by case: " + json.dumps(errors))
+    print("attention kernels vs plain version, max |Δ| by case [route of the forward/"
+          "dQ/dK-dV]: " + json.dumps(errors))
     return errors
 
 
@@ -4180,6 +4267,17 @@ def attention_work(B, T, H, D, causal, itemsize=2) -> dict:
     return {"attention_fwd": (2 * 2 * D * pairs, 3 * x + x + lse),
             "attention_bwd_dq": (3 * 2 * D * pairs, 5 * x + lse + x),
             "attention_bwd_dkdv": (4 * 2 * D * pairs, 5 * x + lse + 2 * x)}
+
+
+def _captured(read, fn, captures: int = 3):
+    """``read`` of a :func:`device_split` of ``fn`` (5 calls after 1), the
+    split taken again, up to ``captures`` in all, while it caught no device
+    event; None after that (not measured)."""
+    for _ in range(captures):
+        value = read(device_split(fn, iters=5, warmup=1))
+        if value is not None:
+            return value
+    return None
 
 
 def time_attention(shape, causal: bool = True) -> dict:
@@ -4202,7 +4300,7 @@ def time_attention(shape, causal: bool = True) -> dict:
     o = torch.empty(B, T, H, D, dtype=q.dtype, device="cuda")
     lse = torch.empty(B, H, T, dtype=torch.float32, device="cuda")
     dq, dk, dv = (torch.empty_like(o) for _ in range(3))
-    rows = dict(o=o, dout=do, lse=lse)
+    rows = dict(o=o, dout=do, lse=lse, delta=torch.empty_like(lse))
     kernel = {
         "attention_fwd": lambda: kernels.launch_attention(
             "attention_fwd", q, k, v, causal, scale, o, lse),
@@ -4211,6 +4309,7 @@ def time_attention(shape, causal: bool = True) -> dict:
         "attention_bwd_dkdv": lambda: kernels.launch_attention(
             "attention_bwd_dkdv", q, k, v, causal, scale, dk, dv, **rows)}
     kernel["attention_fwd"]()
+    kernel["attention_bwd_dq"]()  # Δ, which the tensor-core dK/dV reads
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     out_plain = attention.attention_dense(*leaves, causal)
     plain = {
@@ -4234,8 +4333,7 @@ def time_attention(shape, causal: bool = True) -> dict:
             t_ops, t_bytes = ops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             ms = cuda_ms(kernel[name], iters=10, warmup=2)
             out[name] = {
-                "ms": ms, "device_ms": port_kernel_ms(device_split(kernel[name], iters=5,
-                                                                   warmup=1)),
+                "ms": ms, "device_ms": _captured(port_kernel_ms, kernel[name]),
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "gflop": ops / 1e9, "tflops": ops / ms / 1e9,
@@ -4243,8 +4341,7 @@ def time_attention(shape, causal: bool = True) -> dict:
             with torch.enable_grad():
                 out[name]["plain_ms"] = cuda_ms(plain[name], iters=3, warmup=1)
                 out[name]["library_ms"] = cuda_ms(library[name], iters=10, warmup=2)
-                out[name]["library_device_ms"] = split_ms(
-                    device_split(library[name], iters=5, warmup=1))
+                out[name]["library_device_ms"] = _captured(split_ms, library[name])
     del out_plain, out_lib
     torch.cuda.empty_cache()
     return out
@@ -4614,11 +4711,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke runs on the card",
               file=sys.stderr)
         return 2
-    # --kernel-times ROOT (or --lstm-times ROOT): only the kernel times (or
-    # the LSTM tower's forward) of the package under ROOT (another tree of
-    # this repository), to hold two trees against each other in one call, in
-    # turns
-    mode = sys.argv[1] if sys.argv[1:2] in (["--kernel-times"], ["--lstm-times"]) else None
+    # --kernel-times ROOT (or --lstm-times ROOT, --stream-leg ROOT): only the
+    # kernel times (or the LSTM tower's forward, the stream leg) of the
+    # package under ROOT (another tree of this repository), to hold two trees
+    # against each other in one call, in turns
+    mode = sys.argv[1] if sys.argv[1:2] in (
+        ["--kernel-times"], ["--lstm-times"], ["--stream-leg"]) else None
     times_of = sys.argv[2] if mode else None
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.abspath(times_of) if times_of else here)
@@ -4634,8 +4732,25 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     if times_of:
-        times = kernel_times() if mode == "--kernel-times" else lstm_times()
+        if mode == "--stream-leg":
+            kernels.build()
+            leg = run_stream_leg()
+            times = {k: leg[k] for k in ("ms_per_step", "events_per_s", "busy", "steps",
+                                         "loss", "launches")}
+        else:
+            times = kernel_times() if mode == "--kernel-times" else lstm_times()
         print(json.dumps({"root": times_of, "card": smi, **times}))
+        return 0
+    if sys.argv[1:2] == ["--attention"]:
+        # only the attention kernels: the SASS gate, every case against the
+        # plain version, the times at the leg's and the probe's shapes
+        kernels.build()
+        sass = check_attention_sass()
+        check_attention()
+        timing = {tag: time_attention(shape) for tag, shape in (
+            ("leg", (STREAM_LEG_B, STREAM_LEG_LEN, 1, 128)),
+            ("probe", (PROBE_BATCH, PROBE_LEN, 1, 128)))}
+        print(json.dumps({"card": smi, "sass": sass, "timing": timing}))
         return 0
     if sys.argv[1:2] == ["--stream-probe"]:
         kernels.build()
@@ -4657,6 +4772,7 @@ def main() -> int:
                     if "entry function" in line or "registers" in line \
                             or "spill" in line:
                         print(f"ptxas {name}: {line.strip()}")
+        sass = check_attention_sass()
         errors = check_kernels()
         errors.update(check_banded_kernels())
         errors.update(gather_rows={}, gather_rows_sorted={})
@@ -4763,11 +4879,15 @@ def main() -> int:
     # the attention kernels on StreamNet's training step: launches from the
     # stream leg's run (step 0 and 50 steps), times at its shape
     # (12 x 4096 x 1 x 128, bf16, causal); the probe's launches and times
-    # (8 x 1024) beside them
+    # (8 x 1024) beside them; the core route at that shape, and for the
+    # tensor-core entries their SASS counts of wgmma and TMA instructions
     for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv"):
         leg_t, probe_t = stream["timing"]["leg"][name], stream["timing"]["probe"][name]
+        ops = sass.get(f"{name} D=128", {})
         line["kernels"].append({
             "name": name, "route": "cuda",
+            "core_route": kernels.attention_route(name, torch.bfloat16, 128),
+            **{f"sass_{op}": ops[op] for op in ("HGMMA", "UTMALDG", "UTMASTG") if op in ops},
             "source": "nerrf_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": "nerrf_tpu/parallel/ring.py:58",
             "path": "StreamNet training step (bench.py's stream leg)",

@@ -17,15 +17,23 @@ versions, as the sparse ops of :mod:`.segment` do:
   cast back.  It is what the kernels are held against, on the card inside
   ``ops.plain_ops()``.
 
-No fallback joins them.  The kernels keep P in float32 for P·V, as the
-plain version and the reference's T <= 1024 path do; the reference's
-blockwise path (T > 1024) rounds P to bfloat16 before P·V
-(``ring.py:109-111``), a difference the bfloat16 tolerance covers.
+No fallback joins them.  The kernels take one of two routes, fixed by the
+type and the head width (``kernels.attention_route``): bfloat16 at D = 64
+and 128 runs the forward and dK/dV on the tensor cores, which round P to
+bfloat16 before P·V (the denominator summed from the float32 P), as the
+reference's blockwise path (T > 1024) does (``ring.py:109-111``), and Pᵀ
+and dSᵀ before dV += Pᵀ·dO and dK += dSᵀ·Q; dQ, float32 at every width and
+bfloat16 at D = 16 and 32 keep P and dS in float32, as the plain version
+and the reference's T <= 1024 path do.  The bfloat16 tolerance covers the
+rounding (``tests/test_torch_stream.py`` emulates it).
 
 Layout: q, k and v may be strided views (StreamNet's are slices of one
 ``qkv`` projection) as long as they share their strides and D is
-contiguous; otherwise they are copied contiguous first.  O and the
-gradients come out contiguous.
+contiguous; otherwise they are copied contiguous first.  On the
+tensor-core route they are read by TMA, which takes 16-byte-aligned bases
+and strides that are multiples of 16 bytes (StreamNet's views are):
+``kernels.launch_attention`` raises on others.  O and the gradients come
+out contiguous.
 """
 
 from __future__ import annotations
@@ -105,7 +113,10 @@ class CausalAttention(torch.autograd.Function):
         do = do.to(o.dtype).contiguous()
         dq, dk, dv = (torch.empty_like(o) for _ in range(3))
         if o.numel():
-            rows = dict(o=o, dout=do, lse=lse)
+            # rowsum(dO∘O), written by attention_bwd_dq, read by the
+            # tensor-core attention_bwd_dkdv
+            delta = torch.empty_like(lse)
+            rows = dict(o=o, dout=do, lse=lse, delta=delta)
             _launch("attention_bwd_dq", q, k, v, ctx.causal, ctx.scale, dq, **rows)
             _launch("attention_bwd_dkdv", q, k, v, ctx.causal, ctx.scale, dk, dv,
                     **rows)

@@ -43,7 +43,8 @@ SOURCE_FLAGS = {"mcts_search": ("-fmad=false",)}
 # C entry points that live in another source's library: {entry: library}
 ENTRY_LIBRARY = {"mcts_value": "mcts_search", "attention_fwd": "flash_attention",
                  "attention_bwd_dq": "flash_attention",
-                 "attention_bwd_dkdv": "flash_attention"}
+                 "attention_bwd_dkdv": "flash_attention",
+                 "attention_smem": "flash_attention"}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
@@ -68,13 +69,15 @@ _ARGTYPES = {
     "mcts_value": [_P, _P, _P, _I, _I, _P, _P],
     # q, k, v, dtype, sb, st, sh, B, T, H, D, causal, scale, o, lse, stream
     "attention_fwd": [_P, _P, _P, _I, _L, _L, _L, _I, _I, _I, _I, _I, _F, _P, _P, _P],
-    # q, k, v, dtype, sb, st, sh, o, dout, lse, B, T, H, D, causal, scale, dq,
-    # stream
-    "attention_bwd_dq": [_P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _F, _P, _P],
+    # q, k, v, dtype, sb, st, sh, o, dout, lse, delta, B, T, H, D, causal,
+    # scale, dq, stream
+    "attention_bwd_dq": [_P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _F, _P, _P],
     # ... as attention_bwd_dq, then dk, dv, stream
-    "attention_bwd_dkdv": [_P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _F, _P, _P, _P],
+    "attention_bwd_dkdv": [_P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _F, _P, _P, _P],
+    # entry (0 forward, 2 dK/dV), D (no stream)
+    "attention_smem": [_I, _I],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # rows per chunk of the chunked reductions (kChunkRows, csrc/segment_chunks.cuh)
@@ -262,21 +265,59 @@ def launch_segment_sum(name: str, data, plan, out) -> None:
 
 # head widths the attention kernels are instantiated for (csrc/flash_attention.cu)
 ATTENTION_HEAD_DIMS = (16, 32, 64, 128)
+# the entries and head widths of bf16 attention on the tensor cores (wgmma on
+# TMA tiles); every other (type, width), and attention_bwd_dq, on the CUDA cores
+ATTENTION_TMA_ENTRIES = ("attention_fwd", "attention_bwd_dkdv")
+ATTENTION_TMA_HEAD_DIMS = (64, 128)
+
+
+def attention_route(name: str, dtype: torch.dtype, D: int) -> str:
+    """"wgmma" (tensor cores, TMA tiles) or "fma" (CUDA cores): the route
+    ``csrc/flash_attention.cu`` takes for entry ``name``, from the type and
+    the head width alone."""
+    tma = (name in ATTENTION_TMA_ENTRIES and dtype == torch.bfloat16
+           and D in ATTENTION_TMA_HEAD_DIMS)
+    return "wgmma" if tma else "fma"
+
+
+def check_tma_operands(name: str, *tensors) -> None:
+    """Raise unless TMA can take every operand: a base aligned to 16 bytes
+    and the strides of T, H and B multiples of 16 bytes (D's is 1)."""
+    for t in tensors:
+        strides = [s * t.element_size() for s in t.stride()[:3]]
+        if t.data_ptr() % 16 or any(s % 16 for s in strides):
+            raise ValueError(f"{name}: an operand at byte offset {t.data_ptr() % 16} "
+                             f"mod 16 with byte strides {strides}; the tensor-core "
+                             "route loads by TMA, which takes 16-byte-aligned bases "
+                             "and strides that are multiples of 16 bytes")
+
+
+def attention_smem(name: str, D: int) -> int:
+    """Bytes of dynamic shared memory a launch of the tensor-core entry
+    ``name`` (attention_fwd or attention_bwd_dkdv) asks for at head width
+    ``D``."""
+    return _fn("attention_smem")({"attention_fwd": 0, "attention_bwd_dkdv": 2}[name], D)
 
 
 def launch_attention(name: str, q, k, v, causal: bool, scale: float, *outs,
-                     o=None, dout=None, lse=None) -> None:
-    """``attention_fwd`` (outs: o, lse), ``attention_bwd_dq`` (outs: dq) or
-    ``attention_bwd_dkdv`` (outs: dk, dv) over q, k, v [B, T, H, D] of one
-    layout (any strides, D's 1); o, dout, the gradients contiguous [B, T, H,
-    D], lse [B, H, T] float32."""
+                     o=None, dout=None, lse=None, delta=None) -> None:
+    """``attention_fwd`` (outs: o, lse), ``attention_bwd_dq`` (outs: dq; it
+    also writes ``delta``, rowsum(dout∘o)) or ``attention_bwd_dkdv`` (outs:
+    dk, dv; the tensor-core route reads ``delta``) over q, k, v [B, T, H, D]
+    of one layout (any strides, D's 1); o, dout, the gradients contiguous
+    [B, T, H, D], lse and delta [B, H, T] float32."""
     B, T, H, D = q.shape
     if D not in ATTENTION_HEAD_DIMS:
         raise ValueError(f"{name}: head width {D}; the kernel takes {ATTENTION_HEAD_DIMS}")
     if B * H > 65535:
         raise ValueError(f"{name}: {B} x {H} heads; the kernel takes at most 65535")
+    if attention_route(name, q.dtype, D) == "wgmma":
+        # the bf16 tiles: q, k, v and O, or q, k, v, dO, dK and dV
+        tiles = (outs[0],) if name == "attention_fwd" else (dout, *outs)
+        check_tma_operands(name, q, k, v, *tiles)
     sb, st, sh, _ = q.stride()
-    rows = () if name == "attention_fwd" else (o.data_ptr(), dout.data_ptr(), lse.data_ptr())
+    rows = () if name == "attention_fwd" else (
+        o.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
     _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), dtype_code(q),
             sb, st, sh, *rows, B, T, H, D, int(causal), scale,
             *(t.data_ptr() for t in outs))

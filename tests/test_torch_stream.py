@@ -167,6 +167,111 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take():
     assert ring_self_attention(q, q, q, MeshConfig(dp=1, sp=1)).shape == q.shape
 
 
+# chip_smoke.py's bfloat16 bound on the card, kernels against the plain
+# version: |Δ| ≤ 2⁻⁷·(1 + Σ|terms|) element by element
+BF16_TOL = 2.0 ** -7
+
+
+def _tensor_core_route(q, k, v, do, causal):
+    """The arithmetic of ``flash_attention.cu``'s tensor-core route (bf16 at
+    D = 64, 128) in float32 on bf16 values: O from P rounded to bf16 before
+    P·V and the denominator from the float32 P; the backward from the
+    forward's log-sum-exp and Δ = rowsum(dO∘O) of the bf16 O, dV and dK from
+    Pᵀ and dSᵀ rounded to bf16, dQ (the CUDA-core kernel) from the float32
+    dS.  Returns O, dQ, dK, dV in bf16."""
+    rnd = lambda x: x.bfloat16().float()
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if causal:
+        s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool).tril(), -torch.inf)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp((s - m) * scale)
+    l = p.sum(-1, keepdim=True)
+    o = rnd(torch.einsum("bhqk,bkhd->bqhd", rnd(p), v) / l.permute(0, 2, 1, 3))
+    lse = m * scale + torch.log(l)
+    p = torch.exp(s * scale - lse)
+    delta = (do * o).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v) - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", rnd(ds), q) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", rnd(p), do)
+    return [x.bfloat16() for x in (o, dq, dk, dv)]
+
+
+def _term_scales(q, k, v, do, causal):
+    """Σ|terms| of each element of O, dQ, dK and dV, as chip_smoke.py's
+    ``_attention_scales`` forms them: P·|V|; scale·A·|K| and scale·Aᵀ·|Q|
+    with A = P∘(|dO|·|V|ᵀ + |Δ|); Pᵀ·|dO|."""
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool).tril(), -1e30)
+    p = torch.softmax(s, dim=-1)
+    delta = (do * torch.einsum("bhqk,bkhd->bqhd", p, v)).sum(-1)
+    a = p * (torch.einsum("bqhd,bkhd->bhqk", do.abs(), v.abs())
+             + delta.abs().permute(0, 2, 1)[..., None])
+    return (torch.einsum("bhqk,bkhd->bqhd", p, v.abs()),
+            scale * torch.einsum("bhqk,bkhd->bqhd", a, k.abs()),
+            scale * torch.einsum("bhqk,bqhd->bkhd", a, q.abs()),
+            torch.einsum("bhqk,bqhd->bkhd", p, do.abs()))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_rounding_meets_the_bf16_bound(causal, d):
+    """The tensor-core route's roundings, emulated, against the reference's
+    ``_attention_local`` on bf16 inputs at T = 1100 (its blockwise path,
+    which rounds P to bf16 itself) and against ``attention_dense``, O and
+    the three gradients, within chip_smoke.py's bf16 bound."""
+    r = np.random.default_rng(1100 + d + causal)
+    q, k, v, do = (r.normal(size=(1, 1100, 2, d)).astype(jnp.bfloat16) for _ in range(4))
+    tq, tk, tv, tdo = (torch.from_numpy(np.asarray(x, np.float32)).bfloat16()
+                       for x in (q, k, v, do))
+    got = _tensor_core_route(tq, tk, tv, tdo, causal)
+    jo, vjp = jax.vjp(lambda a, b, c: j_attention_local(a, b, c, causal),
+                      *map(jnp.asarray, (q, k, v)))
+    ref = [jo, *vjp(jnp.asarray(do))]
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    dense = attention.attention_dense(*leaves, causal)
+    dense.backward(tdo)
+    scales = _term_scales(tq, tk, tv, tdo, causal)
+    for want_of, wants in (("_attention_local", [torch.from_numpy(np.asarray(x, np.float32))
+                                                 for x in ref]),
+                           ("attention_dense", [dense.detach()] + [x.grad for x in leaves])):
+        for part, g, w, sc in zip(("O", "dQ", "dK", "dV"), got, wants, scales):
+            excess = (g.float() - w.float()).abs() - BF16_TOL * (1 + sc)
+            assert float(excess.max()) <= 0, \
+                f"{part} vs {want_of}: past the bound by {float(excess.max())}"
+
+
+@pytest.mark.parametrize("case", ["stride", "base", "float32", "streamnet"])
+def test_tensor_core_route_checks_the_tma_rules(case):
+    """bf16 at D = 128 goes through TMA: a stride off 16 bytes or a base off
+    16-byte alignment is refused before any launch; StreamNet's q, k, v
+    (views of one qkv projection) are taken; float32 takes the CUDA cores."""
+    B, T, dim = 2, 100, 128
+    qkv = torch.zeros(B, T, 3 * dim, dtype=torch.bfloat16)
+    q, k, v = (x.reshape(B, T, 1, dim) for x in qkv.split(dim, dim=-1))
+    out = torch.empty_like(q)
+    assert kernels.attention_route("attention_fwd", q.dtype, dim) == "wgmma"
+    assert kernels.attention_route("attention_bwd_dq", q.dtype, dim) == "fma"
+    if case == "streamnet":
+        kernels.check_tma_operands("attention_fwd", q, k, v, out)
+        return
+    if case == "stride":   # rows of 132 elements: 264 bytes
+        q = torch.zeros(B, T, 1, dim + 4, dtype=torch.bfloat16)[..., :dim]
+    elif case == "base":   # one element in: 2 bytes off
+        q = torch.zeros(B * T * dim + 1, dtype=torch.bfloat16)[1:].view(B, T, 1, dim)
+    else:   # the CUDA-core route, which takes any stride
+        assert kernels.attention_route("attention_fwd", torch.float32, dim) == "fma"
+        return
+    with pytest.raises(ValueError, match="TMA"):
+        kernels.launch_attention("attention_fwd", q, q, q, True, 1.0, out,
+                                 torch.empty(B, 1, T))
+
+
 @pytest.fixture(scope="module")
 def stream_inputs():
     tr, _ = _sim(11)
