@@ -152,7 +152,8 @@ event AUC >= 0.90, the stream checkpoint reloaded bit-equal).
 
 Prints the card's name and power limit, one JSON line with each kernel's
 launches (and its launches per serve batch and per experiment run), error,
-times (ms, host_us, device_ms, library_ms, library_device_ms) and bound,
+times (ms, host_us, device_ms, library_ms, library_device_ms; the device
+times from profiler traces that caught every launch, else null) and bound,
 the detection rate, the serve rate, latency and warmup times, the training
 rate and its breakdown, the experiment's steps/s, time split, held-out
 metrics, calibration and gates, the card's busy share from profiler
@@ -279,12 +280,27 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_split(fn, iters: int = 20, warmup: int = 3) -> dict:
+class Split(dict):
+    """A :func:`device_split`: {kernel name: device ms per call, or None
+    where the trace lost launches}; ``lost``: {kernel name (or prefix):
+    {"captured": n, "expected": m}} for the kernels it caught short."""
+
+    lost: dict
+
+
+def device_split(fn, iters: int = 20, warmup: int = 3, launches=None) -> Split:
     """Device time of one ``fn()`` call by kernel, from a ``torch.profiler``
     trace of ``iters`` calls after ``warmup``: {kernel name: ms per call},
-    the card's own events only (not the host-side operators); {} when no
-    trace caught a device event (not measured: :func:`split_ms` and
-    :func:`port_kernel_ms` give None for it)."""
+    the card's own events only (not the host-side operators).  Each kernel's
+    captured launches (``key_averages()``'s ``count``) are held against
+    those the calls make: ``iters`` × n for the kernels whose names start
+    with a prefix of ``launches`` ({prefix: n a call}, their counts summed),
+    else a whole multiple of ``iters`` (the next one up expected).  A trace
+    that caught no device event or lost launches is taken again, up to 5
+    in all; after the last, a kernel caught short reads None, with its
+    counts in ``.lost``: never a low number.  {} when no trace caught a
+    device event (not measured: :func:`split_ms` and :func:`port_kernel_ms`
+    give None for it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -293,35 +309,51 @@ def device_split(fn, iters: int = 20, warmup: int = 3) -> dict:
     _sync()
     self_us = lambda e: getattr(e, "self_device_time_total",
                                 getattr(e, "self_cuda_time_total", 0.0))
-    split = {}
-    for _ in range(5):  # a trace that caught no device event is taken again
+    launches = launches or {}
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             _sync()
+        us, counts = {}, {}
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA and self_us(e) > 0 \
                     and not getattr(e, "is_user_annotation", False):
                 name = e.key.replace("(anonymous namespace)::", "")
                 name = name.removeprefix("void ").split("<")[0].split("(")[0]
                 name = ("nerrf::" if "nerrf::" in e.key else "") + name.split("::")[-1][:48]
-                split[name] = split.get(name, 0.0) + self_us(e) / 1e3 / iters
-        if split:
+                us[name] = us.get(name, 0.0) + self_us(e)
+                counts[name] = counts.get(name, 0) + e.count
+        lost = {}
+        for prefix, n in launches.items():
+            names = [k for k in counts if k.startswith(prefix)]
+            got = sum(counts[k] for k in names)
+            if got != iters * n:
+                lost.update({k: {"captured": got, "expected": iters * n}
+                             for k in names or [prefix]})
+        for k, c in counts.items():
+            if c % iters and not any(k.startswith(p) for p in launches):
+                lost[k] = {"captured": c, "expected": -(-c // iters) * iters}
+        if us and not lost:
             break
+    split = Split({k: None if k in lost else v / 1e3 / iters for k, v in us.items()})
+    split.lost = lost
     return split
 
 
-def split_ms(split: dict):
+def split_ms(split: Split):
     """All the kernels' time of a :func:`device_split`, None if it caught
-    none (a failed measurement, never 0)."""
-    return sum(split.values()) if split else None
+    none or lost launches (a failed measurement, never 0 or a low number)."""
+    return sum(split.values()) if split and not split.lost else None
 
 
-def port_kernel_ms(split: dict):
+def port_kernel_ms(split: Split):
     """The port's own kernels' share of a :func:`device_split`, None if it
-    caught none of them."""
+    caught none of them or lost launches of one."""
     ours = [v for k, v in split.items() if k.startswith("nerrf::")]
-    return sum(ours) if ours else None
+    if not ours or any(k.startswith("nerrf::") for k in split.lost):
+        return None
+    return sum(ours)
 
 
 def host_us(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -2949,7 +2981,8 @@ def run_planner_cell(bench, net) -> dict:
         run_chunks(dm.init_tree(), dm._ctx, dm._weights, cfg, time.perf_counter())
 
     search_ms = cuda_ms(search, iters=10, warmup=2)
-    split = device_split(dm.plan, iters=5, warmup=1)
+    split = device_split(dm.plan, iters=5, warmup=1,
+                         launches={"nerrf::mcts_search_kernel": launches})
     device_plan_ms = split.get("nerrf::mcts_search_kernel")
     tree = _search_tree(dm)
     n, A, D = int(tree.n_nodes[0]), dm._dims["A"], dm._dims["D"]
@@ -4105,6 +4138,7 @@ ATTENTION_CASES = (
 # (UTMALDG) in their SASS
 SASS_REQUIRED = ("HGMMA", "UTMALDG")
 SASS_SYMBOL = {"attention_fwd": "attention_fwd_sm90",
+               "attention_bwd_dq": "attention_bwd_dq_sm90",
                "attention_bwd_dkdv": "attention_bwd_dkdv_sm90"}
 
 
@@ -4269,25 +4303,16 @@ def attention_work(B, T, H, D, causal, itemsize=2) -> dict:
             "attention_bwd_dkdv": (4 * 2 * D * pairs, 5 * x + lse + 2 * x)}
 
 
-def _captured(read, fn, captures: int = 3):
-    """``read`` of a :func:`device_split` of ``fn`` (5 calls after 1), the
-    split taken again, up to ``captures`` in all, while it caught no device
-    event; None after that (not measured)."""
-    for _ in range(captures):
-        value = read(device_split(fn, iters=5, warmup=1))
-        if value is not None:
-            return value
-    return None
-
-
 def time_attention(shape, causal: bool = True) -> dict:
     """Each entry point at ``shape`` in bf16, causal: ms a call (CUDA events)
-    and device ms a launch (profiler), beside the plain version's autograd
-    for the same outputs, the library's attention
-    (``scaled_dot_product_attention``: its forward for attention_fwd, its
-    whole backward, dQ, dK and dV together, for the two backward entry
-    points; never called by the port) and the bound (the larger of the
-    operations over the bf16 tensor-core peak and the bytes over HBM)."""
+    and device ms a launch (profiler, 5 calls after 1, each call one launch
+    of the port's kernel; null where every trace lost launches, the counts
+    in ``device_lost``), beside the plain version's autograd for the same
+    outputs, the library's attention (``scaled_dot_product_attention``: its
+    forward for attention_fwd, its whole backward, dQ, dK and dV together,
+    for the two backward entry points; never called by the port) and the
+    bound (the larger of the operations over the bf16 tensor-core peak and
+    the bytes over HBM)."""
     import torch
     import torch.nn.functional as F
 
@@ -4332,8 +4357,9 @@ def time_attention(shape, causal: bool = True) -> dict:
             ops, nbytes = work[name]
             t_ops, t_bytes = ops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             ms = cuda_ms(kernel[name], iters=10, warmup=2)
+            split = device_split(kernel[name], iters=5, warmup=1, launches={"nerrf::": 1})
             out[name] = {
-                "ms": ms, "device_ms": _captured(port_kernel_ms, kernel[name]),
+                "ms": ms, "device_ms": port_kernel_ms(split), "device_lost": split.lost,
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "gflop": ops / 1e9, "tflops": ops / ms / 1e9,
@@ -4341,7 +4367,9 @@ def time_attention(shape, causal: bool = True) -> dict:
             with torch.enable_grad():
                 out[name]["plain_ms"] = cuda_ms(plain[name], iters=3, warmup=1)
                 out[name]["library_ms"] = cuda_ms(library[name], iters=10, warmup=2)
-                out[name]["library_device_ms"] = _captured(split_ms, library[name])
+                split = device_split(library[name], iters=5, warmup=1)
+                out[name]["library_device_ms"] = split_ms(split)
+                out[name]["library_device_lost"] = split.lost
     del out_plain, out_lib
     torch.cuda.empty_cache()
     return out
@@ -4895,7 +4923,7 @@ def main() -> int:
             "max_abs_err": max(errors[name].values()),
             **{k: leg_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "library_device_ms", "device_ms",
-                                     "tflops")},
+                                     "device_lost", "tflops")},
             "probe_launches": stream["probe"]["launches"][name],
             "probe_ms": probe_t["ms"], "probe_device_ms": probe_t["device_ms"],
             "probe_bound_ms": probe_t["bound_ms"],

@@ -19,10 +19,13 @@ versions, as the sparse ops of :mod:`.segment` do:
 
 No fallback joins them.  The kernels take one of two routes, fixed by the
 type and the head width (``kernels.attention_route``): bfloat16 at D = 64
-and 128 runs the forward and dK/dV on the tensor cores, which round P to
+and 128 runs all three entries on the tensor cores, which round P to
 bfloat16 before P·V (the denominator summed from the float32 P), as the
 reference's blockwise path (T > 1024) does (``ring.py:109-111``), and Pᵀ
-and dSᵀ before dV += Pᵀ·dO and dK += dSᵀ·Q; dQ, float32 at every width and
+and dSᵀ before dV += Pᵀ·dO and dK += dSᵀ·Q; dQ += dS·K takes dS as two
+bfloat16 parts, hi + lo (about 16 bits: with dS rounded once to bfloat16
+the stream probe's held-out AUC fell below its gate at one init seed of
+eight, PERF.md); float32 at every width and
 bfloat16 at D = 16 and 32 keep P and dS in float32, as the plain version
 and the reference's T <= 1024 path do.  The bfloat16 tolerance covers the
 rounding (``tests/test_torch_stream.py`` emulates it).
@@ -113,8 +116,8 @@ class CausalAttention(torch.autograd.Function):
         do = do.to(o.dtype).contiguous()
         dq, dk, dv = (torch.empty_like(o) for _ in range(3))
         if o.numel():
-            # rowsum(dO∘O), written by attention_bwd_dq, read by the
-            # tensor-core attention_bwd_dkdv
+            # rowsum(dO∘O), written by the tensor-core attention_bwd_dq,
+            # read by the tensor-core attention_bwd_dkdv
             delta = torch.empty_like(lse)
             rows = dict(o=o, dout=do, lse=lse, delta=delta)
             _launch("attention_bwd_dq", q, k, v, ctx.causal, ctx.scale, dq, **rows)

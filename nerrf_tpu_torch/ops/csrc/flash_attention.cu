@@ -14,29 +14,31 @@
 //
 // Two routes, chosen in launch() from the type and D alone (no probe, no
 // fallback: a failed launch returns its error):
-//  * bf16 at D = 64 and 128 (StreamNet's D is 128): attention_fwd and
-//    attention_bwd_dkdv on the tensor cores (namespace hop below).  TMA
-//    loads bf16 tiles, 128-byte swizzled, into shared memory; wgmma
-//    (m64nNk16, f32 accumulators) reads them there.  A block is a producer
-//    warpgroup (one thread, or in dK/dV one warp, issues the loads into a
-//    ring of kStages stages, each with a "full" and an "empty" mbarrier; it
-//    gives its registers up with setmaxnreg) and two consumer warpgroups of
-//    64 rows.  Forward: query tiles of 128, key tiles of 128; S = Q·Kᵀ with
-//    both operands from shared memory; the online softmax in registers, the
-//    row max and sum across the four threads of an accumulator row; P
-//    rounded to bf16 in registers and fed as wgmma's A operand for O += P·V
-//    (the reference's blockwise path rounds it too, ring.py:110), the
-//    denominator summed from the f32 P.  dK/dV: key tiles of 128, query tiles
-//    of 64 streamed from the diagonal on with their log-sum-exp and Δ =
-//    rowsum(dO∘O), which attention_bwd_dq writes once per row; Sᵀ = K·Qᵀ and
-//    dPᵀ = V·dOᵀ from shared memory, Pᵀ and dSᵀ = Pᵀ∘(dPᵀ - Δ) in f32, rounded
-//    to bf16 as the A operand of dV += Pᵀ·dO and dK += dSᵀ·Q.  O, dK and dV
-//    leave through shared memory by TMA stores, which clip rows past T.
-//  * float32 at every D, bf16 at D = 16 and 32, and attention_bwd_dq at
-//    every type: the CUDA-core kernels below, f32 FMAs for both products
-//    (every score, probability and sum f32), so the float32 parity checks
-//    hold at 1e-5·(1 + Σ|terms|), which neither bf16 nor TF32 products can
-//    meet.
+//  * bf16 at D = 64 and 128 (StreamNet's D is 128): all three entries on the
+//    tensor cores (namespace hop below).  TMA loads bf16 tiles, 128-byte
+//    swizzled, into shared memory; wgmma (m64nNk16, f32 accumulators) reads
+//    them there.  A block is a producer warpgroup (one thread, or in dK/dV
+//    one warp, issues the loads into a ring of stages, each with a "full"
+//    and an "empty" mbarrier; it gives its registers up with setmaxnreg) and
+//    two consumer warpgroups of 64 rows.  Forward: query tiles of 128, key
+//    tiles of 128; S = Q·Kᵀ with both operands from shared memory; the
+//    online softmax in registers, the row max and sum across the four
+//    threads of an accumulator row; P rounded to bf16 in registers and fed
+//    as wgmma's A operand for O += P·V (the reference's blockwise path rounds
+//    it too, ring.py:110), the denominator summed from the f32 P.  dQ: query
+//    tiles of 128, key tiles of 64; first Δ = rowsum(dO∘O) of each row,
+//    written once for dK/dV; then S = Q·Kᵀ and dP = dO·Vᵀ from shared memory,
+//    dS = P∘(dP - Δ) in f32, split into two bf16 parts, hi + lo, each the A
+//    operand of one product of dQ += dS·K.
+//    dK/dV: key tiles of 128, query tiles of 64 streamed from the diagonal on
+//    with their log-sum-exp and Δ; Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ from shared
+//    memory, Pᵀ and dSᵀ = Pᵀ∘(dPᵀ - Δ) in f32, rounded to bf16 as the A
+//    operand of dV += Pᵀ·dO and dK += dSᵀ·Q.  O, dQ, dK and dV leave through
+//    shared memory by TMA stores, which clip rows past T.
+//  * float32 at every D and bf16 at D = 16 and 32: the CUDA-core kernels
+//    below, f32 FMAs for both products (every score, probability and sum
+//    f32), so the float32 parity checks hold at 1e-5·(1 + Σ|terms|), which
+//    neither bf16 nor TF32 products can meet.
 // The CUDA-core design:
 //  * tiles of 64 queries by 64 keys, 256 threads as 16 x 16; a thread owns
 //    4 x 4 scores (rows ty + 16i, columns tx + 16j) and 4 rows of D / 16
@@ -51,8 +53,7 @@
 //    longest rows first;
 //  * backward: dS = P o (dP - rowsum(dO o O)), P recomputed as
 //    exp(scale·q·k - lse).  attention_bwd_dq: one block a query tile, over
-//    the key tiles it sees, dQ += dS·K·scale; it also writes the tile's
-//    rowsum(dO o O) (Δ) for the tensor-core dK/dV.  attention_bwd_dkdv: one
+//    the key tiles it sees, dQ += dS·K·scale.  attention_bwd_dkdv: one
 //    block a key tile, over the query tiles that see it, dV += Pᵀ·dO and
 //    dK += dSᵀ·Q·scale.
 // Each output element has one writer and every sum a fixed order on both
@@ -247,7 +248,7 @@ attention_bwd_dq_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
                         const Elem* __restrict__ v, Layout in, const Elem* __restrict__ o,
                         const Elem* __restrict__ dout, Layout ol,
                         const float* __restrict__ lse, int T, int H, int causal,
-                        float scale, Elem* __restrict__ dq, float* __restrict__ delta) {
+                        float scale, Elem* __restrict__ dq) {
   extern __shared__ float smem[];
   constexpr int C = D / kSide;
   float* sQ = smem;
@@ -266,9 +267,6 @@ attention_bwd_dq_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
   load_tile<Elem, D>(sQ, q, base, in.st, q0, T);
   load_tile<Elem, D>(sdO, dout, ol.base(b, h), ol.st, q0, T);
   load_row_terms<Elem, D>(sDelta, sLse, o, dout, ol, b, h, H, lse, q0, T);
-  __syncthreads();
-  if (threadIdx.x < kTile && q0 + threadIdx.x < T)
-    delta[((long long)b * H + h) * T + q0 + threadIdx.x] = sDelta[threadIdx.x];
 
   float acc[kRows][C] = {};
   const int nk = causal ? qt + 1 : nq;
@@ -376,10 +374,10 @@ attention_bwd_dkdv_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k
 //
 // Tiles live in shared memory as TMA writes them: slabs of 64 bf16 columns
 // (128 bytes a row, 128-byte swizzle), one slab per 64 columns of D, rows
-// in boxes of kBox.  A block is one producer warpgroup (in the forward one
-// thread, in dK/dV the first warp, does the loading; it gives its registers
-// to the consumers) and two consumer warpgroups, each the owner of 64 rows
-// of the block's tile.
+// in boxes of kBox.  A block is one producer warpgroup (in the forward and
+// dQ one thread, in dK/dV the first warp, does the loading; it gives its
+// registers to the consumers) and two consumer warpgroups, each the owner
+// of 64 rows of the block's tile.
 namespace hop {
 
 using namespace nerrf::sm90;
@@ -732,6 +730,183 @@ attention_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap mq,
   store_rows<D>(dv, fv, va, kSlab, &mdv, kw, h, b, 1 + cw);
 }
 
+constexpr int kDqStages = 4;  // dQ's ring: its key tiles are half the forward's
+
+// dQ: one block a (query tile of 128 rows, b, h), the longest causal rows
+// first, over the key tiles of 64 it sees.  The producer loads Q and dO
+// once, then K and V tiles into a ring of kDqStages.  Each consumer
+// warpgroup (64 rows) first takes its rows' Δ = rowsum(dO∘O) from O and dO
+// in device memory (each row summed by the four threads that hold it, in a
+// fixed order) and writes it once for attention_bwd_dkdv, beside its rows'
+// log-sum-exp (times log2 e; +inf past T); then, each key tile, S = Q·Kᵀ and
+// dP = dO·Vᵀ (m64n64k16 from shared memory, both K-major), P = exp(scale·S
+// - lse) and dS = P∘(dP - Δ) in registers, and dQ += dS·K with dS as a pair
+// of bf16 parts, hi + lo, each the register A operand of one product, and K,
+// the same tile, MN-major.  dQ·scale leaves through the warpgroup's rows of
+// Q's tile by a TMA store.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      const __grid_constant__ CUtensorMap mdo,
+                      const __grid_constant__ CUtensorMap mdq, const __nv_bfloat16* __restrict__ o,
+                      const __nv_bfloat16* __restrict__ dout, Layout ol,
+                      const float* __restrict__ lse, float* __restrict__ delta, int T, int H,
+                      int causal, float scale) {
+  constexpr int kTile = 2 * kBoxBytes * (D / 64);  // 128 rows, every slab
+  constexpr int kSlab = 2 * kBoxBytes;
+  constexpr int kKV = kBoxBytes * (D / 64);        // 64 keys, every slab
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t stages = sQ + 2 * kTile;  // dO after Q; stage s: K, then V
+  const uint32_t bars = stages + kDqStages * 2 * kKV;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kDqStages + s); };
+
+  const int nq = (T + 127) / 128, nkt = (T + kBox - 1) / kBox;
+  const int qt = nq - 1 - blockIdx.x;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const long long bh = (long long)b * H + h;
+  const int q0 = qt * 128;
+  const int nk = causal ? min(2 * qt + 2, nkt) : nkt;  // no key tile wholly past T
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    regs_shrink<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect(q_full, 2 * kTile);
+      load_rows<D>(&mq, sQ, q_full, 2, q0, h, b);
+      load_rows<D>(&mdo, sQ + kTile, q_full, 2, q0, h, b);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kDqStages;
+        const uint32_t sK = stages + 2 * s * kKV;
+        mbar_wait(empty(s), ((kt / kDqStages) & 1) ^ 1);
+        mbar_arrive_expect(full(s), 2 * kKV);
+        load_rows<D>(&mk, sK, full(s), 1, kt * kBox, h, b);
+        load_rows<D>(&mv, sK + kKV, full(s), 1, kt * kBox, h, b);
+      }
+    }
+    return;
+  }
+  regs_grow<kConsumerRegs>();
+  const int cw = wg - 1;  // rows [q0 + 64·cw, +64) of the tile
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int row0 = q0 + 64 * cw + 16 * warp + lane / 4;  // element rows row0, row0 + 8
+  const float c = scale * kLog2e;
+  const uint32_t qa = sQ + cw * kBoxBytes;  // the warpgroup's rows of Q; of dO kTile on
+  float dl[2], lse2[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = row0 + 8 * e;
+    float acc = 0.f;
+    if (row < T) {
+      const long long at = ol.base(b, h) + row * ol.st;
+      const uint4* ro = reinterpret_cast<const uint4*>(o + at);
+      const uint4* rd = reinterpret_cast<const uint4*>(dout + at);
+#pragma unroll
+      for (int j = lane % 4; j < D / 8; j += 4) {  // 16-byte chunks of 8 elements
+        const uint4 x = ro[j], y = rd[j];
+        const __nv_bfloat162* xo = reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* xd = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const float2 fo = __bfloat1622float2(xo[m]), fd = __bfloat1622float2(xd[m]);
+          acc = fmaf(fd.x, fo.x, acc);
+          acc = fmaf(fd.y, fo.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(kFullMask, acc, 1);
+    acc += __shfl_xor_sync(kFullMask, acc, 2);
+    dl[e] = acc;
+    lse2[e] = row < T ? lse[bh * T + row] * kLog2e : INFINITY;
+    if (lane % 4 == 0 && row < T) delta[bh * T + row] = acc;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(q_full, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kDqStages;
+    const uint32_t sK = stages + 2 * s * kKV, sV = sK + kKV;
+    mbar_wait(full(s), (kt / kDqStages) & 1);
+    if (!causal || kt <= 2 * qt + cw) {  // else every key of the tile follows every row
+      // Q's and dO's descriptors are the same every tile: made anew from an
+      // opaque copy of the address, so that the compiler does not keep all
+      // 2·D/16 of them in registers across the loop beside dQ
+      uint32_t qda = qa;
+      asm volatile("" : "+r"(qda));
+      float sc[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t offq = (kk / 4) * kSlab + (kk % 4) * 32;
+        const uint32_t offk = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss(sc, desc_sw128(qda + offq, 0, 1024), desc_sw128(sK + offk, 0, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t offq = kTile + (kk / 4) * kSlab + (kk % 4) * 32;  // dO after Q
+        const uint32_t offk = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        wgmma_ss(dp, desc_sw128(qda + offq, 0, 1024), desc_sw128(sV + offk, 0, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+      const int k0 = kt * kBox;
+      // keys past T (their rows of K are TMA's zeros), and on the diagonal
+      // tile keys after the row
+      const bool edge = (causal && kt == 2 * qt + cw) || k0 + kBox > T;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int e = acc_half(j);
+        float p = exp2_approx(fmaf(sc[j], c, -lse2[e]));
+        if (edge) {
+          const int kj = k0 + acc_col(j, lane);
+          if (kj >= T || (causal && kj > row0 + 8 * e)) p = 0.f;
+        }
+        sc[j] = p * (dp[j] - dl[e]);
+      }
+      // dS as two bf16 parts, hi + lo (about 16 bits of the f32 value), each
+      // the A operand of one product with K: with dS rounded to bf16 once,
+      // the stream probe's held-out AUC fell below its gate at one init seed
+      // of eight (PERF.md)
+      uint32_t hi[16], lo[16];  // k-block kk of dS·K takes [4kk .. 4kk + 3]
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        hi[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+        lo[j] = pack_bf16(bf16_residual(sc[2 * j]), bf16_residual(sc[2 * j + 1]));
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBox / 16; ++kk)
+        wgmma_rs(dq, &hi[4 * kk], desc_sw128(sK + kk * 16 * 128, kBoxBytes, 1024));
+#pragma unroll
+      for (int kk = 0; kk < kBox / 16; ++kk)
+        wgmma_rs(dq, &lo[4 * kk], desc_sw128(sK + kk * 16 * 128, kBoxBytes, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq);
+      fence_regs(hi);
+      fence_regs(lo);
+    }
+    if (t == 0) mbar_arrive(empty(s));
+  }
+  const float f[2] = {scale, scale};
+  store_rows<D>(dq, f, qa, kSlab, &mdq, q0 + 64 * cw, h, b, 1 + cw);
+}
+
 }  // namespace hop
 
 constexpr size_t fwd_smem(int D) { return sizeof(float) * (2 * kTile * (D + 1) + kTile * kPRow); }
@@ -744,7 +919,7 @@ constexpr size_t dkdv_smem(int D) {
 
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse;
-  float* delta;  // rowsum(dO o O) [B, H, T]: dQ writes it, the tensor-core dK/dV reads it
+  float* delta;  // rowsum(dO o O) [B, H, T]: the tensor-core dQ writes it, its dK/dV reads it
   void *out0, *out1;
   Layout in, ol;
   int B, T, H, causal;
@@ -800,37 +975,54 @@ constexpr int hop_dkdv_smem() {
   return 1024 + 2 * hop::kBoxBytes * (D / 64) * 2 +
          hop::kStages * (2 * hop::kBoxBytes * (D / 64) + 1024) + 8 * (1 + 2 * hop::kStages);
 }
+template <int D>
+constexpr int hop_dq_smem() {
+  return 1024 + 2 * hop::kBoxBytes * (D / 64) * 2 +
+         hop::kDqStages * 2 * hop::kBoxBytes * (D / 64) + 8 * (1 + 2 * hop::kDqStages);
+}
 
-// attention_fwd or attention_bwd_dkdv of bf16 at D = 64 or 128
+// an entry of bf16 at D = 64 or 128
 template <int D>
 int launch_hopper(Entry which, const Args& a, cudaStream_t stream) {
-  // q, k, v, then the first output (O, or dK) and, for dK/dV, dO and dV
+  // the entry's shared memory first: the call binds the device's context to
+  // this thread, which cuTensorMapEncodeTiled needs (the autograd engine's
+  // thread, where the backward launches, may have none bound yet)
+  const int smem = which == kFwd ? hop_fwd_smem<D>()
+                   : which == kDq ? hop_dq_smem<D>() : hop_dkdv_smem<D>();
+  const void* entry = which == kFwd ? reinterpret_cast<const void*>(hop::attention_fwd_sm90<D>)
+                      : which == kDq ? reinterpret_cast<const void*>(hop::attention_bwd_dq_sm90<D>)
+                                     : reinterpret_cast<const void*>(hop::attention_bwd_dkdv_sm90<D>);
+  const cudaError_t err =
+      cudaFuncSetAttribute(entry, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  // q, k, v, then the first output (O, dQ or dK) and, for the backward, dO
+  // and for dK/dV dV
   CUtensorMap mq, mk, mv, mout0, mdo, mout1;
   if (!tensor_map(&mq, a.q, a.in, a.B, a.T, a.H, D) ||
       !tensor_map(&mk, a.k, a.in, a.B, a.T, a.H, D) ||
       !tensor_map(&mv, a.v, a.in, a.B, a.T, a.H, D) ||
-      !tensor_map(&mout0, a.out0, a.ol, a.B, a.T, a.H, D))
+      !tensor_map(&mout0, a.out0, a.ol, a.B, a.T, a.H, D) ||
+      (which != kFwd && !tensor_map(&mdo, a.dout, a.ol, a.B, a.T, a.H, D)) ||
+      (which == kDkdv && !tensor_map(&mout1, a.out1, a.ol, a.B, a.T, a.H, D)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((a.T + 127) / 128, a.B * a.H);
+  const float* lse = static_cast<const float*>(a.lse);
   if (which == kFwd) {
-    auto kern = hop::attention_fwd_sm90<D>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, hop_fwd_smem<D>());
-    kern<<<grid, hop::kThreads, hop_fwd_smem<D>(), stream>>>(
+    hop::attention_fwd_sm90<D><<<grid, hop::kThreads, smem, stream>>>(
         mq, mk, mv, mout0, a.T, a.H, a.causal, a.scale, static_cast<float*>(a.out1));
+  } else if (which == kDq) {
+    hop::attention_bwd_dq_sm90<D><<<grid, hop::kThreads, smem, stream>>>(
+        mq, mk, mv, mdo, mout0, static_cast<const __nv_bfloat16*>(a.o),
+        static_cast<const __nv_bfloat16*>(a.dout), a.ol, lse, a.delta, a.T, a.H, a.causal,
+        a.scale);
   } else {
-    if (!tensor_map(&mdo, a.dout, a.ol, a.B, a.T, a.H, D) ||
-        !tensor_map(&mout1, a.out1, a.ol, a.B, a.T, a.H, D))
-      return (int)cudaErrorInvalidValue;
-    auto kern = hop::attention_bwd_dkdv_sm90<D>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, hop_dkdv_smem<D>());
-    kern<<<grid, hop::kThreads, hop_dkdv_smem<D>(), stream>>>(
-        mq, mk, mv, mdo, mout0, mout1, static_cast<const float*>(a.lse), a.delta, a.T, a.H,
-        a.causal, a.scale);
+    hop::attention_bwd_dkdv_sm90<D><<<grid, hop::kThreads, smem, stream>>>(
+        mq, mk, mv, mdo, mout0, mout1, lse, a.delta, a.T, a.H, a.causal, a.scale);
   }
   return (int)cudaGetLastError();
 }
 
-// bf16 at D = 64 and 128 runs its forward and dK/dV on the tensor cores
+// bf16 at D = 64 and 128 runs every entry on the tensor cores
 template <typename Elem, int D>
 constexpr bool tensor_core_route() {
   return std::is_same<Elem, __nv_bfloat16>::value && (D == 64 || D == 128);
@@ -838,35 +1030,38 @@ constexpr bool tensor_core_route() {
 
 template <typename Elem, int D>
 int launch(Entry which, const Args& a, cudaStream_t stream) {
-  const int nt = (a.T + kTile - 1) / kTile;
-  const dim3 grid(nt, a.B * a.H);
-  const Elem *q = static_cast<const Elem*>(a.q), *k = static_cast<const Elem*>(a.k),
-             *v = static_cast<const Elem*>(a.v), *o = static_cast<const Elem*>(a.o),
-             *dout = static_cast<const Elem*>(a.dout);
-  const float* lse = static_cast<const float*>(a.lse);
-  if (which == kDq) {
-    auto kern = attention_bwd_dq_kernel<Elem, D>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem(D));
-    kern<<<grid, kThreads, dq_smem(D), stream>>>(q, k, v, a.in, o, dout, a.ol, lse, a.T, a.H,
-                                                 a.causal, a.scale,
-                                                 static_cast<Elem*>(a.out0), a.delta);
-  } else if constexpr (tensor_core_route<Elem, D>()) {
+  if constexpr (tensor_core_route<Elem, D>()) {
     return launch_hopper<D>(which, a, stream);
-  } else if (which == kFwd) {
-    auto kern = attention_fwd_kernel<Elem, D>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fwd_smem(D));
-    kern<<<grid, kThreads, fwd_smem(D), stream>>>(q, k, v, a.in, a.ol, a.T, a.H, a.causal,
-                                                  a.scale, static_cast<Elem*>(a.out0),
-                                                  static_cast<float*>(a.out1));
   } else {
-    auto kern = attention_bwd_dkdv_kernel<Elem, D>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkdv_smem(D));
-    kern<<<grid, kThreads, dkdv_smem(D), stream>>>(q, k, v, a.in, o, dout, a.ol, lse, a.T,
-                                                   a.H, a.causal, a.scale,
-                                                   static_cast<Elem*>(a.out0),
-                                                   static_cast<Elem*>(a.out1));
+    const int nt = (a.T + kTile - 1) / kTile;
+    const dim3 grid(nt, a.B * a.H);
+    const Elem *q = static_cast<const Elem*>(a.q), *k = static_cast<const Elem*>(a.k),
+               *v = static_cast<const Elem*>(a.v), *o = static_cast<const Elem*>(a.o),
+               *dout = static_cast<const Elem*>(a.dout);
+    const float* lse = static_cast<const float*>(a.lse);
+    if (which == kFwd) {
+      auto kern = attention_fwd_kernel<Elem, D>;
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fwd_smem(D));
+      kern<<<grid, kThreads, fwd_smem(D), stream>>>(q, k, v, a.in, a.ol, a.T, a.H, a.causal,
+                                                    a.scale, static_cast<Elem*>(a.out0),
+                                                    static_cast<float*>(a.out1));
+    } else if (which == kDq) {
+      auto kern = attention_bwd_dq_kernel<Elem, D>;
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem(D));
+      kern<<<grid, kThreads, dq_smem(D), stream>>>(q, k, v, a.in, o, dout, a.ol, lse, a.T, a.H,
+                                                   a.causal, a.scale,
+                                                   static_cast<Elem*>(a.out0));
+    } else {
+      auto kern = attention_bwd_dkdv_kernel<Elem, D>;
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)dkdv_smem(D));
+      kern<<<grid, kThreads, dkdv_smem(D), stream>>>(q, k, v, a.in, o, dout, a.ol, lse, a.T,
+                                                     a.H, a.causal, a.scale,
+                                                     static_cast<Elem*>(a.out0),
+                                                     static_cast<Elem*>(a.out1));
+    }
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename Elem>
@@ -910,7 +1105,9 @@ extern "C" int nerrf_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // o, dout contiguous [B,T,H,D], lse [B,H,T] f32 from the forward -> dq
-// contiguous [B,T,H,D] and delta [B,H,T] f32, rowsum(dout o o)
+// contiguous [B,T,H,D]; the tensor-core route also writes delta [B,H,T] f32,
+// rowsum(dout o o), which its dK/dV reads, and reads o in 16-byte vectors:
+// o's base 16-byte aligned
 extern "C" int nerrf_attention_bwd_dq(const void* q, const void* k, const void* v, int dtype,
                                       long long sb, long long st, long long sh, const void* o,
                                       const void* dout, const void* lse, void* delta, int B,
@@ -936,11 +1133,12 @@ extern "C" int nerrf_attention_bwd_dkdv(const void* q, const void* k, const void
 }
 
 // the dynamic shared memory a launch of the tensor-core entry ``entry`` (0
-// forward, 2 dK/dV) asks for at head width D (64 or 128); 0 for others
+// forward, 1 dQ, 2 dK/dV) asks for at head width D (64 or 128); 0 for others
 extern "C" int nerrf_attention_smem(int entry, int D) {
   namespace na = nerrf::attn;
   if (D != 64 && D != 128) return 0;
   if (entry == na::kFwd) return D == 64 ? na::hop_fwd_smem<64>() : na::hop_fwd_smem<128>();
+  if (entry == na::kDq) return D == 64 ? na::hop_dq_smem<64>() : na::hop_dq_smem<128>();
   if (entry == na::kDkdv) return D == 64 ? na::hop_dkdv_smem<64>() : na::hop_dkdv_smem<128>();
   return 0;
 }

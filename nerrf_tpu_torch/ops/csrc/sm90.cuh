@@ -32,6 +32,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
+// x less its bf16 rounding: the low part of x as a bf16 pair hi + lo
+__device__ __forceinline__ float bf16_residual(float x) {
+  return x - __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));

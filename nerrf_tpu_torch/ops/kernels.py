@@ -76,7 +76,7 @@ _ARGTYPES = {
     # ... as attention_bwd_dq, then dk, dv, stream
     "attention_bwd_dkdv": [_P, _P, _P, _I, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _F, _P, _P, _P],
-    # entry (0 forward, 2 dK/dV), D (no stream)
+    # entry (0 forward, 1 dQ, 2 dK/dV), D (no stream)
     "attention_smem": [_I, _I],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -266,8 +266,8 @@ def launch_segment_sum(name: str, data, plan, out) -> None:
 # head widths the attention kernels are instantiated for (csrc/flash_attention.cu)
 ATTENTION_HEAD_DIMS = (16, 32, 64, 128)
 # the entries and head widths of bf16 attention on the tensor cores (wgmma on
-# TMA tiles); every other (type, width), and attention_bwd_dq, on the CUDA cores
-ATTENTION_TMA_ENTRIES = ("attention_fwd", "attention_bwd_dkdv")
+# TMA tiles): all three; every other (type, width) on the CUDA cores
+ATTENTION_TMA_ENTRIES = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv")
 ATTENTION_TMA_HEAD_DIMS = (64, 128)
 
 
@@ -294,16 +294,18 @@ def check_tma_operands(name: str, *tensors) -> None:
 
 def attention_smem(name: str, D: int) -> int:
     """Bytes of dynamic shared memory a launch of the tensor-core entry
-    ``name`` (attention_fwd or attention_bwd_dkdv) asks for at head width
-    ``D``."""
-    return _fn("attention_smem")({"attention_fwd": 0, "attention_bwd_dkdv": 2}[name], D)
+    ``name`` (attention_fwd, attention_bwd_dq or attention_bwd_dkdv) asks
+    for at head width ``D``."""
+    return _fn("attention_smem")({"attention_fwd": 0, "attention_bwd_dq": 1,
+                                  "attention_bwd_dkdv": 2}[name], D)
 
 
 def launch_attention(name: str, q, k, v, causal: bool, scale: float, *outs,
                      o=None, dout=None, lse=None, delta=None) -> None:
-    """``attention_fwd`` (outs: o, lse), ``attention_bwd_dq`` (outs: dq; it
-    also writes ``delta``, rowsum(dout∘o)) or ``attention_bwd_dkdv`` (outs:
-    dk, dv; the tensor-core route reads ``delta``) over q, k, v [B, T, H, D]
+    """``attention_fwd`` (outs: o, lse), ``attention_bwd_dq`` (outs: dq; the
+    tensor-core route also writes ``delta``, rowsum(dout∘o)) or
+    ``attention_bwd_dkdv`` (outs: dk, dv; the tensor-core route reads
+    ``delta``) over q, k, v [B, T, H, D]
     of one layout (any strides, D's 1); o, dout, the gradients contiguous
     [B, T, H, D], lse and delta [B, H, T] float32."""
     B, T, H, D = q.shape
@@ -312,8 +314,10 @@ def launch_attention(name: str, q, k, v, causal: bool, scale: float, *outs,
     if B * H > 65535:
         raise ValueError(f"{name}: {B} x {H} heads; the kernel takes at most 65535")
     if attention_route(name, q.dtype, D) == "wgmma":
-        # the bf16 tiles: q, k, v and O, or q, k, v, dO, dK and dV
-        tiles = (outs[0],) if name == "attention_fwd" else (dout, *outs)
+        # the bf16 tiles: q, k, v and O; q, k, v, dO and dQ, with O, which
+        # dQ's prologue reads in 16-byte vectors; or q, k, v, dO, dK and dV
+        tiles = {"attention_fwd": (outs[0],),
+                 "attention_bwd_dq": (dout, o, *outs)}.get(name, (dout, *outs))
         check_tma_operands(name, q, k, v, *tiles)
     sb, st, sh, _ = q.stride()
     rows = () if name == "attention_fwd" else (

@@ -176,9 +176,9 @@ def _tensor_core_route(q, k, v, do, causal):
     """The arithmetic of ``flash_attention.cu``'s tensor-core route (bf16 at
     D = 64, 128) in float32 on bf16 values: O from P rounded to bf16 before
     P·V and the denominator from the float32 P; the backward from the
-    forward's log-sum-exp and Δ = rowsum(dO∘O) of the bf16 O, dV and dK from
-    Pᵀ and dSᵀ rounded to bf16, dQ (the CUDA-core kernel) from the float32
-    dS.  Returns O, dQ, dK, dV in bf16."""
+    forward's log-sum-exp and Δ = rowsum(dO∘O) of the bf16 O, dQ from dS as
+    two bf16 parts (hi, and lo = the rest rounded to bf16), dV and dK from
+    Pᵀ and dSᵀ rounded to bf16.  Returns O, dQ, dK, dV in bf16."""
     rnd = lambda x: x.bfloat16().float()
     q, k, v, do = (x.float() for x in (q, k, v, do))
     scale = q.shape[-1] ** -0.5
@@ -193,7 +193,7 @@ def _tensor_core_route(q, k, v, do, causal):
     p = torch.exp(s * scale - lse)
     delta = (do * o).sum(-1).permute(0, 2, 1)[..., None]
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v) - delta)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", rnd(ds) + rnd(ds - rnd(ds)), k) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", rnd(ds), q) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", rnd(p), do)
     return [x.bfloat16() for x in (o, dq, dk, dv)]
@@ -224,7 +224,8 @@ def test_tensor_core_rounding_meets_the_bf16_bound(causal, d):
     """The tensor-core route's roundings, emulated, against the reference's
     ``_attention_local`` on bf16 inputs at T = 1100 (its blockwise path,
     which rounds P to bf16 itself) and against ``attention_dense``, O and
-    the three gradients, within chip_smoke.py's bf16 bound."""
+    the three gradients (dQ from dS as a bf16 pair, dK and dV from Pᵀ and
+    dSᵀ rounded to bf16), within chip_smoke.py's bf16 bound."""
     r = np.random.default_rng(1100 + d + causal)
     q, k, v, do = (r.normal(size=(1, 1100, 2, d)).astype(jnp.bfloat16) for _ in range(4))
     tq, tk, tv, tdo = (torch.from_numpy(np.asarray(x, np.float32)).bfloat16()
@@ -246,17 +247,29 @@ def test_tensor_core_rounding_meets_the_bf16_bound(causal, d):
                 f"{part} vs {want_of}: past the bound by {float(excess.max())}"
 
 
-@pytest.mark.parametrize("case", ["stride", "base", "float32", "streamnet"])
+@pytest.mark.parametrize("case", ["stride", "base", "float32", "streamnet",
+                                  "dq-dout", "dq-o"])
 def test_tensor_core_route_checks_the_tma_rules(case):
     """bf16 at D = 128 goes through TMA: a stride off 16 bytes or a base off
-    16-byte alignment is refused before any launch; StreamNet's q, k, v
-    (views of one qkv projection) are taken; float32 takes the CUDA cores."""
+    16-byte alignment is refused before any launch, in the forward and in
+    dQ (its dO, and O, which it reads in 16-byte vectors); StreamNet's q, k,
+    v (views of one qkv projection) are taken; float32 takes the CUDA
+    cores."""
     B, T, dim = 2, 100, 128
     qkv = torch.zeros(B, T, 3 * dim, dtype=torch.bfloat16)
     q, k, v = (x.reshape(B, T, 1, dim) for x in qkv.split(dim, dim=-1))
     out = torch.empty_like(q)
-    assert kernels.attention_route("attention_fwd", q.dtype, dim) == "wgmma"
-    assert kernels.attention_route("attention_bwd_dq", q.dtype, dim) == "fma"
+    for name in kernels.ATTENTION_TMA_ENTRIES:
+        assert kernels.attention_route(name, q.dtype, dim) == "wgmma"
+    assert kernels.attention_route("attention_bwd_dq", torch.float32, dim) == "fma"
+    if case.startswith("dq-"):
+        off = torch.zeros(B * T * dim + 1, dtype=torch.bfloat16)[1:].view(B, T, 1, dim)
+        rows = dict(o=out, dout=out, lse=torch.empty(B, 1, T), delta=torch.empty(B, 1, T))
+        rows["dout" if case == "dq-dout" else "o"] = off
+        with pytest.raises(ValueError, match="TMA"):
+            kernels.launch_attention("attention_bwd_dq", q, k, v, True, 1.0,
+                                     torch.empty_like(q), **rows)
+        return
     if case == "streamnet":
         kernels.check_tma_operands("attention_fwd", q, k, v, out)
         return
