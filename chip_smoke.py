@@ -90,10 +90,13 @@ The result line holds each kernel at its main call site on its own path, as
 the path calls it.
 
 Then the undo path (``nerrf_tpu_torch.planner``, ``respond``, ``rollback``):
-the device MCTS search kernel (``mcts_search``, one thread block a tree)
-held against its plain version on the card with the heuristic value, every
-tree array bit-equal, on ``bench.py``'s planner domain, an all-clean
-domain, a terminal root and two larger buckets, at 64 and 800 simulations,
+the device MCTS search kernel (``mcts_search``, one thread block a tree;
+its resident entry, the working set in shared memory, where that fits, else
+its global entry) held against its plain version on the card with the
+heuristic value, every tree array bit-equal, on ``bench.py``'s planner
+domain, an all-clean domain, a terminal root and two larger buckets, at 64
+and 800 simulations, and on the 512f/32p bucket at 2500 (the global
+entry),
 and two kernel runs bit-equal; the value net fit on the card, the kernel's
 own value function within 1e-5·(1+|v|) of ``ValueNet`` on 4096 rows, and
 the kernel's plan equal to the plain version's; the planner cell
@@ -167,6 +170,12 @@ line, when a phase fails or there is no card.
 ``python3 chip_smoke.py --stream-probe SEED [SEED ...]`` runs only the
 stream quality probe, once for each init seed (the spread of its held-out
 event AUC over inits), and prints one JSON line of their readings.
+
+``python3 chip_smoke.py --planner [ROOT]`` runs only the search kernel:
+with no ROOT its entries' ``ptxas`` lines, ``check_mcts`` on both entries
+and ``check_value_net``; then the search's timings (``planner_times``) for
+the package under ROOT (this tree by default), so that two trees can be
+timed in turns in one call; one JSON line.
 """
 
 from __future__ import annotations
@@ -2752,6 +2761,12 @@ def run_disk_corpus_path(config_path: str = TRAIN_CONFIG, steps: int = CORPUS_ST
 
 MCTS_SIMS = 800                 # MCTSConfig's default, the spec's 500-1000 band
 MCTS_CHECK_SIMS = (64, MCTS_SIMS)
+# a case whose working set outgrows a block's shared memory, so that
+# check_mcts holds the global entry too: the 512f/32p bucket at 2500
+# simulations
+MCTS_GLOBAL_CASE = ("512f/32p bucket 300f/20p", 2500)
+# rows of the chain floor's table (64 x A floats in shared memory)
+CHAIN_ROWS = 64
 # the in-kernel value net against ValueNet.__call__ (cuBLAS and torch's
 # GELU): |Δ| ≤ VALUE_RTOL·(1 + |v|), for the order of the dot products and
 # tanhf
@@ -2856,30 +2871,200 @@ def _search_tree(dm, root=None, plain=False, sims=None):
     return tree
 
 
+def search_kernel_name(route: str) -> str:
+    """The profiler's name of the search entry ``route`` launches."""
+    from nerrf_tpu_torch.ops import mcts as ops_mcts
+
+    return f"nerrf::{ops_mcts.ROUTE_ENTRY[route]}_kernel"
+
+
+def _chunked_tree(dm, root=None):
+    """A fresh tree of ``dm`` searched as ``DeviceMCTS.plan`` searches it
+    (``run_chunks``: launches of ≤ 128 simulations, each but the first on
+    a tree that already has nodes), synced."""
+    from nerrf_tpu_torch.planner.device_mcts import run_chunks
+
+    tree = dm.init_tree(root)
+    run_chunks(tree, dm._ctx, dm._weights, dm.cfg, time.perf_counter())
+    _sync()
+    return tree
+
+
 def check_mcts() -> dict:
     """``mcts_search`` against its plain version on the card, heuristic
-    value, on each of :func:`mcts_domains` at 64 and 800 simulations: every
-    tree array bit-equal, and two kernel runs bit-equal."""
+    value, on each of :func:`mcts_domains` at 64 and 800 simulations and on
+    MCTS_GLOBAL_CASE: every tree array bit-equal, and two kernel runs
+    bit-equal; each case's launches counted on the entry ``search_route``
+    names, the 2500-simulation case on the global entry and the others on
+    the resident one, whose shared bytes the C entry and ``ops.mcts`` agree
+    on.  The 800- and 2500-simulation cases also run the kernel in the
+    plan's chunks (:func:`_chunked_tree`, ⌈sims/128⌉ launches, all but the
+    first resuming a tree with nodes): every tree array bit-equal to the
+    plain version's whole search, the launches counted on the same
+    entry."""
+    from nerrf_tpu_torch.ops import kernels
+    from nerrf_tpu_torch.ops import mcts as ops_mcts
     from nerrf_tpu_torch.planner import DeviceMCTS, MCTSConfig
+    from nerrf_tpu_torch.planner.device_mcts import CHUNK_SIMULATIONS
 
+    domains = mcts_domains()
+    cases = [(name, sims) for name in domains for sims in MCTS_CHECK_SIMS]
     out = {}
-    for name, (d, root) in mcts_domains().items():
-        for sims in MCTS_CHECK_SIMS:
-            dm = DeviceMCTS(d, MCTSConfig(num_simulations=sims), device="cuda")
-            a, b = _search_tree(dm, root), _search_tree(dm, root)
-            t0 = time.perf_counter()
-            p = _search_tree(dm, root, plain=True)
-            plain_s = time.perf_counter() - t0
-            bad, again = _tree_diff(a, p), _tree_diff(a, b)
-            if bad or again:
-                _fail(f"mcts_search on {name} at {sims} simulations: kernel vs plain "
-                      f"differ in {bad}, two kernel runs in {again}")
-            out[f"{name} @{sims}"] = dict(n_nodes=int(a.n_nodes[0]),
-                                          depth=round(_mean_depth(a), 3),
-                                          plain_s=round(plain_s, 3))
+    for name, sims in cases + [MCTS_GLOBAL_CASE]:
+        d, root = domains[name]
+        dm = DeviceMCTS(d, MCTSConfig(num_simulations=sims), device="cuda")
+        route = dm.route
+        want = "global" if (name, sims) == MCTS_GLOBAL_CASE else "resident"
+        M, Fp, Pp = sims + 1, dm._dims["F"], dm._dims["P"]
+        smem = ops_mcts.resident_shared_bytes(M, Fp, Pp, 0)
+        if route != want or kernels.mcts_resident_bytes(M, Fp, Pp, 0) != smem:
+            _fail(f"mcts_search on {name} at {sims} simulations: route {route} (want "
+                  f"{want}); resident bytes {smem} in ops.mcts, "
+                  f"{kernels.mcts_resident_bytes(M, Fp, Pp, 0)} in the C entry")
+        ops_mcts.reset_launches()
+        a, b = _search_tree(dm, root), _search_tree(dm, root)
+        if ops_mcts.ROUTE_LAUNCHES[route] != 2:
+            _fail(f"mcts_search on {name} at {sims} simulations: launches by route "
+                  f"{ops_mcts.ROUTE_LAUNCHES}, want 2 {route}")
+        t0 = time.perf_counter()
+        p = _search_tree(dm, root, plain=True)
+        plain_s = time.perf_counter() - t0
+        bad, again = _tree_diff(a, p), _tree_diff(a, b)
+        if bad or again:
+            _fail(f"mcts_search on {name} at {sims} simulations: kernel vs plain "
+                  f"differ in {bad}, two kernel runs in {again}")
+        out[f"{name} @{sims}"] = case = dict(route=route, resident_bytes=smem,
+                                             n_nodes=int(a.n_nodes[0]),
+                                             depth=round(_mean_depth(a), 3),
+                                             plain_s=round(plain_s, 3))
+        if sims < MCTS_SIMS:
+            continue
+        ops_mcts.reset_launches()
+        c = _chunked_tree(dm, root)
+        chunks = math.ceil(sims / CHUNK_SIMULATIONS)
+        if ops_mcts.ROUTE_LAUNCHES[route] != chunks or _tree_diff(c, p):
+            _fail(f"mcts_search on {name} at {sims} simulations in chunks of "
+                  f"{CHUNK_SIMULATIONS}: launches by route {ops_mcts.ROUTE_LAUNCHES} (want "
+                  f"{chunks} {route}), kernel vs plain differ in {_tree_diff(c, p)}")
+        case["chunked_launches"] = chunks
     print("mcts_search vs its plain version on the card (heuristic value; every "
-          "tree array bit-equal, two kernel runs bit-equal): " + json.dumps(out))
+          "tree array bit-equal, two kernel runs bit-equal; at 800 and 2500 "
+          "simulations also the plan's chunks against the plain whole search; the "
+          "entry each case took): " + json.dumps(out))
     return out
+
+
+def check_mcts_ptxas() -> dict:
+    """The search library's entries as ``ptxas -v`` reported them
+    (registers, spills, static shared memory), and the resident entry's
+    dynamic shared bytes at the bench bucket (800 simulations, heuristic
+    and h = 64); fails if the resident entry spills."""
+    from nerrf_tpu_torch.ops import kernels
+
+    lines = _ptxas_lines(kernels.library_path("mcts_search").with_suffix(".log"))
+    out = {}
+    for short in ("mcts_search_resident_kernel", "mcts_search_kernel", "mcts_value_kernel",
+                  "mcts_chain_floor_kernel"):
+        found = [k for k in lines if short in k]
+        if len(found) != 1:
+            _fail(f"ptxas: {len(found)} entries named {short}")
+        out[short] = lines[found[0]]
+    spilled = sum(int(n) for line in out["mcts_search_resident_kernel"]
+                  for n in re.findall(r"(\d+) bytes spill", line))
+    if spilled:
+        _fail(f"ptxas: the resident search entry spills ({out['mcts_search_resident_kernel']})")
+    out["resident_dynamic_shared_bytes"] = {
+        f"256f/16p @{MCTS_SIMS} h={h}": kernels.mcts_resident_bytes(MCTS_SIMS + 1, 256, 16, h)
+        for h in (0, 64)}
+    print("mcts_search library (ptxas -v: registers, spills, static shared bytes; the "
+          "resident entry's dynamic shared bytes): " + json.dumps(out))
+    return out
+
+
+def one_launch_ms(dm, root=None, reps: int = 5) -> tuple:
+    """CUDA events around one launch of all ``dm.cfg.num_simulations``
+    simulations on a fresh tree (made before the events, no host sync
+    inside), the median of ``reps`` after a warm one; and the last tree."""
+    import statistics
+
+    import torch
+
+    from nerrf_tpu_torch.ops import mcts as ops_mcts
+
+    trees = [dm.init_tree(root) for _ in range(reps + 1)]
+    times = []
+    for k, tree in enumerate(trees):
+        _sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ops_mcts.search_chunk(tree, dm.cfg.num_simulations, dm._ctx, dm._weights)
+        end.record()
+        end.synchronize()
+        if k:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times), trees[-1]
+
+
+def select_levels(tree) -> int:
+    """Select levels of all the simulations of tree 0: the visits of every
+    node but the root (each simulation's backup visits its path)."""
+    v = tree.visits[0].long()
+    return int(v.sum() - v[0])
+
+
+def chain_floor_ms(levels: int, A: int):
+    """The chain floor of ``levels`` select levels over A actions: the
+    device ms of ``mcts_chain_floor`` walking that many dependent one-warp
+    argmaxes over rows of a CHAIN_ROWS x A table in shared memory, less the
+    same launch with none (CUDA events); None for a package without it."""
+    import torch
+
+    from nerrf_tpu_torch.ops import kernels
+
+    if "mcts_chain_floor" not in kernels._ARGTYPES:
+        return None
+    table = torch.rand(CHAIN_ROWS, A, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def run(n):
+        kernels._launch("mcts_chain_floor", table.device, table.data_ptr(), CHAIN_ROWS, A, n,
+                        out.data_ptr())
+
+    return cuda_ms(lambda: run(levels), iters=5, warmup=1) - cuda_ms(lambda: run(0), iters=5,
+                                                                      warmup=1)
+
+
+def search_reading(dm, root=None) -> dict:
+    """One launch of a whole search on a fresh tree of ``dm``: its events ms
+    (:func:`one_launch_ms`), the profiler's device ms for the same launch
+    (null unless every launch was caught; read beside the events'), ns a
+    simulation and a select level, the mean select depth, the chain floor
+    of the tree's levels, the entry, the tree's checksum (n_nodes, Σ
+    visits) to tell that two trees ran the same search, and the host's
+    enqueue µs of a launch (:func:`host_us`, one simulation a launch on the
+    finished tree)."""
+    from nerrf_tpu_torch.ops import mcts as ops_mcts
+
+    ms, tree = one_launch_ms(dm, root)
+    # an older package timed by --planner ROOT has one entry and no routes
+    route = getattr(dm, "route", "global")
+    name = search_kernel_name(route) if hasattr(ops_mcts, "ROUTE_ENTRY") \
+        else "nerrf::mcts_search_kernel"
+
+    def launch():
+        ops_mcts.search_chunk(dm.init_tree(root), dm.cfg.num_simulations, dm._ctx, dm._weights)
+
+    split = device_split(launch, iters=5, warmup=1, launches={name: 1})
+    sims, levels = dm.cfg.num_simulations, select_levels(tree)
+    seen = dict(levels=levels, depth=round(_mean_depth(tree), 3), n_nodes=int(tree.n_nodes[0]),
+                visits_sum=int(tree.visits[0].long().sum()))
+    enqueue_us = host_us(lambda: ops_mcts.search_chunk(tree, 1, dm._ctx, dm._weights), iters=50)
+    return dict(route=route, ms=ms, device_ms=split.get(name), device_lost=split.lost or None,
+                ns_per_sim=ms * 1e6 / sims, ns_per_level=ms * 1e6 / max(levels, 1),
+                chain_floor_ms=chain_floor_ms(levels, dm._dims["A"]), host_us=enqueue_us,
+                **seen)
 
 
 def check_value_net(bench) -> dict:
@@ -2981,9 +3166,10 @@ def run_planner_cell(bench, net) -> dict:
         run_chunks(dm.init_tree(), dm._ctx, dm._weights, cfg, time.perf_counter())
 
     search_ms = cuda_ms(search, iters=10, warmup=2)
-    split = device_split(dm.plan, iters=5, warmup=1,
-                         launches={"nerrf::mcts_search_kernel": launches})
-    device_plan_ms = split.get("nerrf::mcts_search_kernel")
+    name = search_kernel_name(dm.route)
+    split = device_split(dm.plan, iters=5, warmup=1, launches={name: launches})
+    device_plan_ms = split.get(name)
+    reading = search_reading(dm)
     tree = _search_tree(dm)
     n, A, D = int(tree.n_nodes[0]), dm._dims["A"], dm._dims["D"]
     node_bytes = 4 * (2 * A + D) + 4 * 4 + 2
@@ -3000,14 +3186,32 @@ def run_planner_cell(bench, net) -> dict:
     out = dict(cell=res, launches=launches, search_ms=search_ms,
                device_ms=None if device_plan_ms is None else device_plan_ms / launches,
                device_plan_ms=device_plan_ms, depth=round(_mean_depth(tree), 3),
-               n_nodes=n, bound_ms=bound, bound_by=bound_by, bytes=nbytes)
+               n_nodes=n, bound_ms=bound, bound_by=bound_by, bytes=nbytes, launch=reading)
     print(f"planner cell (bench 45f/4p, {MCTS_SIMS} simulations, fitted value net; "
           f"in turns, means of 2): " + json.dumps(res) + f"; DeviceMCTS.plan launches "
-          f"mcts_search {launches}x; search {search_ms:.3f} ms a plan (CUDA events, "
-          f"with the per-chunk syncs), device {device_plan_ms} ms a plan "
-          f"(profiler: {split}); mean select depth {out['depth']} levels; bound "
-          f"{bound:.6f} ms ({nbytes} bytes of tree and inputs over 3.35 TB/s)")
+          f"mcts_search {launches}x ({reading['route']} entry); search {search_ms:.3f} ms "
+          f"a plan (CUDA events, with the per-chunk syncs), device {device_plan_ms} ms a "
+          f"plan (profiler: {split}); mean select depth {out['depth']} levels; bound "
+          f"{bound:.6f} ms ({nbytes} bytes of tree and inputs over 3.35 TB/s); all "
+          f"{MCTS_SIMS} simulations in one launch: " + json.dumps(reading))
     return out
+
+
+def wave_rates(bp, incidents) -> dict:
+    """``bp.plan_batch`` of the first B incidents for B in BATCH_SLOTS
+    (host clock, a warm wave then 3): incidents/s, rollouts/s, ms a wave."""
+    rates = {}
+    for B in BATCH_SLOTS:
+        bp.plan_batch(incidents[:B])
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            bp.plan_batch(incidents[:B])
+        _sync()
+        dt = (time.perf_counter() - t0) / 3
+        rates[B] = dict(incidents_per_s=B / dt, rollouts_per_s=B * MCTS_SIMS / dt,
+                        ms_per_wave=dt * 1e3)
+    return rates
 
 
 def run_batched_planner(bench, net) -> dict:
@@ -3070,17 +3274,7 @@ def run_batched_planner(bench, net) -> dict:
     if len(plans) != 10 or launches != want or \
             any(p.rollouts != MCTS_SIMS for p in plans):
         _fail(f"10 incidents: {len(plans)} plans, {launches} launches (want {want})")
-    rates = {}
-    for B in BATCH_SLOTS:
-        bp.plan_batch(incidents[:B])
-        _sync()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            bp.plan_batch(incidents[:B])
-        _sync()
-        dt = (time.perf_counter() - t0) / 3
-        rates[B] = dict(incidents_per_s=B / dt, rollouts_per_s=B * MCTS_SIMS / dt,
-                        ms_per_wave=dt * 1e3)
+    rates = wave_rates(bp, incidents)
     if bp.recompiles != 0 or reg.value("respond_recompiles_total") != 0.0:
         _fail(f"BatchedDeviceMCTS: {bp.recompiles} waves outside the warmed set")
     print(f"BatchedDeviceMCTS (slots {BATCH_SLOTS}, warmup {warm_s:.3f} s): B = 1 tree "
@@ -3103,6 +3297,104 @@ def _data_loss(store, manifest, victim, encrypted, report, ransom_ext) -> tuple:
     fp = sum(1 for d in report.details
              if d["result"] == "restored" and Path(d["target"]).name not in attacked)
     return lost, fp
+
+
+def m1_incident(tmp) -> tuple:
+    """run_recovery_bench's M1 incident (UNDO_FILES) seeded in ``tmp /
+    "victim"`` and snapshotted into ``tmp / "store"``: (victim, file
+    config, store, manifest)."""
+    from nerrf_tpu_torch.rollback import FileSimConfig, SnapshotStore
+    from nerrf_tpu_torch.rollback.filesim import seed_files
+
+    victim, cfg = tmp / "victim", FileSimConfig(**UNDO_FILES)
+    seed_files(victim, cfg)
+    store = SnapshotStore(tmp / "store")
+    return victim, cfg, store, store.snapshot(victim, "pre-attack")
+
+
+def m1_undo_problem(trace, manifest, victim, value) -> tuple:
+    """``cmd_undo``'s search problem from the attacked incident:
+    ``heuristic_detect`` (timed), ``build_undo_domain``, and
+    ``value.fit_to_domain`` with 256 rollouts, horizon 32 and 200 steps:
+    (detection, detect seconds, domain, fit MSE)."""
+    from nerrf_tpu_torch.pipeline import build_undo_domain, heuristic_detect
+
+    t0 = time.perf_counter()
+    detection = heuristic_detect(trace)
+    detect_s = time.perf_counter() - t0
+    domain = build_undo_domain(detection, manifest, root=str(victim))
+    return (detection, detect_s, domain,
+            value.fit_to_domain(domain, num_rollouts=256, horizon=32, steps=200))
+
+
+def m1_undo_domain() -> tuple:
+    """The undo run's search problem outside its window: :func:`m1_incident`
+    in a temporary directory, attacked, then :func:`m1_undo_problem` with a
+    fresh value net; (domain, net)."""
+    import tempfile
+    from pathlib import Path
+
+    from nerrf_tpu_torch.planner.value_net import ValueNet
+    from nerrf_tpu_torch.rollback import run_file_attack
+
+    tmp = Path(tempfile.mkdtemp(prefix="nerrf-undo-"))
+    try:
+        victim, cfg, _, manifest = m1_incident(tmp)
+        trace, _ = run_file_attack(victim, cfg)
+        net = ValueNet.create(device="cuda")
+        _, _, domain, _ = m1_undo_problem(trace, manifest, victim, net)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return domain, net
+
+
+def planner_times() -> dict:
+    """``--planner``'s timings for the package on ``sys.path``, at 800
+    simulations: :func:`search_reading` (one launch of the whole search on
+    a fresh tree, events and profiler, ns a simulation and a level, the
+    chain floor) on the planner cell's tree (bench, the net fit as
+    ``check_value_net`` fits it), the heuristic bench and floor-bucket
+    trees and the undo run's (M1, its fitted net); the planner cell's plan
+    (CUDA events around the 7 launches and their syncs); the undo run's
+    ``plan()`` (host seconds, median of 3) and actions; the
+    ``BatchedDeviceMCTS`` waves at B = 1, 2, 4 and 8."""
+    import statistics
+
+    from nerrf_tpu_torch.observability import MetricsRegistry
+    from nerrf_tpu_torch.planner import DeviceMCTS, MCTSConfig
+    from nerrf_tpu_torch.planner.device_mcts import run_chunks
+    from nerrf_tpu_torch.planner.value_net import ValueNet
+    from nerrf_tpu_torch.respond import BatchedDeviceMCTS
+
+    cfg = MCTSConfig(num_simulations=MCTS_SIMS)
+    bench = bench_domain()
+    net = ValueNet.create(device="cuda")
+    net.fit_to_domain(bench, num_rollouts=256, steps=150)
+    m1, m1_net = m1_undo_domain()
+    cases = {"planner cell": (bench, net), "heuristic bench 45f/4p": (bench, None),
+             "heuristic floor bucket 200f/12p": (seeded_domain(200, 12, 11), None),
+             "undo M1": (m1, m1_net)}
+    out = {name: search_reading(DeviceMCTS(d, cfg, value=v, device="cuda"))
+           for name, (d, v) in cases.items()}
+    dm = DeviceMCTS(bench, cfg, value=net, device="cuda")
+    out["planner cell"]["plan_ms"] = cuda_ms(
+        lambda: run_chunks(dm.init_tree(), dm._ctx, dm._weights, cfg, time.perf_counter()),
+        iters=10, warmup=2)
+    undo = DeviceMCTS(m1, cfg, value=m1_net, device="cuda")
+    plans = [undo.plan() for _ in range(4)][1:]
+    out["undo M1"].update(plan_s=statistics.median(p.planning_seconds for p in plans),
+                          plan_actions=len(plans[0].actions))
+    bp = BatchedDeviceMCTS(cfg, batch_slots=BATCH_SLOTS, value=net,
+                           registry=MetricsRegistry(), device="cuda")
+    bp.warmup_for(45, 4)
+    out["waves"] = wave_rates(bp, [bench] + [seeded_domain(45, 4, 20 + i) for i in range(9)])
+    print("search timings (800 simulations; ms: CUDA events around one launch of the "
+          "whole search on a fresh tree, median of 5; device_ms: profiler, the same "
+          "launch; chain_floor_ms: the tree's select levels as one-warp argmaxes; "
+          "plan_ms: the planner cell's 7 launches with their syncs, events; plan_s: "
+          "the undo run's plan(), host clock; waves: BatchedDeviceMCTS by B): "
+          + json.dumps(out))
+    return out
 
 
 def run_undo_path(model_dir: str) -> dict:
@@ -3129,22 +3421,16 @@ def run_undo_path(model_dir: str) -> dict:
     from nerrf_tpu_torch.models import NerrfNet
     from nerrf_tpu_torch.ops import LAUNCHES, reset_launches
     from nerrf_tpu_torch.ops import mcts as ops_mcts
-    from nerrf_tpu_torch.pipeline import (build_undo_domain, fit_capacity,
-                                          heuristic_detect, model_detect)
+    from nerrf_tpu_torch.pipeline import build_undo_domain, fit_capacity, model_detect
     from nerrf_tpu_torch.planner import DeviceMCTS, MCTSConfig, make_planner
     from nerrf_tpu_torch.planner.value_net import ValueNet
-    from nerrf_tpu_torch.rollback import (FileSimConfig, RollbackExecutor, SandboxGate,
-                                          SnapshotStore, run_file_attack)
-    from nerrf_tpu_torch.rollback.filesim import seed_files
+    from nerrf_tpu_torch.rollback import RollbackExecutor, SandboxGate, run_file_attack
     from nerrf_tpu_torch.train.checkpoint import load_calibration, load_checkpoint
     from nerrf_tpu_torch.train.data import DatasetConfig, windows_of_trace
 
     tmp = Path(tempfile.mkdtemp(prefix="nerrf-undo-"))
     try:
-        victim, cfg = tmp / "victim", FileSimConfig(**UNDO_FILES)
-        seed_files(victim, cfg)
-        store = SnapshotStore(tmp / "store")
-        manifest = store.snapshot(victim, "pre-attack")
+        victim, cfg, store, manifest = m1_incident(tmp)
         total_bytes = sum(sz for _, sz, _ in manifest.files.values())
         planner_cfg = MCTSConfig(num_simulations=MCTS_SIMS)
         t0 = time.perf_counter()
@@ -3162,10 +3448,8 @@ def run_undo_path(model_dir: str) -> dict:
         reset_launches()
         ops_mcts.reset_launches()
         t0 = time.perf_counter()
-        detection = heuristic_detect(trace)
-        t_detect = time.perf_counter() - t0
-        domain = build_undo_domain(detection, manifest, root=str(victim))
-        fit_mse = value.fit_to_domain(domain, num_rollouts=256, horizon=32, steps=200)
+        detection, t_detect, domain, fit_mse = m1_undo_problem(trace, manifest, victim,
+                                                               value)
         planner = make_planner(domain, value, planner_cfg, kind="auto")
         plan = planner.plan()
         t_plan = time.perf_counter() - t0 - t_detect
@@ -3174,6 +3458,7 @@ def run_undo_path(model_dir: str) -> dict:
         report = RollbackExecutor(store, manifest, victim).execute(plan)
         mttr = time.perf_counter() - t0
         launches, seg = dict(ops_mcts.LAUNCHES), dict(LAUNCHES)
+        routes = dict(ops_mcts.ROUTE_LAUNCHES)
         lost, fp = _data_loss(store, manifest, victim, encrypted, report, cfg.ransom_ext)
         want = math.ceil(MCTS_SIMS / 128)
         if not isinstance(planner, DeviceMCTS) or launches["mcts_search"] != want or \
@@ -3183,7 +3468,9 @@ def run_undo_path(model_dir: str) -> dict:
         if not gate.approved or not report.verified or lost or fp:
             _fail(f"undo run: gate {gate.approved} ({gate.reason}), verified "
                   f"{report.verified}, {lost} bytes lost, {fp} false-positive undos")
+        depth = round(_mean_depth(planner.last_tree), 3)  # the plan's own tree
         heuristic = dict(
+            routes=routes, depth=depth,
             mttr_s=mttr, detect_s=t_detect, plan_s=t_plan, gate_s=t_gate,
             execute_s=report.duration_seconds, mb_per_s=report.mb_per_sec,
             files_restored=report.files_restored, total_bytes=total_bytes,
@@ -3195,7 +3482,8 @@ def run_undo_path(model_dir: str) -> dict:
               f"value net fit, DeviceMCTS {MCTS_SIMS} simulations, gate, execute): "
               f"MTTR {mttr:.3f} s = detect {t_detect:.3f} + plan {t_plan:.3f} (fit and "
               f"search; the search {plan.planning_seconds:.4f} s, "
-              f"{plan.rollouts_per_sec:.1f} rollouts/s) + gate {t_gate:.3f} + execute "
+              f"{plan.rollouts_per_sec:.1f} rollouts/s, mean select depth {depth} "
+              f"levels, launches by entry {routes}) + gate {t_gate:.3f} + execute "
               f"{report.duration_seconds:.3f} s ({report.mb_per_sec:.1f} MB/s); "
               f"{len(plan.actions)} actions, gate approved ({gate.reason}), verified, "
               f"0 bytes lost, 0 false-positive undos; launches {launches}; boot "
@@ -4744,8 +5032,11 @@ def main() -> int:
     # package under ROOT (another tree of this repository), to hold two trees
     # against each other in one call, in turns
     mode = sys.argv[1] if sys.argv[1:2] in (
-        ["--kernel-times"], ["--lstm-times"], ["--stream-leg"]) else None
-    times_of = sys.argv[2] if mode else None
+        ["--kernel-times"], ["--lstm-times"], ["--stream-leg"], ["--planner"]) else None
+    times_of = sys.argv[2] if mode and len(sys.argv) > 2 else None
+    if mode and mode != "--planner" and times_of is None:
+        print(f"chip_smoke: {mode} takes the root of a tree", file=sys.stderr)
+        return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.abspath(times_of) if times_of else here)
     try:
@@ -4759,6 +5050,19 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
+    if mode == "--planner":
+        # only the search: with no ROOT its ptxas lines, check_mcts on both
+        # entries and check_value_net first; then the timings of the
+        # package under ROOT (this tree by default), to run in turns
+        kernels.build()
+        out = {"root": times_of or here, "card": smi}
+        if times_of is None:
+            out["ptxas"] = check_mcts_ptxas()
+            out["check_mcts"] = check_mcts()
+            out["value_err"] = check_value_net(bench_domain())["value_err"]
+        out["times"] = planner_times()
+        print(json.dumps(out))
+        return 0
     if times_of:
         if mode == "--stream-leg":
             kernels.build()
@@ -4824,6 +5128,7 @@ def main() -> int:
         corpus = run_disk_corpus_path()
         undo_t0 = time.perf_counter()
         try:
+            mcts_ptxas = check_mcts_ptxas()
             mcts_check = check_mcts()
             bench = bench_domain()
             value = check_value_net(bench)
@@ -4893,6 +5198,8 @@ def main() -> int:
         "replaces": "nerrf_tpu/planner/device_mcts.py:205",
         "path": "DeviceMCTS.plan",
         "launches": undo["heuristic"]["launches"]["mcts_search"],
+        "launches_by_route": undo["heuristic"]["routes"],
+        "check_routes": {case: r["route"] for case, r in mcts_check.items()},
         "max_abs_err": max(errors["mcts_search"].values()),
         "ms": planner["search_ms"], "plain_ms": planner["cell"]["plain"]["ms_per_plan"],
         "bound_ms": planner["bound_ms"], "bound_by": planner["bound_by"],
@@ -4900,6 +5207,10 @@ def main() -> int:
         "device_plan_ms": planner["device_plan_ms"], "per": "plan",
         "rollouts_per_s": planner["cell"]["kernel"]["rollouts_per_s"],
         "mean_select_depth": planner["depth"],
+        "one_launch": {k: planner["launch"][k] for k in (
+            "route", "ms", "device_ms", "ns_per_level", "levels", "chain_floor_ms", "host_us")},
+        "resident_shared_bytes": mcts_ptxas["resident_dynamic_shared_bytes"],
+        "ptxas": {k: v for k, v in mcts_ptxas.items() if k.endswith("_kernel")},
         "respond_corpus_launches": respond["corpus"]["launches"],
         "respond_serve_launches": respond["serve"]["launches"]["mcts_search"],
         "cli_launches": cli_phase["launches"]["mcts_search"],

@@ -41,7 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # a*b + c into one fused multiply-add there
 SOURCE_FLAGS = {"mcts_search": ("-fmad=false",)}
 # C entry points that live in another source's library: {entry: library}
-ENTRY_LIBRARY = {"mcts_value": "mcts_search", "attention_fwd": "flash_attention",
+ENTRY_LIBRARY = {"mcts_search_resident": "mcts_search", "mcts_value": "mcts_search",
+                 "mcts_resident_bytes": "mcts_search", "mcts_chain_floor": "mcts_search",
+                 "attention_fwd": "flash_attention",
                  "attention_bwd_dq": "flash_attention",
                  "attention_bwd_dkdv": "flash_attention",
                  "attention_smem": "flash_attention"}
@@ -65,8 +67,14 @@ _ARGTYPES = {
     # proc_scores, prior, real, consts, weights, hidden, B, M, Fp, Pp,
     # num_sims, stream
     "mcts_search": [_P] * 17 + [_I] * 6 + [_P],
+    # the same, the resident entry
+    "mcts_search_resident": [_P] * 17 + [_I] * 6 + [_P],
+    # M, Fp, Pp, hidden (no stream)
+    "mcts_resident_bytes": [_I, _I, _I, _I],
     # features, consts, weights, hidden, N, out, stream
     "mcts_value": [_P, _P, _P, _I, _I, _P, _P],
+    # table, R, A, levels, out, stream
+    "mcts_chain_floor": [_P, _I, _I, _I, _P, _P],
     # q, k, v, dtype, sb, st, sh, B, T, H, D, causal, scale, o, lse, stream
     "attention_fwd": [_P, _P, _P, _I, _L, _L, _L, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     # q, k, v, dtype, sb, st, sh, o, dout, lse, delta, B, T, H, D, causal,
@@ -290,6 +298,12 @@ def check_tma_operands(name: str, *tensors) -> None:
                              f"mod 16 with byte strides {strides}; the tensor-core "
                              "route loads by TMA, which takes 16-byte-aligned bases "
                              "and strides that are multiples of 16 bytes")
+
+
+def mcts_resident_bytes(M: int, Fp: int, Pp: int, hidden: int) -> int:
+    """Bytes of dynamic shared memory a launch of the resident search entry
+    asks for (csrc `resident_bytes`)."""
+    return _fn("mcts_resident_bytes")(M, Fp, Pp, hidden)
 
 
 def attention_smem(name: str, D: int) -> int:

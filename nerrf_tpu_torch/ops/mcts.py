@@ -9,7 +9,11 @@ more simulations of select → expand → evaluate → backup on B search trees
 at once, in place, resumable across calls.
 
 * On CUDA tensors it launches ``mcts_search`` (one thread block a tree,
-  counted in :data:`LAUNCHES`) or raises;
+  counted in :data:`LAUNCHES`, and by entry in :data:`ROUTE_LAUNCHES`) or
+  raises.  :func:`search_route` picks the entry from the shape alone:
+  ``resident`` (the working set of select and backup in shared memory for
+  the launch) where it fits in a block, else ``global`` (the tree in device
+  memory);
 * on CPU tensors it runs :func:`search_chunk_plain`, the same four phases
   as Python loops over tensors, which runs on any device and is what the
   kernel is held against on the card (inside ``ops.plain_ops()``, as for
@@ -48,6 +52,10 @@ from nerrf_tpu_torch.ops.segment import _use_kernel
 # Kernel launches since the last reset_launches(); a wrapper adds one where
 # it launches its kernel and nowhere else.
 LAUNCHES: Dict[str, int] = {"mcts_search": 0, "mcts_value": 0}
+# ``mcts_search`` launches by entry (their sum is LAUNCHES["mcts_search"])
+ROUTE_LAUNCHES: Dict[str, int] = {"resident": 0, "global": 0}
+# each route's C entry (csrc/mcts_search.cu)
+ROUTE_ENTRY = {"resident": "mcts_search_resident", "global": "mcts_search"}
 
 # the constants vector, slot by slot (csrc/mcts_search.cu `enum Const`)
 CONST_SLOTS = (
@@ -65,11 +73,17 @@ _C = {name: i for i, name in enumerate(CONST_SLOTS)}
 # the kernel's block and its shared-memory limit
 THREADS = 256
 MAX_SHARED_BYTES = 232448
+# the resident entry's halving sums hold at most this many values a lane of
+# one warp (csrc `kLaneValues`): Fp and Pp up to 32 times as many
+LANE_VALUES = 16
+# the value net's h x h rows lie h + W2_PAD floats apart in shared memory
+W2_PAD = 8
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 class MCTSTree(NamedTuple):
@@ -113,10 +127,44 @@ def weight_count(hidden: int) -> int:
     return hidden * hidden + 11 * hidden + 1
 
 
+def net_floats(hidden: int) -> int:
+    """Floats of the value net in shared memory: the weights with W2's rows
+    padded, and two hidden rows of scratch (csrc `net_floats`)."""
+    return hidden * (hidden + W2_PAD) + 13 * hidden + 1 if hidden else 0
+
+
 def shared_bytes(Fp: int, Pp: int, hidden: int) -> int:
-    """The search kernel's dynamic shared memory (csrc `shared_floats`)."""
-    w = weight_count(hidden) if hidden else 0
-    return 4 * (16 + w + 3 * Fp + 2 * Pp + 2 * hidden + 8)
+    """The global entry's dynamic shared memory (csrc `shared_floats`)."""
+    return 4 * (16 + net_floats(hidden) + 3 * Fp + 2 * Pp + 8)
+
+
+def _a16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def resident_shared_bytes(M: int, Fp: int, Pp: int, hidden: int) -> int:
+    """The resident entry's dynamic shared memory for trees of M slots
+    (csrc `resident_bytes`): the constants and the domain's scores, the
+    value net, the warp winners, then per node its visits, value sum,
+    sqrt(visits), Q and edge reward on the PUCT scale, edge reward, path
+    slot, a bitmask of its legal actions (⌈A/32⌉ words) and a flags
+    byte."""
+    A = Fp + Pp + 1
+    W = (A + 31) // 32
+    return (_a16(4 * 16) + 2 * _a16(4 * Fp) + _a16(4 * Pp)
+            + _a16(4 * net_floats(hidden)) + 2 * 8 * 8
+            + 7 * _a16(4 * M) + _a16(4 * M * W) + _a16(M))
+
+
+def search_route(M: int, Fp: int, Pp: int, hidden: int) -> str:
+    """The entry :func:`search_chunk` launches for trees of M slots in the
+    Fp/Pp bucket with a value net of width ``hidden`` (0: the heuristic),
+    from the shape alone: ``"resident"`` where its working set fits in a
+    block's shared memory and its halving sums in a warp, else
+    ``"global"``."""
+    fits = (max(Fp, Pp) <= 32 * LANE_VALUES
+            and resident_shared_bytes(M, Fp, Pp, hidden) <= MAX_SHARED_BYTES)
+    return "resident" if fits else "global"
 
 
 # --- the domain in padded coordinates (plain; shared by both versions' init) --
@@ -254,11 +302,10 @@ def init_tree(roots: torch.Tensor, num_nodes: int, Fp: int, Pp: int,
         n_nodes=torch.ones(B, dtype=torch.int32, device=dev))
 
 
-def _choices(t: MCTSTree, b: int, n: int, ctx: SearchCtx, Fp: int, Pp: int) -> List[list]:
-    """Each of the first ``n`` nodes' UCB argmax (the reference's ``ucb``,
-    ``device_mcts.py:178``, on every node at once: the tree does not change
-    during a descent), that action's child and the node's expanded and
-    terminal flags, as host lists: one sync a simulation, not one a level."""
+def ucb_scores(t: MCTSTree, b: int, n: int, ctx: SearchCtx, Fp: int, Pp: int) -> torch.Tensor:
+    """[n, A] f32: the PUCT score of every action of the first ``n`` nodes
+    of tree ``b`` (the reference's ``ucb``, ``device_mcts.py:178``), -inf
+    where illegal."""
     c = ctx.consts
     kids = t.children[b, :n]
     has = kids >= 0
@@ -271,7 +318,16 @@ def _choices(t: MCTSTree, b: int, n: int, ctx: SearchCtx, Fp: int, Pp: int) -> L
     u = _const(c, "c_puct") * ctx.prior[b] * root / (1.0 + nv.to(torch.float32))
     score = q + u + t.child_reward[b, :n] * _const(c, "recip_q_scale")
     ok = legal(t.state[b, :n], Fp, Pp, c)
-    best = torch.where(ok, score, torch.full_like(score, float("-inf"))).argmax(dim=1)
+    return torch.where(ok, score, torch.full_like(score, float("-inf")))
+
+
+def _choices(t: MCTSTree, b: int, n: int, ctx: SearchCtx, Fp: int, Pp: int) -> List[list]:
+    """Each of the first ``n`` nodes' UCB argmax (on every node at once: the
+    tree does not change during a descent), that action's child and the
+    node's expanded and terminal flags, as host lists: one sync a
+    simulation, not one a level."""
+    kids = t.children[b, :n]
+    best = ucb_scores(t, b, n, ctx, Fp, Pp).argmax(dim=1)
     child = kids.gather(1, best[:, None])[:, 0].long()
     return torch.stack([best, child, t.expanded[b, :n].long(),
                         t.terminal[b, :n].long()]).tolist()
@@ -377,7 +433,8 @@ def _check_shared(Fp: int, Pp: int, hidden: int) -> None:
 def search_chunk(tree: MCTSTree, num_sims: int, ctx: SearchCtx,
                  value: Optional[ValueWeights] = None) -> MCTSTree:
     """``num_sims`` more simulations on every tree of ``tree``, in place.
-    CUDA operands launch ``mcts_search`` once (every tree in its grid);
+    CUDA operands launch ``mcts_search`` once (every tree in its grid, by
+    the entry :func:`search_route` names);
     CPU operands (and CUDA ones inside ``plain_ops()``) run
     :func:`search_chunk_plain`."""
     ops = (*tree, *ctx) + (() if value is None else (value.flat,))
@@ -405,15 +462,18 @@ def search_chunk(tree: MCTSTree, num_sims: int, ctx: SearchCtx,
         raise ValueError(f"mcts_search: {Fp} files and {Pp} processes; the halving "
                          "sums take powers of two")
     hidden = _check_value(value, tree.visits.device)
-    _check_shared(Fp, Pp, hidden)
+    route = search_route(M, Fp, Pp, hidden)
+    if route == "global":
+        _check_shared(Fp, Pp, hidden)
     if int(num_sims) <= 0 or B == 0:
         return tree
     kernels._launch(
-        "mcts_search", tree.visits.device,
+        ROUTE_ENTRY[route], tree.visits.device,
         *(t.data_ptr() for t in tree), *(t.data_ptr() for t in ctx),
         None if value is None else value.flat.data_ptr(), hidden,
         B, M, Fp, Pp, int(num_sims))
     LAUNCHES["mcts_search"] += 1
+    ROUTE_LAUNCHES[route] += 1
     return tree
 
 

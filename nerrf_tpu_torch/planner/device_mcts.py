@@ -166,6 +166,16 @@ class DeviceMCTS:
             consts=search_constants(float(d.max_steps), float(self.cfg.c_puct), dev),
         )
         self._weights = None if self.value is None else self.value.search_weights(dev)
+        # the trees of the last plan(), left on the device for inspection
+        self.last_tree: Optional[MCTSTree] = None
+
+    @property
+    def route(self) -> str:
+        """The ``mcts_search`` entry this planner's trees take on the card
+        (:func:`ops.mcts.search_route` of its shape)."""
+        return ops_mcts.search_route(self.cfg.num_simulations + 1, self._dims["F"],
+                                     self._dims["P"],
+                                     0 if self._weights is None else self._weights.hidden)
 
     def _pad_state(self, s: np.ndarray) -> np.ndarray:
         """Domain-shaped state [F+P+3] → padded [Fp+Pp+3]; pad files are
@@ -270,6 +280,7 @@ class DeviceMCTS:
             t0 = time.perf_counter()
             tree = self.init_tree()
             run_chunks(tree, self._ctx, self._weights, self.cfg, t0)
+            self.last_tree = tree
             host = tree_to_host(tree)
             elapsed = time.perf_counter() - t0
             visits = host["visits"][0]
