@@ -41,7 +41,7 @@ launch counters set to 0 just before it and read just after:
   ``segment`` aggregation mode, for 20 steps over ``make_corpus`` cut to 2
   traces;
 * ``run_experiment``, the experiment runner, over ``configs/joint-100h.json``
-  cut to 6 traces (2 held out) and 200 steps in the ``fused`` mode (the
+  cut to 6 traces (2 held out) and 40 steps in the ``fused`` mode (the
   port's ``auto``): training, the held-out evaluation, the checkpoint and
   the calibration of the file threshold over nine simulated incidents.
   The checkpoint is loaded back: the loaded model must give the in-memory
@@ -53,19 +53,20 @@ launch counters set to 0 just before it and read just after:
 * the reference's own training paths on the training rung: the streamed
   step, the scheduled step (the dataset and the index schedule on the card,
   uploaded by ``device_put_chunked`` through pinned buffers on a side
-  stream, itself held bit-equal to a plain copy) and four supersteps of 5,
-  bit-equal in losses and final params, 59/59/112/56 launches a step, and
-  their steps/s and busy share in turns; ``train_elastic`` for 40 steps
-  with dropout on, and again preempted at step 17 and resumed, bit-equal;
+  stream, itself held bit-equal to a plain copy) and one superstep of 5,
+  5 steps each, bit-equal in losses and final params, 59/59/112/56
+  launches a step, and their steps/s and busy share in turns;
+  ``train_elastic`` for 10 steps with dropout on, and again preempted at
+  step 4 and resumed, bit-equal;
   one telemetry-on step (its ``grad_norm`` against a float64 norm of the
   same gradients, its cost a step) and ``train_nerrfnet`` with a
   ``TrainHealthMonitor`` on a dataset with one NaN window, halted at that
   window's step with empty metrics;
 * a disk corpus generated by the port's ``generate_corpus`` (1 h of 600 s
   traces, 64 windows a shard, configs/joint-100h.json's dataset) and
-  ``run_experiment`` over it: 200 full-width ``fused`` steps rotating the
+  ``run_experiment`` over it: 60 full-width ``fused`` steps rotating the
   shards through the card (the first batch of each shard bit-equal to its
-  rows on the host), checkpoints every 50 steps, the calibration, and the
+  rows on the host), checkpoints every 30 steps, the calibration, and the
   reloaded checkpoint bit-equal in ``model_detect``.
 
 The counters must show the launches derived from the model's structure on
@@ -130,15 +131,26 @@ with a reason: no snapshot context binds an alert's ``ino:`` targets), the
 ``mcts_search`` launches derived from that run's waves, no recompile.
 
 Then the command line (``run_cli_path``, ``python -m nerrf_tpu_torch.cli``):
-the README's ``simulate``/``undo``/``status`` as subprocesses (exit 0, the
-incident recovered and verified, no byte lost, no clean file reverted),
-``serve`` of a CSV trace as a subprocess drained by ``ingest`` (every
-event back, bit-equal in ``model_detect``), and in-process with the
+the README's ``simulate`` as a subprocess, ``undo`` and ``status`` (exit 0,
+the incident recovered and verified, no byte lost, no clean file
+reverted), ``serve`` of a CSV trace as a subprocess drained by ``ingest``
+(every event back, bit-equal in ``model_detect``), and in-process with the
 counters read around each: ``undo --model-dir`` with ``--trace-out`` and
-``trace``, ``train-detector`` at the CLI's defaults (exit 0, the checkpoint
+``trace``, ``train-detector`` (100 steps, 8 traces; exit 0, the checkpoint
 reloaded bit-equal), ``warmup``, ``serve-detect`` over two streams (each
 bit-equal to ``model_detect``, 28/2/3/2/0 a forward, no recompile) and
 ``respond`` (every family verified), each leg's launches derived.
+
+Then the model lifecycle (``run_lifecycle_path``) on the experiment's
+checkpoint at full width: the quality profile built on the card
+(28/2/3/2/0 a batch, the batches derived from the host lowering), a
+registry booted into the serve scorer through ``ModelManager`` with the
+archive attached, a nudged candidate promoted and a constant-logit one
+vetoed by the guardrails after shadow scoring (56/4/6/4/0 a batch with a
+shadow staged, 28/2/3/2/0 without), ``models rollback``, serve bit-equal
+to ``model_detect`` after the promotion and after the rollback, ``archive
+verify`` clean and ``report``'s window count the windows served, and the
+CLI's ``models``, ``quality``, ``archive`` and ``report`` exit 0.
 
 Then StreamNet (``run_stream_path``): the three attention entry points of
 ``flash_attention.cu`` against the plain version (forward O and dQ, dK, dV
@@ -164,12 +176,18 @@ traces, the undo path's rollouts/s, incidents/s and MTTR split, and as its
 last line ``{"ok": true, "device": {...}}``; before it the training paths'
 and the disk corpus run's lines (steps/s in turns, the upload's GB/s,
 checkpoint bytes and seconds, the telemetry's cost, shards rotated, data
-wait, held-out metrics).  Exits non-zero, with no result
-line, when a phase fails or there is no card.
+wait, held-out metrics), each phase's seconds on one line, and the
+lifecycle's line (the profile's seconds, ms a scoring call with and
+without a shadow staged, windows/s of legs with and without one, the
+guardrails' decisions, the archive's bytes).  Exits non-zero, with no
+result line, when a phase fails or there is no card.
 
 ``python3 chip_smoke.py --stream-probe SEED [SEED ...]`` runs only the
 stream quality probe, once for each init seed (the spread of its held-out
 event AUC over inits), and prints one JSON line of their readings.
+
+``python3 chip_smoke.py --lifecycle`` runs only the lifecycle phase, on a
+seeded full-width checkpoint, and prints one JSON line of its readings.
 
 ``python3 chip_smoke.py --planner [ROOT]`` runs only the search kernel:
 with no ROOT its entries' ``ptxas`` lines, ``check_mcts`` on both entries
@@ -217,6 +235,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAIN_CONFIG = os.path.join(ROOT, "configs", "joint-100h.json")
 TRAIN_TRACES = 2
 TRAIN_STEPS = 20
+# rounds of the step's part-by-part timing (15 until the smoke's own time
+# was cut, ROADMAP B.C1)
+TRAIN_TIMING_ROUNDS = 7
 TRAIN_LOG_EVERY = 5
 TRAIN_RUNG = (1024, 2048, 128, 100)     # nodes, edges, sequences, steps
 # one full-width step's gradients, kernels vs plain versions, per parameter:
@@ -237,11 +258,13 @@ SMALL_TRAIN_RTOL = 1e-4
 # the experiment phase: configs/joint-100h.json through run_experiment, its
 # corpus cut from 24 traces to 6 (eval_fraction 0.25 holds out 2: corpus-4-
 # benign and corpus-5-atk; at 4 traces the one held-out trace is benign and
-# every AUC reads its degenerate 0.5), its 12000 steps to 200 and its loss
-# read every 50 steps (the config: 500); nothing else changed
+# every AUC reads its degenerate 0.5), its 12000 steps to 40 (200 until
+# the smoke's own time was cut, ROADMAP B.C1; at 20 the checkpoint raised no
+# alert on the M1 incident, which the respond chain gates) and its loss read
+# every 20 steps (the config: 500); nothing else changed
 EXPERIMENT_TRACES = 6
-EXPERIMENT_STEPS = 200
-EXPERIMENT_LOG_EVERY = 50
+EXPERIMENT_STEPS = 40
+EXPERIMENT_LOG_EVERY = 20
 # the runner's report, as the reference's train/run.py writes it
 REPORT_KEYS = {"experiment", "backend", "devices", "num_steps", "steps_per_sec",
                "metrics", "calibration", "gates", "wall_seconds"}
@@ -251,9 +274,27 @@ HELD_OUT = ("edge_auc", "node_auc", "seq_auc", "seq_f1", "node_f1")
 # metrics.json (4 decimals) within two units of its last decimal (a value on
 # a rounding boundary may round either way), the calibration's cuts within
 # 1e-5 (the CPU tests hold the port against the reference at these limits)
-SMALL_RUN_STEPS = 20
+SMALL_RUN_STEPS = 10           # 20 until the smoke's own time was cut (B.C1)
 SMALL_RUN_ATOL = 2e-4
 SMALL_CUT_ATOL = 1e-5
+# the small experiment calibrates over one incident of each of five scenarios
+# on both sides (the CPU tests' subset; all nine until the smoke's own time
+# was cut, ROADMAP B.C1)
+SMALL_CALIBRATION = dict(n_traces=1, exclude_scenarios=frozenset(
+    {"partial-encrypt", "exfil-encrypt", "benign-atomic-rewrite"}))
+
+
+# each phase's seconds of command time, in the order run (_timed)
+PHASE_SECONDS = {}
+
+
+def _timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds kept in PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
 
 
 def _fail(msg: str) -> None:
@@ -1156,26 +1197,30 @@ def replay(svc, traces: dict, suffix: str = "") -> tuple:
     return dets, wall_s
 
 
-def _counting_service():
-    """``OnlineDetectionService`` with each forward's kernel launches kept in
-    ``batch_launches``: the launches one ``_run_eval`` call adds to the
-    counters, read on the thread that calls it (the only one launching
-    while it runs: the start() thread at warmup, then the scorer)."""
+def _counting_service(per: str = "forward"):
+    """``OnlineDetectionService`` with the kernel launches of each forward
+    (``per="forward"``: one ``_run_eval`` call) or of each scored batch
+    (``per="batch"``: one ``_score_fn`` call, the live forward and a staged
+    shadow's) kept in ``batch_launches``, read on the thread that calls it
+    (the only one launching while it runs: the start() thread at warmup,
+    then the scorer)."""
     from nerrf_tpu_torch.ops import LAUNCHES
     from nerrf_tpu_torch.serve import OnlineDetectionService
+
+    hook = {"forward": "_run_eval", "batch": "_score_fn"}[per]
+
+    def counted(self, *args):
+        before = dict(LAUNCHES)
+        out = getattr(OnlineDetectionService, hook)(self, *args)
+        self.batch_launches.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+        return out
 
     class CountingService(OnlineDetectionService):
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             self.batch_launches = []
 
-        def _run_eval(self, eval_fn, batch):
-            before = dict(LAUNCHES)
-            out = super()._run_eval(eval_fn, batch)
-            self.batch_launches.append(
-                {k: LAUNCHES[k] - before[k] for k in LAUNCHES})
-            return out
-
+    setattr(CountingService, hook, counted)
     return CountingService
 
 
@@ -1832,17 +1877,19 @@ def run_train_path(traces, ds, cfg) -> dict:
 
     # host-bound work (launches dominate), so each part is timed on the host
     # clock between syncs, the parts in turn (clip_adamw right after
-    # fwd_bwd) for 15 rounds after 2 warm-up rounds, and the medians kept:
-    # drifts of the shared host hit all alike
+    # fwd_bwd) for TRAIN_TIMING_ROUNDS rounds after 2 warm-up rounds, and the
+    # medians kept: drifts of the shared host hit all alike
     step = make_train_step(model, cfg)
     state = res.state
     ms = round_robin_ms({"step": lambda: step(state, batch, gen),
                          "fwd_bwd": fwd_bwd, "clip_adamw": clip_adamw,
                          "fwd": lambda: loss_fn(batch, gen),
-                         "lstm_fwd_bwd": lstm_fwd_bwd, "lstm_fwd": lstm_fwd})
+                         "lstm_fwd_bwd": lstm_fwd_bwd, "lstm_fwd": lstm_fwd},
+                      rounds=TRAIN_TIMING_ROUNDS)
     step_ms, fb_ms, f_ms = ms["step"], ms["fwd_bwd"], ms["fwd"]
     lf_ms, lfb_ms = ms["lstm_fwd"], ms["lstm_fwd_bwd"]
-    print(f"training step on the card (batch of {cfg.batch_size}, medians of 15): "
+    print(f"training step on the card (batch of {cfg.batch_size}, medians of "
+          f"{TRAIN_TIMING_ROUNDS}): "
           f"whole step {step_ms:.1f} ms; forward {f_ms:.1f} ms, of which LSTM "
           f"{lf_ms:.1f} ms ({lf_ms / f_ms:.2f}); backward {fb_ms - f_ms:.1f} ms, "
           f"of which LSTM {lfb_ms - lf_ms:.1f} ms "
@@ -1983,13 +2030,19 @@ def check_small_train() -> float:
 
 # --- the reference's own training paths: resident, elastic, trainwatch ----------
 
-SUPERSTEP_K = 5                 # 4 supersteps of 5 make the cell's 20 steps
+SUPERSTEP_K = 5                 # one superstep of 5 makes RESIDENT_STEPS
+# the resident paths' depth: each flavor takes 5 of the cell's steps (all
+# 20 until the smoke's own time was cut, ROADMAP B.C1)
+RESIDENT_STEPS = 5
 # the busy share of each flavor is read over this many steps (supersteps of
-# as many): a profiler trace of 20 steps takes minutes to summarize
-BUSY_STEPS = 2
-ELASTIC_STEPS = 40
-ELASTIC_SAVE_EVERY = 10
-ELASTIC_FAULT_AT = 17           # after the step-10 checkpoint, before step 20's
+# as many): a profiler trace of 20 steps takes minutes to summarize (2
+# until the smoke's own time was cut, ROADMAP B.C1)
+BUSY_STEPS = 1
+# the elastic run's depth: 10 steps, a checkpoint every 3 (40 and 10 until
+# the smoke's own time was cut, ROADMAP B.C1)
+ELASTIC_STEPS = 10
+ELASTIC_SAVE_EVERY = 3
+ELASTIC_FAULT_AT = 4            # after the step-3 checkpoint, before step 6's
 # the in-step grad_norm (f32 sums) against a float64 norm of the same raw
 # gradients, relative
 TELEMETRY_RTOL = 1e-5
@@ -2036,6 +2089,8 @@ def run_resident_paths(ds, cfg) -> dict:
     59/59/112/56 launches a step on each; then steps/s of each, in turns
     (two rounds, both gated), and the busy share of BUSY_STEPS steps of each
     under the profiler, over their share of the rounds' wall time."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -2045,6 +2100,7 @@ def run_resident_paths(ds, cfg) -> dict:
         make_train_step_scheduled, make_train_superstep)
 
     upload = check_upload(ds.arrays)
+    cfg = dataclasses.replace(cfg, num_steps=RESIDENT_STEPS)
     sched = make_idx_schedule(len(ds), cfg)
     n = cfg.num_steps
     if n % SUPERSTEP_K:
@@ -2397,8 +2453,12 @@ def run_experiment_path() -> dict:
         _sync()
         wall_s = time.perf_counter() - since
         launches = dict(LAUNCHES)
+        # a calibrated checkpoint ships the quality profile built at its cut
+        profiled = shipped_profile_forwards(os.path.join(out, "model"))
+        want = {k: v + profiled * fwd[k] for k, v in want.items()}
         print(f"experiment launches {launches}, expected {want} ({cfg.num_steps} "
-              f"fused steps of {step}, {eval_batches} + {cal_batches} forwards of {fwd})")
+              f"fused steps of {step}, {eval_batches} + {cal_batches} + {profiled} "
+              f"forwards of {fwd})")
         if launches != want:
             _fail(f"experiment launch counts {launches} != {want}")
         if "gnn aggregation=fused" not in log:
@@ -2485,12 +2545,15 @@ def run_experiment_path() -> dict:
 def check_small_experiment() -> dict:
     """A small float32 experiment (``configs/toy-graphsage.json``'s corpus,
     dataset and model widths; dropout 0, ``segment`` mode, SMALL_RUN_STEPS
-    steps, calibration on) through ``run_experiment`` on the card (kernels)
+    steps, calibration on over SMALL_CALIBRATION's incidents) through
+    ``run_experiment`` on the card (kernels)
     and on the CPU (plain versions), from the same init (drawn on the CPU
     generator on both): the held-out metrics within SMALL_RUN_ATOL, the same
     calibration within SMALL_CUT_ATOL or unreachable on both."""
+    import functools
     import tempfile
 
+    from nerrf_tpu_torch import pipeline
     from nerrf_tpu_torch.ops import LAUNCHES, reset_launches
     from nerrf_tpu_torch.train.run import run_experiment
 
@@ -2506,14 +2569,19 @@ def check_small_experiment() -> dict:
         with open(path, "w") as f:
             json.dump(spec, f)
         runs = {}
-        for dev in ("cpu", "cuda"):
-            reset_launches()
-            report, _, log = _run_logged(run_experiment, path, os.path.join(tmp, dev),
-                                         device=dev)
-            _sync()
-            runs[dev] = (report, dict(LAUNCHES),
-                         _check_calibration(os.path.join(tmp, dev, "model"), log,
-                                            f"small experiment on {dev}"))
+        real = pipeline.calibrate_file_thresholds
+        pipeline.calibrate_file_thresholds = functools.partial(real, **SMALL_CALIBRATION)
+        try:
+            for dev in ("cpu", "cuda"):
+                reset_launches()
+                report, _, log = _run_logged(run_experiment, path,
+                                             os.path.join(tmp, dev), device=dev)
+                _sync()
+                runs[dev] = (report, dict(LAUNCHES),
+                             _check_calibration(os.path.join(tmp, dev, "model"), log,
+                                                f"small experiment on {dev}"))
+        finally:
+            pipeline.calibrate_file_thresholds = real
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     (cpu, cpu_launches, _), (card, card_launches, cal_text) = runs["cpu"], runs["cuda"]
@@ -2545,8 +2613,8 @@ def check_small_experiment() -> dict:
 # windows a shard to 64, windowed with configs/joint-100h.json's dataset
 CORPUS_HOURS = 1.0
 CORPUS_SHARD_WINDOWS = 64
-CORPUS_STEPS = 200
-CORPUS_CKPT_EVERY = 50
+CORPUS_STEPS = 60           # 200 until the smoke's own time was cut (B.C1)
+CORPUS_CKPT_EVERY = 30
 CORPUS_MIN_ROTATIONS = 3
 
 
@@ -2679,7 +2747,11 @@ def run_disk_corpus_path(config_path: str = TRAIN_CONFIG, steps: int = CORPUS_ST
         wall_s = time.perf_counter() - since
         launches = dict(LAUNCHES)
         spans = _span_seconds(since)
-        print(f"disk corpus run launches {launches}, expected {want}")
+        # a calibrated checkpoint ships the quality profile built at its cut
+        profiled = shipped_profile_forwards(os.path.join(out, "model"))
+        want = {k: v + profiled * fwd[k] for k, v in want.items()}
+        print(f"disk corpus run launches {launches}, expected {want} ({profiled} "
+              f"profile forwards)")
         if launches != want:
             _fail(f"disk corpus launch counts {launches} != {want}")
         info = res.info
@@ -3299,17 +3371,22 @@ def _data_loss(store, manifest, victim, encrypted, report, ransom_ext) -> tuple:
     return lost, fp
 
 
-def m1_incident(tmp) -> tuple:
+def m1_attacked(tmp) -> tuple:
     """run_recovery_bench's M1 incident (UNDO_FILES) seeded in ``tmp /
-    "victim"`` and snapshotted into ``tmp / "store"``: (victim, file
-    config, store, manifest)."""
-    from nerrf_tpu_torch.rollback import FileSimConfig, SnapshotStore
+    "victim"``, snapshotted into ``tmp / "store"``, then attacked (timed):
+    (victim, file config, store, manifest, trace, encrypted files, attack
+    seconds).  The undo run and ``--planner``'s undo tree both start here,
+    so both search the same problem."""
+    from nerrf_tpu_torch.rollback import FileSimConfig, SnapshotStore, run_file_attack
     from nerrf_tpu_torch.rollback.filesim import seed_files
 
     victim, cfg = tmp / "victim", FileSimConfig(**UNDO_FILES)
     seed_files(victim, cfg)
     store = SnapshotStore(tmp / "store")
-    return victim, cfg, store, store.snapshot(victim, "pre-attack")
+    manifest = store.snapshot(victim, "pre-attack")
+    t0 = time.perf_counter()
+    trace, encrypted = run_file_attack(victim, cfg)
+    return victim, cfg, store, manifest, trace, encrypted, time.perf_counter() - t0
 
 
 def m1_undo_problem(trace, manifest, victim, value) -> tuple:
@@ -3328,19 +3405,17 @@ def m1_undo_problem(trace, manifest, victim, value) -> tuple:
 
 
 def m1_undo_domain() -> tuple:
-    """The undo run's search problem outside its window: :func:`m1_incident`
-    in a temporary directory, attacked, then :func:`m1_undo_problem` with a
-    fresh value net; (domain, net)."""
+    """The undo run's search problem outside its window: :func:`m1_attacked`
+    in a temporary directory, then :func:`m1_undo_problem` with a fresh
+    value net; (domain, net)."""
     import tempfile
     from pathlib import Path
 
     from nerrf_tpu_torch.planner.value_net import ValueNet
-    from nerrf_tpu_torch.rollback import run_file_attack
 
     tmp = Path(tempfile.mkdtemp(prefix="nerrf-undo-"))
     try:
-        victim, cfg, _, manifest = m1_incident(tmp)
-        trace, _ = run_file_attack(victim, cfg)
+        victim, _, _, manifest, trace, _, _ = m1_attacked(tmp)
         net = ValueNet.create(device="cuda")
         _, _, domain, _ = m1_undo_problem(trace, manifest, victim, net)
     finally:
@@ -3424,22 +3499,19 @@ def run_undo_path(model_dir: str) -> dict:
     from nerrf_tpu_torch.pipeline import build_undo_domain, fit_capacity, model_detect
     from nerrf_tpu_torch.planner import DeviceMCTS, MCTSConfig, make_planner
     from nerrf_tpu_torch.planner.value_net import ValueNet
-    from nerrf_tpu_torch.rollback import RollbackExecutor, SandboxGate, run_file_attack
+    from nerrf_tpu_torch.rollback import RollbackExecutor, SandboxGate
     from nerrf_tpu_torch.train.checkpoint import load_calibration, load_checkpoint
     from nerrf_tpu_torch.train.data import DatasetConfig, windows_of_trace
 
     tmp = Path(tempfile.mkdtemp(prefix="nerrf-undo-"))
     try:
-        victim, cfg, store, manifest = m1_incident(tmp)
-        total_bytes = sum(sz for _, sz, _ in manifest.files.values())
         planner_cfg = MCTSConfig(num_simulations=MCTS_SIMS)
         t0 = time.perf_counter()
         value = ValueNet.create(device="cuda")
         DeviceMCTS.warmup_for(1, 1, cfg=planner_cfg, value=value, device="cuda")
         boot_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        trace, encrypted = run_file_attack(victim, cfg)
-        attack_s = time.perf_counter() - t0
+        victim, cfg, store, manifest, trace, encrypted, attack_s = m1_attacked(tmp)
+        total_bytes = sum(sz for _, sz, _ in manifest.files.values())
         attacked = tmp / "attacked"
         shutil.copytree(victim, attacked)
 
@@ -3918,12 +3990,16 @@ CLI_README = (("simulate", "--incident", "{D}", "--files", "20", "--seed", "5"),
               ("undo", "--incident", "{D}", "--simulations", "300"),
               ("status", "--incident", "{D}"))
 # seconds the `serve` subprocess serves the seed-5 CSV: its start-up (the
-# interpreter and the imports, about 10 s), the ingest (about 1 s) and the
-# README's commands run inside them
-CLI_SERVE_SECONDS = 40
-# train-detector at the CLI's own defaults (the reference's flags: 12 traces,
-# 3 held out, hidden 48, 4 GNN layers and a 1-layer LSTM, 300 steps,
-# 256n/512e/128s windows), with --ckpt-every 100, which takes train_elastic
+# interpreter and the imports, about 10 s) and the ingest (about 1 s) run
+# inside them, the README's commands beside them (40 until the smoke's own
+# time was cut, ROADMAP B.C1)
+CLI_SERVE_SECONDS = 10
+# train-detector at the CLI's own defaults (the reference's flags: hidden 48,
+# 4 GNN layers and a 1-layer LSTM, 256n/512e/128s windows) but for depth: 100
+# steps and 8 traces, 2 held out (the defaults, 300 and 12, until the smoke's
+# own time was cut, ROADMAP B.C1), with --ckpt-every 100, which takes
+# train_elastic
+CLI_TRAIN_CUT = ("--steps", "100", "--traces", "8")
 CLI_CKPT_EVERY = 100
 CLI_SERVE_BUCKET = (4096, 4096, 4096)
 
@@ -4012,8 +4088,8 @@ def run_cli_path(model_dir: str, undo_mttr_s: float) -> dict:
        --store-dir S --metrics-port 0``: every event stored, the store's
        query equal to the trace event for event, and ``model_detect`` on it
        bit-equal to ``model_detect`` on the trace;
-    2. the README's three commands as subprocesses (simulate, undo at 300
-       simulations, status): exit codes 0, 0, 0, ``"recovered"``,
+    2. the README's three commands (simulate as a subprocess, undo at 300
+       simulations and status in this process): exit codes 0, 0, 0, ``"recovered"``,
        ``report.json`` verified, no byte lost, no clean file reverted;
     3. ``undo --model-dir <the experiment's checkpoint> --trace-out`` on the
        Undo cell's M1 incident, staged as ``simulate`` stages one: its
@@ -4022,9 +4098,10 @@ def run_cli_path(model_dir: str, undo_mttr_s: float) -> dict:
        trace's windows) × 28/2/3/2/0; the exit code, plan and gate reported,
        not gated; ``trace --file`` on its trace: exit 0 and a table holding
        ``mcts_plan``;
-    4. ``train-detector`` at the CLI's defaults with ``--ckpt-every 100``:
-       exit 0 (its ``edge_auc >= 0.9`` rule), the launches 300 fused steps
-       of a 4-layer model plus the held-out and calibration forwards, the
+    4. ``train-detector`` at the CLI's defaults but for CLI_TRAIN_CUT, with
+       ``--ckpt-every 100``: exit 0 (its ``edge_auc >= 0.9`` rule), the
+       launches its fused steps of a 4-layer model plus the held-out,
+       calibration and quality-profile forwards, the
        checkpoint reloaded bit-equal to the trained weights, the
        calibration written or reported unreachable;
     5. ``warmup --model-dir … --buckets 4096x4096x4096``: exit 0, no
@@ -4105,15 +4182,31 @@ def run_cli_path(model_dir: str, undo_mttr_s: float) -> dict:
         out["ingest"] = dict(events=n, seconds=ingest_s, events_per_s=n / ingest_s,
                              serve_up_s=up_s, segments=ingested["segments_live"])
 
-        # --- 2. the README's three commands, as subprocesses -------------------
+        # --- 2. the README's three commands: simulate as a subprocess (the
+        # entry point as a user types it), undo and status in this process,
+        # which saves two interpreters' start-up (B.C1) ---------------------------
         inc = tmp / "D"
         readme = []
         for argv in CLI_README:
+            argv = [a.format(D=inc) for a in argv]
             t0 = time.perf_counter()
-            proc = subprocess.run(_cli_argv(*(a.format(D=inc) for a in argv)),
-                                  cwd=ROOT, capture_output=True, text=True, timeout=600)
-            readme.append(dict(rc=proc.returncode, s=time.perf_counter() - t0,
-                               stdout=proc.stdout, log=proc.stderr))
+            if argv[0] != "simulate":
+                _reset_counts()
+                rc, text, log = _cli_run(*argv)
+                got = _launch_counts()
+                count(got)
+                # the heuristic undo: the boot warmup's one search, then the
+                # plan's chunks of 128; status launches nothing
+                sims = int(argv[argv.index("--simulations") + 1]) if argv[0] == "undo" else 0
+                want = {**{k: 0 for k in per_forward},
+                        "mcts_search": 1 + math.ceil(sims / 128) if sims else 0}
+                if got != want:
+                    _fail(f"cli {argv[0]}: launches {got} != {want}")
+            else:
+                proc = subprocess.run(_cli_argv(*argv), cwd=ROOT, capture_output=True,
+                                      text=True, timeout=600)
+                rc, text, log = proc.returncode, proc.stdout, proc.stderr
+            readme.append(dict(rc=rc, s=time.perf_counter() - t0, stdout=text, log=log))
         status = json.loads(readme[2]["stdout"]) if readme[2]["rc"] == 0 else {}
         report = json.loads((inc / "report.json").read_text()) \
             if (inc / "report.json").exists() else {}
@@ -4197,7 +4290,8 @@ def run_cli_path(model_dir: str, undo_mttr_s: float) -> dict:
 
         # --- 4. train-detector at the CLI's defaults ----------------------------
         td = tmp / "detector"
-        flags = vars(cli.build_parser().parse_args(["train-detector", "--model-dir", str(td)]))
+        flags = vars(cli.build_parser().parse_args(
+            ["train-detector", "--model-dir", str(td), *CLI_TRAIN_CUT]))
         train = {k: flags[k] for k in ("traces", "seed", "hidden", "layers", "steps")}
         ds_cfg = DatasetConfig(graph=GraphConfig(max_nodes=256, max_edges=512),
                                seq_len=100, max_seqs=128)
@@ -4224,7 +4318,7 @@ def run_cli_path(model_dir: str, undo_mttr_s: float) -> dict:
         try:
             _reset_counts()
             t0 = time.perf_counter()
-            rc, _, log = _cli_run("train-detector", "--model-dir", td,
+            rc, _, log = _cli_run("train-detector", "--model-dir", td, *CLI_TRAIN_CUT,
                                   "--ckpt-every", CLI_CKPT_EVERY)
             train_s = time.perf_counter() - t0
         finally:
@@ -4232,10 +4326,12 @@ def run_cli_path(model_dir: str, undo_mttr_s: float) -> dict:
         got = _launch_counts()
         count(got)
         res = kept["result"]
+        profiled = shipped_profile_forwards(td)
+        want = {k: v + profiled * fwd.get(k, 0) for k, v in want.items()}
         if rc != 0 or got != want:
             _fail(f"cli train-detector: exit {rc} (metrics {res.metrics}), launches "
                   f"{got} != {want} ({train['steps']} steps of {step}, "
-                  f"{eval_batches} + {cal_batches} forwards of {fwd})")
+                  f"{eval_batches} + {cal_batches} + {profiled} forwards of {fwd})")
         sd, tcfg = load_checkpoint(td)
         trained = res.state.model.state_dict()
         differ = [k for k in trained if not torch.equal(sd[k], trained[k].cpu())]
@@ -4245,11 +4341,12 @@ def run_cli_path(model_dir: str, undo_mttr_s: float) -> dict:
         out["train"] = dict(rc=rc, flags=train, seconds=train_s, steps_per_s=res.steps_per_sec,
                             metrics={k: round(float(res.metrics[k]), 4) for k in HELD_OUT},
                             calibration=calibration, launches=got)
-        print(f"cli train-detector ({train}, --ckpt-every {CLI_CKPT_EVERY}): exit "
+        print(f"cli train-detector ({train}, --ckpt-every {CLI_CKPT_EVERY}, every "
+              f"other flag at its default): exit "
               f"{rc} in {train_s:.1f} s, "
               f"{res.steps_per_sec:.3f} steps/s after step 0; held-out "
               f"{json.dumps(out['train']['metrics'])}; {calibration}; launches {got} "
-              f"({train['steps']} x {step} + {eval_batches + cal_batches} x "
+              f"({train['steps']} x {step} + {eval_batches + cal_batches + profiled} x "
               f"{fwd}); the checkpoint reloads bit-equal")
 
         # --- 5. warmup ------------------------------------------------------------
@@ -4368,6 +4465,339 @@ def run_cli_path(model_dir: str, undo_mttr_s: float) -> dict:
           f"s; respond waves {out['respond']['waves']} in {out['respond']['seconds']:.1f} s; "
           f"launches {total}")
     return out
+
+
+# --- the model lifecycle: quality profile, registry, shadow, archive ---------
+
+# the guardrails' evidence floor for the phase's candidates: a verdict after
+# 16 shadow windows, the last 8 each under the canary cut (the serve cell's
+# four streams give 45 windows a pass)
+LIFECYCLE_POLICY = dict(shadow_min_windows=16, canary_windows=8)
+# the promotable candidate: the checkpoint's weights moved by seeded noise of
+# this fraction of each tensor's standard deviation
+LIFECYCLE_NUDGE = 1e-3
+# the vetoed candidate: the node head's weights zeroed and its bias set here,
+# so every real node scores sigmoid(3) ≈ 0.953
+LIFECYCLE_CONST_LOGIT = 3.0
+# rounds of the shadow-overhead timing (each: without, with, with, without),
+# and scoring calls a turn
+LIFECYCLE_TURNS = 1
+LIFECYCLE_CALLS = 3
+
+
+def profile_batches(traces, ds_cfg=None, batch_size: int = 8) -> tuple:
+    """(windows, batches) of ``build_reference_profile`` over ``traces``,
+    from the host lowering: every window that lowers, packed across traces
+    into batches of ``batch_size``."""
+    from nerrf_tpu_torch.data import Trace
+    from nerrf_tpu_torch.train.data import DatasetConfig, windows_of_trace
+
+    ds_cfg = ds_cfg or DatasetConfig()
+    windows = sum(len(windows_of_trace(
+        Trace(events=tr.events, strings=tr.strings, ground_truth=None,
+              labels=None, name=tr.name), ds_cfg)) for tr in traces)
+    return windows, math.ceil(windows / batch_size)
+
+
+def shipped_profile_forwards(model_dir) -> int:
+    """The profile build's forwards that ``calibrate_and_resave`` ran for the
+    checkpoint at ``model_dir``: its batches when the calibration was written
+    (the build runs at the calibrated cut), else none; a calibrated
+    checkpoint must carry the profile."""
+    from nerrf_tpu_torch.train.checkpoint import (
+        load_calibration, load_quality_profile, profile_traces)
+
+    if not load_calibration(model_dir):
+        return 0
+    windows, batches = profile_batches(profile_traces())
+    shipped = load_quality_profile(model_dir)
+    if shipped is None or shipped["windows"] != windows:
+        _fail(f"{model_dir}: a calibrated checkpoint without its quality profile "
+              f"of {windows} windows ({shipped and shipped['windows']})")
+    return batches
+
+
+def _lifecycle_candidates(state, seed: int = 7) -> dict:
+    """The two candidates' state dicts: ``near`` (each tensor moved by
+    seeded noise of LIFECYCLE_NUDGE of its standard deviation) and
+    ``constant`` (the node head's logits one constant)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    near = {}
+    for k, v in state.items():
+        if v.is_floating_point() and v.numel() > 1:
+            noise = torch.randn(v.shape, generator=gen, dtype=torch.float32)
+            near[k] = (v.float() + LIFECYCLE_NUDGE * v.float().std() * noise).to(v.dtype)
+        else:
+            near[k] = v.clone()
+    const = {k: v.clone() for k, v in state.items()}
+    const["gnn.node_head.weight"].zero_()
+    const["gnn.node_head.bias"].fill_(LIFECYCLE_CONST_LOGIT)
+    return {"near": near, "constant": const}
+
+
+def run_lifecycle_path(model_dir: str) -> dict:
+    """The model lifecycle at full width on the checkpoint at ``model_dir``
+    (the experiment's), each leg with the counters set to 0 just before it
+    and read just after:
+
+    a. ``build_reference_profile`` over ``checkpoint.profile_traces()`` at
+       the checkpoint's operating point: its launches the batches derived
+       from the host lowering × 28/2/3/2/0; the profile ships in v1's
+       checkpoint (bit-equal to the one ``calibrate_and_resave`` shipped,
+       where the calibration was written);
+    b. v1 published into a temporary registry and promoted; the serve
+       scorer booted from LIVE through ``ModelManager`` on the serve cell's
+       one-bucket ladder, the archive attached, v1's profile bound;
+    c. two candidates published and staged in turn over the serve cell's
+       four streams: each batch with a shadow staged launches two forwards
+       (56/4/6/4/0), without one a single forward; the near candidate
+       promoted by the guardrails, the constant-logit one vetoed;
+    d. after the promotion, and after ``models rollback`` (the CLI), every
+       stream bit-equal to ``model_detect`` with the serving version;
+    e. ``archive verify`` clean on the written segments, ``report``'s
+       window count equal to the windows served;
+    f. the CLI's ``models``, ``quality``, ``archive`` and ``report`` exit 0
+       on these directories.
+    The shadow's cost: ms per scoring call with and without a shadow staged,
+    in turns; windows/s of the four legs, two with a shadow and two
+    without."""
+    import statistics
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from nerrf_tpu_torch import cli
+    from nerrf_tpu_torch.archive import (ArchiveConfig, ArchiveWriter, build_report,
+                                         verify_archive)
+    from nerrf_tpu_torch.data import Trace
+    from nerrf_tpu_torch.flight.journal import EventJournal
+    from nerrf_tpu_torch.models import NerrfNet
+    from nerrf_tpu_torch.observability import MetricsRegistry
+    from nerrf_tpu_torch.pipeline import fit_capacity, model_detect
+    from nerrf_tpu_torch.quality import build_reference_profile
+    from nerrf_tpu_torch.registry import ModelManager, ModelRegistry, RegistryConfig
+    from nerrf_tpu_torch.serve import ServeConfig
+    from nerrf_tpu_torch.train.checkpoint import (
+        load_calibration, load_checkpoint, load_quality_profile, profile_traces,
+        save_checkpoint)
+    from nerrf_tpu_torch.train.data import DatasetConfig, windows_of_trace
+
+    phase_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="nerrf-lifecycle-"))
+    lineage, reg_dir, arc_dir = "lifecycle", tmp / "registry", tmp / "archive"
+    out, decisions = {}, []
+    state, mcfg = load_checkpoint(model_dir)
+    calib = load_calibration(model_dir)
+    thr = calib.get("node_threshold")
+    per_forward = fused_forward_launches(mcfg.gnn.num_layers)
+    per_shadow_batch = {k: 2 * v for k, v in per_forward.items()}
+    svc = man = arc = None
+    try:
+        # --- a. the profile build ---------------------------------------------
+        with torch.device("cuda"):
+            model = NerrfNet(mcfg)
+        model.load_state_dict(state, strict=True)
+        model.eval()
+        ptraces = profile_traces()
+        windows, batches = profile_batches(ptraces)
+        want = {**{k: batches * v for k, v in per_forward.items()}, "mcts_search": 0}
+        _reset_counts()
+        t0 = time.perf_counter()
+        profile = build_reference_profile(model, ptraces, threshold=thr)
+        profile_s = time.perf_counter() - t0
+        got = _launch_counts()
+        if got != want or profile.windows != windows:
+            _fail(f"lifecycle profile: {profile.windows} windows, launches {got} != "
+                  f"{want} ({windows} windows in {batches} batches of 8)")
+        shipped = load_quality_profile(model_dir)
+        if shipped is not None and shipped != profile.to_dict():
+            _fail("lifecycle profile: the one calibrate_and_resave shipped differs "
+                  "from the one built again")
+        out["profile"] = dict(seconds=profile_s, windows=windows, batches=batches,
+                              launches=got, node_scores=profile.node_scores,
+                              margin_mass=profile.margin_mass,
+                              alert_rate=profile.alert_rate)
+        del model
+        for name, sd in (("v1", state), *_lifecycle_candidates(state).items()):
+            save_checkpoint(tmp / name, sd, mcfg, calibration=calib or None,
+                            quality_profile=profile.to_dict() if name == "v1" else None)
+
+        # --- b. the registry boot ---------------------------------------------
+        store = ModelRegistry(reg_dir)
+        rc, text, err = _cli_run("models", "publish", "--registry", reg_dir,
+                                 "--lineage", lineage, "--model-dir", tmp / "v1",
+                                 "--promote")
+        if rc != 0 or store.live_version(lineage) != 1:
+            _fail(f"lifecycle: models publish --promote exit {rc}: {err[-500:]}")
+        reg = MetricsRegistry()
+        journal = EventJournal(registry=reg)
+        man = ModelManager(store, lineage, registry=reg, journal=journal,
+                           cfg=RegistryConfig(**LIFECYCLE_POLICY), log=print)
+        sd1, cfg1, cal1, version = man.boot()
+        with torch.device("cuda"):
+            live = NerrfNet(cfg1)
+        live.load_state_dict(sd1, strict=True)
+        traces = serve_traces()
+        fits = [fit_capacity(tr, DatasetConfig()) for tr in traces.values()]
+        bucket = (max(f.graph.max_nodes for f in fits),
+                  max(f.graph.max_edges for f in fits), max(f.max_seqs for f in fits))
+        scfg = ServeConfig(buckets=(bucket,), batch_size=SERVE_BATCH,
+                           threshold=cal1.get("node_threshold"))
+        ds = scfg.dataset_config(bucket)
+        served = sum(len(windows_of_trace(tr, ds)) for tr in traces.values())
+        svc = _counting_service(per="batch")(live.eval(), scfg, registry=reg,
+                                             journal=journal, device="cuda")
+        arc = ArchiveWriter(ArchiveConfig(out_dir=str(arc_dir)), registry=reg,
+                            journal=journal)
+        svc.attach_archive(arc)
+        svc.start()
+        man.attach(svc)
+        if svc.batch_launches != [per_forward] or svc.live_version != 1:
+            _fail(f"lifecycle boot: v{svc.live_version}, warmup launches "
+                  f"{svc.batch_launches} != [{per_forward}]")
+
+        def leg(tag: str, launches: dict) -> tuple:
+            n0 = len(svc.batch_launches)
+            _reset_counts()
+            dets, wall = replay(svc, traces, suffix=f"-{tag}")
+            per = svc.batch_launches[n0:]
+            if not per or any(b != launches for b in per):
+                _fail(f"lifecycle leg {tag}: launches per batch {per} != {launches}")
+            return dets, dict(windows_per_s=served / wall, batches=len(per),
+                              launches=_launch_counts(), seconds=wall)
+
+        def offline(dets, tag, sd, detector):
+            with torch.device("cuda"):
+                m = NerrfNet(mcfg)
+            m.load_state_dict(sd, strict=True)
+            m.eval()
+            fields = ("file_scores", "file_window_scores", "proc_scores",
+                      "file_bytes", "threshold")
+            for sid, tr in traces.items():
+                want_det = model_detect(
+                    Trace(events=tr.events, strings=tr.strings, ground_truth=None,
+                          labels=None, name=f"{sid}-{tag}"),
+                    m, ds_cfg=ds, auto_capacity=False, batch_size=SERVE_BATCH,
+                    threshold=svc.cfg.threshold, device="cuda")
+                det = dets[f"{sid}-{tag}"]
+                differ = [f for f in fields if getattr(det, f) != getattr(want_det, f)]
+                if differ or det.detector != detector:
+                    _fail(f"lifecycle {tag} {sid}: {differ or det.detector} differ "
+                          f"from model_detect ({detector})")
+
+        def step(expect: str) -> dict:
+            r = man.poll()
+            decisions.append({k: r.get(k) for k in ("action", "live", "shadow",
+                                                    "verdict", "reason") if k in r})
+            if r["action"] != expect:
+                _fail(f"lifecycle: poll {r} (want {expect})")
+            return r
+
+        # --- c, d. a promotion, a veto and a rollback -------------------------
+        store.publish(lineage, tmp / "near", source="lifecycle: nudged")      # v2
+        step("shadow_start")
+        if svc.ready()[2] != {"model_version": "v1", "lineage": lineage,
+                              "shadow_version": "v2"}:
+            _fail(f"lifecycle: readiness {svc.ready()} with v2 staged")
+        _, out["shadow_near"] = leg("near", per_shadow_batch)
+        if svc.quality_snapshot() is None:
+            _fail("lifecycle: no quality snapshot with v1's profile bound")
+        step("auto_promote")
+        if svc.live_version != 2:
+            _fail(f"lifecycle: live v{svc.live_version} after the promotion")
+        dets, out["live_v2"] = leg("v2", per_forward)
+        offline(dets, "v2", store.load(lineage, 2)[0], "serve[max]@v2")
+        store.publish(lineage, tmp / "constant", source="lifecycle: constant")  # v3
+        step("shadow_start")
+        _, out["shadow_constant"] = leg("constant", per_shadow_batch)
+        step("veto")
+        rc, text, err = _cli_run("models", "rollback", "--registry", reg_dir,
+                                 "--lineage", lineage)
+        if rc != 0 or json.loads(text)["live"]["version"] != 1:
+            _fail(f"lifecycle: models rollback exit {rc}: {text} {err[-500:]}")
+        step("swap")
+        dets, out["live_v1"] = leg("v1", per_forward)
+        offline(dets, "v1", state, "serve[max]@v1")
+
+        # the shadow's cost on one full batch, in turns
+        batch = next(iter(_full_batches(traces, ds)))
+        near_sd = store.load(lineage, 2)[0]
+        turns = {"without": [], "with": []}
+        for _ in range(LIFECYCLE_TURNS):
+            for staged in ("without", "with", "with", "without"):
+                if staged == "with":
+                    svc.start_shadow(near_sd, 99)   # a version the manager ignores
+                t0 = time.perf_counter()
+                for _ in range(LIFECYCLE_CALLS):
+                    svc._score_fn(batch)
+                turns[staged].append((time.perf_counter() - t0) / LIFECYCLE_CALLS * 1e3)
+                svc.stop_shadow()
+        out["score_ms"] = {k: [round(v, 3) for v in vs] for k, vs in turns.items()}
+        svc.stop()
+        man.close()
+        arc.close()
+        svc = man = arc = None
+
+        # --- e. the archive -----------------------------------------------------
+        scored = reg.value("serve_windows_scored_total")
+        if scored != 4 * served:
+            _fail(f"lifecycle: {scored} windows scored, want 4 legs × {served}")
+        check = verify_archive(arc_dir)
+        report = build_report([str(arc_dir)])
+        if not check["ok"] or report["slo"]["windows_scored"] != scored:
+            _fail(f"lifecycle archive: verify ok={check['ok']}, report counts "
+                  f"{report['slo']['windows_scored']} windows of {scored}")
+        out["archive"] = dict(bytes=check["bytes"], records=check["records"],
+                              segments=len(check["segments"]))
+
+        # --- f. the command line over these directories -------------------------
+        for argv in (("models", "list", "--registry", reg_dir),
+                     ("models", "status", "--registry", reg_dir, "--lineage", lineage),
+                     ("quality", "show", tmp / "v1"),
+                     ("quality", "compare", tmp / "v1", reg_dir / "lineages" / lineage / "v1"),
+                     ("archive", "ls", arc_dir), ("archive", "verify", arc_dir),
+                     ("report", arc_dir)):
+            rc, _, err = _cli_run(*argv)
+            if rc != 0:
+                _fail(f"lifecycle: {' '.join(map(str, argv[:2]))} exit {rc}: {err[-500:]}")
+        out["decisions"] = decisions
+    finally:
+        for closer in (svc and svc.stop, man and man.close, arc and arc.close):
+            if closer:
+                closer()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - phase_t0
+    ms = {k: statistics.median(v) for k, v in out["score_ms"].items()}
+    p = out["profile"]
+    print(f"lifecycle ({out['seconds']:.1f} s): profile {p['seconds']:.3f} s "
+          f"({p['windows']} windows in {p['batches']} batches, launches "
+          f"{p['launches']}); shadow overhead: {ms['with']:.3f} ms a batch with a "
+          f"shadow staged vs {ms['without']:.3f} without (medians of "
+          f"{json.dumps(out['score_ms'])}, in turns); windows/s with a shadow "
+          f"{out['shadow_near']['windows_per_s']:.3f} and "
+          f"{out['shadow_constant']['windows_per_s']:.3f}, without "
+          f"{out['live_v2']['windows_per_s']:.3f} and "
+          f"{out['live_v1']['windows_per_s']:.3f} (legs in turns: near shadow, v2, "
+          f"constant shadow, v1); decisions {json.dumps(decisions)}; archive "
+          f"{out['archive']['bytes']} bytes in {out['archive']['records']} records, "
+          f"{out['archive']['segments']} segments; serve bit-equal to model_detect "
+          f"after the promotion and after the rollback; {served} windows a leg")
+    out["launches"] = {"profile": p["launches"], "shadow_batch": per_shadow_batch,
+                       "batch": per_forward}
+    return out
+
+
+def _full_batches(traces, ds):
+    """Padded batches of SERVE_BATCH windows of ``traces`` lowered at ``ds``."""
+    from nerrf_tpu_torch.pipeline import pad_batch
+    from nerrf_tpu_torch.train.data import windows_of_trace
+
+    samples = [s for tr in traces.values() for s in windows_of_trace(tr, ds)]
+    for i in range(0, len(samples) - SERVE_BATCH + 1, SERVE_BATCH):
+        yield pad_batch(samples[i:i + SERVE_BATCH], SERVE_BATCH)
 
 
 # --- StreamNet (ROADMAP A.5): the attention kernels, bench.py's stream leg
@@ -5084,6 +5514,26 @@ def main() -> int:
             ("probe", (PROBE_BATCH, PROBE_LEN, 1, 128)))}
         print(json.dumps({"card": smi, "sass": sass, "timing": timing}))
         return 0
+    if sys.argv[1:2] == ["--lifecycle"]:
+        # only the lifecycle phase, on a seeded full-width checkpoint
+        import tempfile
+
+        from nerrf_tpu_torch.models import JointConfig, build_nerrfnet
+        from nerrf_tpu_torch.train.checkpoint import save_checkpoint
+
+        kernels.build()
+        model_dir = tempfile.mkdtemp(prefix="nerrf-lifecycle-model-")
+        try:
+            model = build_nerrfnet(JointConfig(), seed=0, device="cuda")
+            save_checkpoint(model_dir, model.state_dict(), model.cfg)
+            del model
+            lifecycle = run_lifecycle_path(model_dir)
+        finally:
+            shutil.rmtree(model_dir, ignore_errors=True)
+        print(json.dumps({"card": smi, "lifecycle": {
+            k: lifecycle[k] for k in ("seconds", "profile", "score_ms", "decisions",
+                                      "archive", "launches")}}))
+        return 0
     if sys.argv[1:2] == ["--stream-probe"]:
         kernels.build()
         keep = ("init_seed", "event_auc", "event_f1_at_threshold",
@@ -5092,10 +5542,12 @@ def main() -> int:
         print(json.dumps({"card": smi, "stream_probe": [
             {k: probe[k] for k in keep} for probe in probes]}))
         return 0
+    run_t0 = time.perf_counter()
     try:
         t0 = time.perf_counter()
         built = kernels.build()
-        print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
+        PHASE_SECONDS["build"] = time.perf_counter() - t0
+        print(f"built {sorted(built)} in {PHASE_SECONDS['build']:.1f} s "
               f"(per source: {built})")
         for name in kernels.KERNELS:
             log = kernels.library_path(name).with_suffix(".log")
@@ -5104,52 +5556,57 @@ def main() -> int:
                     if "entry function" in line or "registers" in line \
                             or "spill" in line:
                         print(f"ptxas {name}: {line.strip()}")
-        sass = check_attention_sass()
-        errors = check_kernels()
-        errors.update(check_banded_kernels())
+        P = _timed
+        sass = P("check_attention_sass", check_attention_sass)
+        errors = P("check_kernels", check_kernels)
+        errors.update(P("check_banded_kernels", check_banded_kernels))
         errors.update(gather_rows={}, gather_rows_sorted={})
-        check_gathers(errors)
-        check_long_bands(errors)
-        check_backward(errors)
-        check_plans()
-        main_path = run_main_path()
-        detect_timing = time_kernels(main_path["batch"], errors, "detect")
-        small_err = check_small_detect()
-        serve = run_serve_path((MAIN_N, MAIN_E, SEQ_S))
-        traces, train_ds, train_cfg = train_rung()
-        train = run_train_path(traces, train_ds, train_cfg)
-        grads = check_step_grads(train_ds, train_cfg)
-        small_train_err = check_small_train()
-        resident = run_resident_paths(train_ds, train_cfg)
-        elastic = run_elastic_path(train_ds, train_cfg)
-        watch = run_trainwatch_path(train_ds, train_cfg)
-        experiment = run_experiment_path()
-        small_experiment = check_small_experiment()
-        corpus = run_disk_corpus_path()
-        undo_t0 = time.perf_counter()
+        P("check_gathers", check_gathers, errors)
+        P("check_long_bands", check_long_bands, errors)
+        P("check_backward", check_backward, errors)
+        P("check_plans", check_plans)
+        main_path = P("main_path", run_main_path)
+        detect_timing = P("time_kernels_detect", time_kernels, main_path["batch"], errors,
+                          "detect")
+        small_err = P("check_small_detect", check_small_detect)
+        serve = P("serve", run_serve_path, (MAIN_N, MAIN_E, SEQ_S))
+        traces, train_ds, train_cfg = P("train_rung", train_rung)
+        train = P("train", run_train_path, traces, train_ds, train_cfg)
+        grads = P("check_step_grads", check_step_grads, train_ds, train_cfg)
+        small_train_err = P("check_small_train", check_small_train)
+        resident = P("resident", run_resident_paths, train_ds, train_cfg)
+        elastic = P("elastic", run_elastic_path, train_ds, train_cfg)
+        watch = P("trainwatch", run_trainwatch_path, train_ds, train_cfg)
+        experiment = P("experiment", run_experiment_path)
+        small_experiment = P("check_small_experiment", check_small_experiment)
+        corpus = P("disk_corpus", run_disk_corpus_path)
         try:
-            mcts_ptxas = check_mcts_ptxas()
-            mcts_check = check_mcts()
+            mcts_ptxas = P("check_mcts_ptxas", check_mcts_ptxas)
+            mcts_check = P("check_mcts", check_mcts)
             bench = bench_domain()
-            value = check_value_net(bench)
-            planner = run_planner_cell(bench, value["net"])
-            batched = run_batched_planner(bench, value["net"])
-            undo = run_undo_path(experiment["model_dir"])
-            respond = run_respond_chain(experiment["model_dir"], undo["trace"])
-            cli_phase = run_cli_path(experiment["model_dir"], undo["heuristic"]["mttr_s"])
+            value = P("check_value_net", check_value_net, bench)
+            planner = P("planner_cell", run_planner_cell, bench, value["net"])
+            batched = P("batched_planner", run_batched_planner, bench, value["net"])
+            undo = P("undo", run_undo_path, experiment["model_dir"])
+            respond = P("respond_chain", run_respond_chain, experiment["model_dir"],
+                        undo["trace"])
+            cli_phase = P("cli", run_cli_path, experiment["model_dir"],
+                          undo["heuristic"]["mttr_s"])
+            lifecycle = P("lifecycle", run_lifecycle_path, experiment["model_dir"])
         finally:
             shutil.rmtree(experiment["model_dir"], ignore_errors=True)
-        print(f"undo-path phases: {time.perf_counter() - undo_t0:.1f} s of command time")
-        stream = run_stream_path()
+        stream = P("stream", run_stream_path)
         errors.update(stream["errors"])
         errors["mcts_search"] = {case: 0.0 for case in mcts_check}
-        timing = time_kernels(train["batch"], errors, "train")
-        split = gather_host_split(train["batch"])
+        timing = P("time_kernels_train", time_kernels, train["batch"], errors, "train")
+        split = P("gather_host_split", gather_host_split, train["batch"])
     except Exception as e:  # any failed phase fails the smoke
         import traceback
 
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
+        print("phase seconds so far: " + json.dumps(
+            {k: round(v, 1) for k, v in PHASE_SECONDS.items()}), file=sys.stderr)
         return 1
 
     replaces = {
@@ -5186,7 +5643,10 @@ def main() -> int:
          "experiment_launches": experiment["launches"][name],
          "corpus_launches": corpus["launches"][name],
          "respond_serve_launches": respond["serve"]["launches"][name],
-         "cli_launches": cli_phase["launches"][name]}
+         "cli_launches": cli_phase["launches"][name],
+         "lifecycle_profile_launches": lifecycle["launches"]["profile"][name],
+         "lifecycle_shadow_batch_launches": lifecycle["launches"]["shadow_batch"][name],
+         "lifecycle_batch_launches": lifecycle["launches"]["batch"][name]}
         for name in segment_kernels]}
     # the search: per plan of 800 simulations (ms: CUDA events around the
     # plan's launches and syncs; plain_ms: the plain version's plan on the
@@ -5310,7 +5770,7 @@ def main() -> int:
           f"{experiment['params_bytes']} bytes; launches {experiment['launches']}; "
           f"small f32 experiment card vs CPU max |Δ| {small_experiment['gap']:.1e}; "
           f"on {smi}")
-    print(f"training paths on the Training cell ({TRAIN_STEPS} steps, segment): "
+    print(f"training paths on the Training cell ({RESIDENT_STEPS} steps, segment): "
           f"steps/s in turns {json.dumps(resident['steps_per_s'])}, busy share "
           f"{json.dumps(resident['busy'])}, streamed = "
           f"scheduled = superstep bit for bit, {resident['per_step']} launches a step; "
@@ -5356,6 +5816,9 @@ def main() -> int:
           f"event_f1_at_threshold {probe['event_f1_at_threshold']:.4f}, threshold "
           f"{probe['stream_event_threshold']:.4f} (logit) beside the reference's record "
           f"{json.dumps(probe['record'])}; on {smi}")
+    phases = {k: round(v, 1) for k, v in PHASE_SECONDS.items()}
+    print(f"phase seconds ({time.perf_counter() - run_t0:.1f} s in all, the build "
+          f"included): " + json.dumps(phases))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,9 @@ artifacts and exit codes over the port's paths.  Usage:
     python -m nerrf_tpu_torch.cli undo           --incident DIR [--model-dir DIR]
                                                  [--dry-run] [--no-gate]
     python -m nerrf_tpu_torch.cli status         --incident DIR
+    python -m nerrf_tpu_torch.cli models         publish|list|promote|rollback|status
+    python -m nerrf_tpu_torch.cli serve-detect   --registry DIR [--archive-dir DIR]
+    python -m nerrf_tpu_torch.cli report         DIR
 
 An *incident directory* is the unit of state: victim files under ``victim/``,
 the snapshot store under ``store/``, the captured trace, and every stage's
@@ -146,6 +149,25 @@ def cmd_train_detector(args) -> int:
     calibrate_and_resave(args.model_dir, model,
                          node_loss_weight=train_cfg.node_loss_weight,
                          log=_log, device=dev)
+    if args.publish:
+        # the train→serve hand-off: publish the calibrated checkpoint into
+        # the registry lineage (immutable version, schema/feature-gated at
+        # publish).  Promotion stays separate: a resident serve pod picks
+        # the version up as a shadow candidate and promotes it only when
+        # the guardrails pass.  Best-effort: a registry failure must not
+        # turn a finished training run into a CLI failure, the checkpoint
+        # is already safe under --model-dir
+        try:
+            from nerrf_tpu_torch.registry import ModelRegistry
+
+            version = ModelRegistry(args.publish).publish(
+                args.lineage, args.model_dir,
+                source=f"nerrf train-detector --steps {args.steps}")
+            _log(f"published {args.model_dir} as {args.lineage}/v{version} "
+                 f"in {args.publish}")
+        except Exception as e:  # noqa: BLE001
+            _log(f"registry publish failed ({type(e).__name__}: {e}); "
+                 f"checkpoint remains at {args.model_dir}")
     return 0 if res.metrics["edge_auc"] >= 0.9 else 1
 
 
@@ -315,6 +337,258 @@ def cmd_status(args) -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+def cmd_models(args) -> int:
+    """Model lifecycle registry: publish → (shadow) → promote → rollback.
+    Every action prints one JSON document; the registry layout and the
+    promotion guardrails are documented in docs/model-lifecycle.md.  A
+    registry written here holds the port's checkpoints."""
+    from nerrf_tpu_torch.registry import ModelRegistry
+
+    reg = ModelRegistry(args.registry)
+    out: dict
+    if args.models_cmd == "publish":
+        version = reg.publish(args.lineage, args.model_dir,
+                              source=args.source)
+        out = {"lineage": args.lineage, "published": version,
+               "path": str(reg.version_dir(args.lineage, version)),
+               "executables": reg.executables_dir(
+                   args.lineage, version) is not None}
+        if args.promote:
+            out["live"] = reg.promote(args.lineage, version)
+    elif args.models_cmd == "list":
+        lineages = [args.lineage] if args.lineage else reg.lineages()
+        out = {"registry": str(reg.root),
+               "lineages": {ln: reg.status(ln) for ln in lineages}}
+    elif args.models_cmd == "promote":
+        out = {"lineage": args.lineage,
+               "live": reg.promote(args.lineage, args.version)}
+    elif args.models_cmd == "rollback":
+        out = {"lineage": args.lineage,
+               "live": reg.rollback(args.lineage, args.version)}
+    elif args.models_cmd == "status":
+        out = reg.status(args.lineage)
+    else:  # pragma: no cover — argparse enforces the choices
+        _log(f"unknown models subcommand {args.models_cmd!r}")
+        return 2
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+# --------------------------------------------------------------------------
+def cmd_quality(args) -> int:
+    """The detection-quality plane's offline face (docs/quality.md):
+    ``show`` renders a reference profile (checkpoint sidecar or bare
+    JSON), or with ``--json`` a flight bundle's ``quality.json`` (its table
+    is the flight doctor's, not ported yet); ``compare`` PSIs
+    two profiles against each other — score distribution, top-drifting
+    window features, margin mass and alert-rate deltas."""
+    from nerrf_tpu_torch.quality import load_profile
+    from nerrf_tpu_torch.quality.sketch import psi, top_drifting
+
+    def _load(path):
+        """→ ("bundle", quality dict) | ("profile", QualityProfile)."""
+        p = Path(path)
+        if p.is_dir() and (p / "quality.json").is_file():
+            return "bundle", json.loads((p / "quality.json").read_text())
+        prof = load_profile(p)
+        if prof is None:
+            raise FileNotFoundError(
+                f"{path} is neither a quality profile (no "
+                f"quality_profile.json), nor a flight bundle with a "
+                f"quality.json — the checkpoint may predate profiles")
+        return "profile", prof
+
+    if args.quality_cmd == "show":
+        try:
+            kind, obj = _load(args.path)
+        except (FileNotFoundError, ValueError) as e:
+            _log(str(e))
+            return 2
+        if kind == "bundle":
+            if args.json:
+                print(json.dumps(obj, indent=2))
+                return 0
+            _log("rendering a flight bundle's quality table needs the "
+                 "flight doctor, which is not ported yet (ROADMAP A.6); "
+                 "pass --json for the bundle's quality.json")
+            return 2
+        if args.json:
+            print(json.dumps(obj.to_dict(), indent=2))
+            return 0
+        s = obj.summary()
+        print(f"quality profile (schema v{s['schema']}): "
+              f"{s['windows']} windows / {s['node_scores']} node scores")
+        print(f"  threshold {s['threshold']:g}  margin mass "
+              f"{s['margin_mass']:g} (eps {s['margin_eps']:g})  "
+              f"alert rate {s['alert_rate']:g}")
+        q = s["score_quantiles"]
+        print(f"  score quantiles p50/p90/p99: "
+              f"{q['p50']}/{q['p90']}/{q['p99']}")
+        for name in s["features"]:
+            fq = obj.features[name].quantiles()
+            print(f"  feature {name:<16} p50/p90/p99: "
+                  f"{fq['p50']}/{fq['p90']}/{fq['p99']} "
+                  f"({obj.features[name].total} samples)")
+        return 0
+
+    if args.quality_cmd == "compare":
+        try:
+            _, ref = _load(args.reference)
+            _, other = _load(args.other)
+        except (FileNotFoundError, ValueError) as e:
+            _log(str(e))
+            return 2
+        if not hasattr(ref, "score") or not hasattr(other, "score"):
+            _log("compare wants two PROFILES (use `show` for a bundle's "
+                 "live table)")
+            return 2
+        score_psi = psi(ref.score, other.score)
+        feats = top_drifting(ref.features, other.features)
+        out = {
+            "score_psi": round(score_psi, 4),
+            "feature_psi": {k: round(v, 4) for k, v in feats},
+            "margin_mass": {"reference": round(ref.margin_mass, 4),
+                            "other": round(other.margin_mass, 4)},
+            "alert_rate": {"reference": round(ref.alert_rate, 4),
+                           "other": round(other.alert_rate, 4)},
+            "windows": {"reference": ref.windows, "other": other.windows},
+        }
+        if args.json:
+            print(json.dumps(out, indent=2))
+        else:
+            print(f"score PSI {score_psi:.4f} "
+                  f"(<0.1 stable, 0.1-0.25 moderate, >0.25 major)")
+            print("top drifting features:")
+            for k, v in feats:
+                print(f"  {k:<16} PSI {v:.4f}")
+            print(f"margin mass {ref.margin_mass:.4f} -> "
+                  f"{other.margin_mass:.4f}   alert rate "
+                  f"{ref.alert_rate:.4f} -> {other.alert_rate:.4f}")
+        if args.psi_threshold is not None:
+            worst = max([score_psi] + [v for _, v in feats])
+            if worst >= args.psi_threshold:
+                _log(f"PSI {worst:.4f} >= {args.psi_threshold:g}")
+                return 1
+        return 0
+    _log(f"unknown quality subcommand {args.quality_cmd!r}")
+    return 2  # pragma: no cover — argparse enforces the choices
+
+
+
+
+# --------------------------------------------------------------------------
+def cmd_archive(args) -> int:
+    """Telemetry archive maintenance: segment inventory, retention prune,
+    integrity verify, cross-host merge, and the tune-corpus export
+    (docs/archive.md).  All offline: no device, no live process.  The
+    replay export (``--replay``) is refused before this runs (learn plane,
+    ROADMAP A.6)."""
+    from nerrf_tpu_torch.archive import (
+        export_tune,
+        list_segments,
+        merge_archives,
+        verify_archive,
+    )
+    from nerrf_tpu_torch.flight.journal import SchemaVersionError
+
+    try:
+        if args.archive_cmd == "ls":
+            names = list_segments(args.dir)
+            total = 0
+            for name in names:
+                p = Path(args.dir) / name
+                size = p.stat().st_size if p.exists() else 0
+                total += size
+                state = "open" if name.endswith(".open") else "sealed"
+                print(f"{name:<44} {size:>10}  {state}")
+            print(f"{len(names)} segment(s), {total} bytes")
+            return 0
+        if args.archive_cmd == "prune":
+            # out-of-band retention: sealed segments only — the dir may
+            # belong to a LIVE writer whose .open tail must stay its own
+            from nerrf_tpu_torch.archive import prune_archive
+
+            if not Path(args.dir).is_dir():
+                raise FileNotFoundError(args.dir)
+            print(json.dumps(prune_archive(args.dir, args.max_bytes)))
+            return 0
+        if args.archive_cmd == "verify":
+            v = verify_archive(args.dir)
+            if args.json:
+                print(json.dumps(v, indent=2))
+            else:
+                for s in v["segments"]:
+                    flags = []
+                    if s["partial_tail"]:
+                        flags.append("partial-tail")
+                    if s["corrupt_lines"]:
+                        flags.append(f"{s['corrupt_lines']} corrupt")
+                    if s["error"]:
+                        flags.append(s["error"])
+                    print(f"{s['segment']:<44} {s['records']:>7} records  "
+                          + (" ".join(flags) or "ok"))
+                print(f"{'OK' if v['ok'] else 'DAMAGED'}: {v['records']} "
+                      f"records / {v['bytes']} bytes in "
+                      f"{len(v['segments'])} segment(s)")
+            return 0 if v["ok"] else 1
+        if args.archive_cmd == "merge":
+            out = merge_archives(args.sources, args.out, log=_log)
+            print(json.dumps(out))
+            return 0
+        if args.archive_cmd == "export":
+            corpus = export_tune(args.dir)
+            # polite refusal, not a garbage corpus: an archive with no
+            # scored windows or no per-bucket cost rows cannot feed a
+            # fit — say so in one line and exit nonzero
+            if not corpus["windows_observed"]:
+                _log(f"refusing to export: archive {args.dir} holds no "
+                     "observed windows (run a serve with --archive-dir "
+                     "first)")
+                return 1
+            if not corpus.get("bucket_cost"):
+                _log(f"refusing to export: archive {args.dir} has no "
+                     "per-bucket cost table (device-stage telemetry "
+                     "missing) — the tune fit would have nothing to "
+                     "measure")
+                return 1
+            text = json.dumps(corpus, indent=2)
+            if args.out:
+                Path(args.out).write_text(text + "\n")
+                _log(f"tune corpus written to {args.out} "
+                     f"({corpus['windows_observed']} windows observed)")
+            else:
+                print(text)
+            return 0
+    except SchemaVersionError as e:
+        _log(f"cannot read archive: {e}")
+        return 2
+    except FileNotFoundError as e:
+        _log(f"not an archive directory: {e}")
+        return 2
+    return 2
+
+
+def cmd_report(args) -> int:
+    """Offline fleet report over archived telemetry (docs/archive.md):
+    SLO conformance, capacity headroom, drift, device efficiency and
+    training health from segments alone — or, with --compare, a
+    cross-run regression diff that exits 1 when the candidate regressed.
+    --gate frames the diff as a queue pre-flight: one-line PASS/FAIL
+    verdict, and a missing baseline passes with a note (first run before
+    an artifact-of-record is banked)."""
+    from nerrf_tpu_torch.archive import CompareConfig, report_main
+
+    cfg = CompareConfig(p99_ratio=args.p99_ratio,
+                        cost_ratio=args.cost_ratio,
+                        loss_ratio=args.loss_ratio,
+                        rate_abs=args.rate_abs,
+                        psi_breach=args.psi_breach)
+    return report_main(args.dir, since=args.since, until=args.until,
+                       compare=args.compare, as_json=args.json,
+                       gate=args.gate, compare_cfg=cfg)
+
+
 def _load_any_trace(path: str, ground_truth=None):
     from nerrf_tpu_torch.data.datasets import load_trace_csv, load_trace_parquet
     from nerrf_tpu_torch.data.loaders import load_trace_jsonl
@@ -370,7 +644,12 @@ def cmd_serve_detect(args) -> int:
     --target endpoints (live trackers) and/or --trace files (each served
     through an in-process TraceReplayServer, so the full wire protocol is
     exercised either way).  Readiness (/readyz on the metrics port) flips
-    only after every configured bucket is warm."""
+    only after every configured bucket is warm.  With --registry the pod
+    boots from the lineage's LIVE version and a ModelManager polls it:
+    versions published into the lineage shadow-score on the live batches
+    and hot-swap in when the guardrails pass, promotions and rollbacks from
+    any process land without a restart.  --archive-dir spools the telemetry
+    to a durable archive that `report` reads offline."""
     import dataclasses as _dc
 
     from nerrf_tpu_torch.device import resolve_device
@@ -394,19 +673,71 @@ def cmd_serve_detect(args) -> int:
         cfg_kwargs["buckets"] = _buckets(args.buckets)
     cfg = ServeConfig(**cfg_kwargs)
 
-    if args.model_dir:
+    manager = None
+    quality_profile = None
+    if args.registry:
+        # registry mode: boot from the lineage's LIVE version and keep a
+        # ModelManager polling: checkpoints published into the lineage
+        # shadow-score and hot-swap in without a pod restart
+        import torch
+
+        from nerrf_tpu_torch.models import NerrfNet
+        from nerrf_tpu_torch.registry import (
+            ModelManager,
+            ModelRegistry,
+            RegistryConfig,
+        )
+
+        manager = ModelManager(
+            ModelRegistry(args.registry), args.lineage,
+            cfg=RegistryConfig(poll_sec=args.poll_sec), log=_log)
+        state, model_cfg, calib, version = manager.boot()
+        with torch.device(dev):
+            model = NerrfNet(model_cfg)
+        model.load_state_dict(state, strict=True)
+        model.eval()
+        if calib.get("node_threshold") is not None:
+            cfg = _dc.replace(cfg, threshold=calib["node_threshold"])
+        _log(f"registry boot: {args.lineage}/v{version} LIVE "
+             f"from {args.registry}")
+    elif args.model_dir:
+        from nerrf_tpu_torch.quality import load_profile
         from nerrf_tpu_torch.train.checkpoint import load_calibration
 
         model = _load_model(args.model_dir, dev)
         calib = load_calibration(args.model_dir)
         if calib.get("node_threshold") is not None:
             cfg = _dc.replace(cfg, threshold=calib["node_threshold"])
+        try:
+            # the quality plane's own loader validates (schema ceiling,
+            # field shapes), so a malformed or newer-schema sidecar is a
+            # one-line downgrade to no baseline here: drift monitoring is
+            # advisory and must never block serving
+            quality_profile = load_profile(args.model_dir)
+        except ValueError as e:
+            _log(f"quality profile unreadable ({e}); serving without a "
+                 f"drift baseline")
     else:
         _log("no --model-dir: serving an UNTRAINED small detector "
              "(load testing only — scores carry no meaning)")
         model = init_untrained_model(JointConfig().small, cfg, device=dev)
 
     service = OnlineDetectionService(model, cfg=cfg, device=dev)
+    if quality_profile is not None:
+        # checkpoint-dir boot: bind the shipped drift baseline (registry
+        # boots get theirs through manager.attach below, version-stamped)
+        service.set_quality_profile(quality_profile)
+    archive = None
+    if args.archive_dir:
+        # telemetry archive plane: every journal record, cadenced metrics
+        # snapshots and the workload sketches spool to crash-safe segments;
+        # `report` reconstructs SLO, capacity and drift offline
+        from nerrf_tpu_torch.archive import ArchiveConfig, ArchiveWriter
+
+        archive = ArchiveWriter(ArchiveConfig(out_dir=args.archive_dir),
+                                log=_log)
+        service.attach_archive(archive)
+        _log(f"telemetry archive spooling to {args.archive_dir}")
     responder = None
     respond_ctx = None
     if args.respond:
@@ -442,6 +773,9 @@ def cmd_serve_detect(args) -> int:
         _log(f"respond tier armed: severity>={args.respond_severity:g}, "
              f"{len(responder.cfg.batch_slots)} batch slots warmed in "
              f"{responder.warmup_seconds:.1f}s")
+    if manager is not None:
+        manager.attach(service)
+        manager.start_polling()
     metrics = None
     replays = []
     try:
@@ -536,6 +870,8 @@ def cmd_serve_detect(args) -> int:
         print(json.dumps(summary, indent=2))
         return 0
     finally:
+        if manager is not None:
+            manager.close()
         if responder is not None:
             responder.stop()
         service.stop()
@@ -543,6 +879,9 @@ def cmd_serve_detect(args) -> int:
             rs.stop()
         if metrics:
             metrics.close()
+        if archive is not None:
+            # drains the backlog and seals the tail segment
+            archive.close()
 
 
 def cmd_respond(args) -> int:
@@ -673,14 +1012,9 @@ def cmd_ingest(args) -> int:
 
 # subcommand → (the reference's help text, what it needs, ROADMAP item)
 UNPORTED_COMMANDS = {
-    "models": ("model lifecycle registry: publish, list, promote, rollback, "
-               "status", "the model registry", "A.6"),
     "chaos": ("chaos plane: fault-point catalog, plan validation, example "
               "schedule (docs/chaos.md)", "the chaos plane's fault points",
               "A.6"),
-    "quality": ("detection-quality plane: reference profiles and drift "
-                "tables (docs/quality.md)", "the detection-quality plane",
-                "A.6"),
     "cache": ("persistent compile cache: list, prune, verify, pre-warm",
               "the compile cache (a capture cache of CUDA graphs)", "A.7"),
     "profile": ("device-efficiency plane: per-program cost/MFU table, jax "
@@ -690,9 +1024,6 @@ UNPORTED_COMMANDS = {
              "sync, lock discipline, the concurrency tier, metrics "
              "contract); --deep adds the jaxpr-level program contracts",
              "the analysis rules over the port", "A.7"),
-    "archive": ("telemetry archive: segment inventory, retention prune, "
-                "integrity verify, cross-host merge, tune-corpus export "
-                "(docs/archive.md)", "the telemetry archive", "A.6"),
     "alerts": ("operator feedback on served alerts: tp/fp dispositions that "
                "join the replay buffer's label stream (docs/learning.md)",
                "the learn plane", "A.6"),
@@ -700,10 +1031,6 @@ UNPORTED_COMMANDS = {
              "archived cost corpus; emits the tuned-ladder artifact "
              "serve-detect --tuned and the AOT re-export consume "
              "(docs/tuning.md)", "the ladder tuner", "A.6"),
-    "report": ("offline fleet report over archived telemetry: SLO/capacity/"
-               "drift/efficiency/train health from segments alone; --compare "
-               "diffs two runs (docs/archive.md)",
-               "the telemetry archive's report", "A.6"),
     "doctor": ("diagnose the environment, read a flight-recorder incident "
                "bundle, or report over a telemetry archive directory",
                "the flight recorder's doctor", "A.6"),
@@ -711,8 +1038,6 @@ UNPORTED_COMMANDS = {
 
 # (subcommand, flag, is it asked for?, what it needs, ROADMAP item)
 UNPORTED_FLAGS = (
-    ("train-detector", "--publish", lambda a: a.publish is not None,
-     "the model registry", "A.6"),
     ("train-detector", "--aot-cache", lambda a: a.aot_cache is not None,
      "the compile cache", "A.7"),
     ("train-detector", "--metrics-port", lambda a: a.metrics_port >= 0,
@@ -720,15 +1045,11 @@ UNPORTED_FLAGS = (
     ("train-detector", "--flight-dir", lambda a: a.flight_dir is not None,
      "the training flight recorder", "A.6"),
     ("train-detector", "--archive-dir", lambda a: a.archive_dir is not None,
-     "the telemetry archive", "A.6"),
-    ("serve-detect", "--registry", lambda a: a.registry is not None,
-     "the model registry", "A.6"),
+     "trainwatch.training_health (the flight plane)", "A.6"),
     ("serve-detect", "--tuned", lambda a: a.tuned is not None,
      "the ladder tuner", "A.6"),
     ("serve-detect", "--flight-dir", lambda a: a.flight_dir is not None,
      "the flight recorder", "A.6"),
-    ("serve-detect", "--archive-dir", lambda a: a.archive_dir is not None,
-     "the telemetry archive", "A.6"),
     ("serve-detect", "--chaos-plan", lambda a: a.chaos_plan is not None,
      "the chaos plane's fault points", "A.6"),
     ("serve-detect", "$NERRF_CHAOS_PLAN",
@@ -741,6 +1062,12 @@ UNPORTED_FLAGS = (
      "the flight recorder's profiler capture", "A.6"),
     ("serve-detect", "--aot-cache", lambda a: a.aot_cache is not None,
      "the compile cache", "A.7"),
+    ("models", "publish --aot",
+     lambda a: a.models_cmd == "publish" and a.aot,
+     "the compile cache", "A.7"),
+    ("archive", "export --replay",
+     lambda a: a.archive_cmd == "export" and a.replay,
+     "the learn plane's replay buffer", "A.6"),
 )
 
 
@@ -790,8 +1117,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a Chrome-trace JSON of the run's host spans "
                         "(enables per-step synced attribution spans)")
     p.add_argument("--publish", default=None, metavar="REGISTRY",
-                   help="publish into a model registry: not ported yet "
-                        "(ROADMAP A.6), exits 2")
+                   help="publish the calibrated checkpoint into this model "
+                        "registry (a new immutable version; promotion "
+                        "stays separate: pods shadow-score it first)")
     p.add_argument("--lineage", default="default",
                    help="registry lineage to publish into (with --publish)")
     p.add_argument("--aot-cache", default=None, metavar="DIR",
@@ -809,12 +1137,56 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the training flight recorder: not ported yet "
                         "(ROADMAP A.6), exits 2")
     p.add_argument("--archive-dir", default=None, metavar="DIR",
-                   help="the telemetry archive: not ported yet (ROADMAP "
-                        "A.6), exits 2")
+                   help="the training run's telemetry archive: needs "
+                        "trainwatch.training_health, not ported yet "
+                        "(ROADMAP A.6), exits 2")
     _add_device(p)
     p.set_defaults(fn=cmd_train_detector)
 
-    _unported_parser(sub, "models")
+
+    p = sub.add_parser("models", help="model lifecycle registry: publish, "
+                                      "list, promote, rollback, status")
+    msub = p.add_subparsers(dest="models_cmd", required=True)
+
+    def _models_common(mp, lineage_required=True):
+        mp.add_argument("--registry", required=True, metavar="DIR",
+                        help="registry root (the serve pods' --registry)")
+        # `list` alone leaves --lineage optional (None = every lineage)
+        mp.add_argument("--lineage", required=lineage_required, default=None,
+                        help="model lineage name")
+        mp.set_defaults(fn=cmd_models)
+
+    mp = msub.add_parser("publish", help="copy a checkpoint in as the next "
+                                         "immutable version (schema/feature "
+                                         "gated)")
+    _models_common(mp)
+    mp.add_argument("--model-dir", required=True,
+                    help="checkpoint directory to publish")
+    mp.add_argument("--source", default=None,
+                    help="provenance note stamped into the version sidecar")
+    mp.add_argument("--promote", action="store_true",
+                    help="also repoint LIVE at the new version immediately "
+                        "(skips shadow scoring — prefer guarded promotion)")
+    mp.add_argument("--aot", action="store_true",
+                    help="the AOT executables sidecar: needs the compile "
+                         "cache, not ported yet (ROADMAP A.7), exits 2")
+    mp = msub.add_parser("list", help="lineages, versions, LIVE pointers")
+    _models_common(mp, lineage_required=False)
+    mp = msub.add_parser("promote", help="repoint LIVE at a version "
+                                         "(atomic; pods hot-swap on their "
+                                         "next poll)")
+    _models_common(mp)
+    mp.add_argument("--version", type=int, required=True)
+    mp = msub.add_parser("rollback", help="one-command rollback: repoint "
+                                          "LIVE at the previous (or given) "
+                                          "version")
+    _models_common(mp)
+    mp.add_argument("--version", type=int, default=None,
+                    help="explicit version to roll back to (default: the "
+                         "LIVE pointer's recorded previous)")
+    mp = msub.add_parser("status", help="one lineage's versions + LIVE")
+    _models_common(mp)
+
 
     p = sub.add_parser("undo", help="detect, plan, rehearse and roll back")
     p.add_argument("--incident", required=True)
@@ -881,8 +1253,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="trained detector checkpoint (default: an untrained "
                         "small model, for load testing only)")
     p.add_argument("--registry", default=None, metavar="DIR",
-                   help="model registry root: not ported yet (ROADMAP A.6), "
-                        "exits 2")
+                   help="model registry root: boot from the lineage's LIVE "
+                        "version and poll for promotions, rollbacks and "
+                        "shadow candidates (instead of --model-dir)")
     p.add_argument("--lineage", default="default",
                    help="registry lineage to serve (with --registry)")
     p.add_argument("--poll-sec", type=float, default=10.0,
@@ -931,8 +1304,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the incident flight recorder: not ported yet "
                         "(ROADMAP A.6), exits 2")
     p.add_argument("--archive-dir", default=None, metavar="DIR",
-                   help="the telemetry archive: not ported yet (ROADMAP "
-                        "A.6), exits 2")
+                   help="spool the serve run's telemetry (journal records, "
+                        "metrics snapshots, workload sketches) to crash-"
+                        "safe segments that `report` reads offline")
     p.add_argument("--aot-cache", default=None, metavar="DIR",
                    help="persistent compile cache root: not ported yet "
                         "(ROADMAP A.7), exits 2")
@@ -1001,7 +1375,37 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(p)
     p.set_defaults(fn=cmd_respond)
 
-    for name in ("chaos", "quality", "cache", "profile"):
+    _unported_parser(sub, "chaos")
+
+    p = sub.add_parser("quality", help="detection-quality plane: reference "
+                                       "profiles and drift tables "
+                                       "(docs/quality.md)")
+    qsub = p.add_subparsers(dest="quality_cmd", required=True)
+    qp = qsub.add_parser("show", help="render a reference profile "
+                                      "(checkpoint dir or profile JSON) "
+                                      "or a flight bundle's live "
+                                      "divergence table")
+    qp.add_argument("path", help="checkpoint dir / quality_profile.json / "
+                                 "flight bundle dir")
+    qp.add_argument("--json", action="store_true",
+                    help="machine-readable output")
+    qp.set_defaults(fn=cmd_quality)
+    qp = qsub.add_parser("compare", help="PSI two reference profiles: "
+                                         "score distribution, top-"
+                                         "drifting features, margin/"
+                                         "alert-rate deltas")
+    qp.add_argument("reference", help="the baseline profile "
+                                      "(checkpoint dir or JSON)")
+    qp.add_argument("other", help="the profile to judge against it")
+    qp.add_argument("--json", action="store_true",
+                    help="machine-readable output")
+    qp.add_argument("--psi-threshold", type=float, default=None,
+                    metavar="X", help="exit 1 when any PSI >= X "
+                                      "(CI gating)")
+    qp.set_defaults(fn=cmd_quality)
+
+
+    for name in ("cache", "profile"):
         _unported_parser(sub, name)
 
     p = sub.add_parser("trace", help="per-stage latency table from a "
@@ -1011,8 +1415,127 @@ def build_parser() -> argparse.ArgumentParser:
                         "trace-event file)")
     p.set_defaults(fn=cmd_trace)
 
-    for name in ("lint", "archive", "alerts", "tune", "report", "doctor"):
+    _unported_parser(sub, "lint")
+
+    p = sub.add_parser("archive", help="telemetry archive: segment "
+                                       "inventory, retention prune, "
+                                       "integrity verify, cross-host "
+                                       "merge, tune-corpus export "
+                                       "(docs/archive.md)")
+    asub = p.add_subparsers(dest="archive_cmd", required=True)
+    ar = asub.add_parser("ls", help="segment inventory (name, bytes, "
+                                    "sealed/open), oldest first")
+    ar.add_argument("dir", help="archive directory (a serve/train run's "
+                                "--archive-dir)")
+    ar.set_defaults(fn=cmd_archive)
+    ar = asub.add_parser("prune", help="enforce a retention bound now: "
+                                       "delete oldest sealed segments "
+                                       "past --max-bytes")
+    ar.add_argument("dir")
+    ar.add_argument("--max-bytes", type=int, required=True,
+                    help="total archive size to prune down to")
+    ar.set_defaults(fn=cmd_archive)
+    ar = asub.add_parser("verify", help="integrity check every segment "
+                                        "(a torn final line is the "
+                                        "tolerated crash shape; mid-"
+                                        "segment damage exits 1)")
+    ar.add_argument("dir")
+    ar.add_argument("--json", action="store_true")
+    ar.set_defaults(fn=cmd_archive)
+    ar = asub.add_parser("merge", help="merge N archive directories into "
+                                       "a fresh one (cross-host "
+                                       "aggregation: records interleave "
+                                       "by time, sketches stay "
+                                       "attributable per run)")
+    ar.add_argument("sources", nargs="+", help="archive directories to "
+                                               "merge")
+    ar.add_argument("--out", required=True, help="merged archive "
+                                                 "directory (created)")
+    ar.set_defaults(fn=cmd_archive)
+    ar = asub.add_parser("export", help="emit the tune-ready corpus: the "
+                                        "observed window-size "
+                                        "distribution + per-bucket "
+                                        "measured cost table the `nerrf "
+                                        "tune` cost-model fit consumes")
+    ar.add_argument("dir")
+    ar.add_argument("--tune", action="store_true",
+                    help="the cost-model corpus (the default export; "
+                         "the flag names the schema)")
+    ar.add_argument("--replay", action="store_true",
+                    help="read `dir` as a learn-plane replay buffer: "
+                         "needs the learn plane, not ported yet (ROADMAP "
+                         "A.6), exits 2")
+    ar.add_argument("--seed", type=int, default=0,
+                    help="replay shuffle/batch seed (same buffer + same "
+                         "seed = bit-identical batches)")
+    ar.add_argument("--limit", type=int, default=None,
+                    help="cap the replay windows lowered (applied after "
+                         "the seeded shuffle)")
+    ar.add_argument("--batch-size", type=int, default=8,
+                    help="replay batch size (inventory only — the "
+                         "trainer slices its own)")
+    ar.add_argument("--bucket", default=None, metavar="N,E,S",
+                    help="padded shape to lower replay windows into "
+                         "(default: the bucket stamped in the buffer's "
+                         "first record)")
+    ar.add_argument("--out", default=None, metavar="FILE",
+                    help="write the corpus JSON (or, with --replay, the "
+                         "stacked dataset .npz) here instead of stdout")
+    ar.set_defaults(fn=cmd_archive)
+
+
+    for name in ("alerts", "tune"):
         _unported_parser(sub, name)
+
+    p = sub.add_parser("report", help="offline fleet report over archived "
+                                      "telemetry: SLO/capacity/drift/"
+                                      "efficiency/train health from "
+                                      "segments alone; --compare diffs "
+                                      "two runs (docs/archive.md)")
+    p.add_argument("dir", nargs="*", default=[],
+                   help="archive director(ies) — multiple dirs merge "
+                        "into one report")
+    p.add_argument("--compare", nargs=2, default=None,
+                   metavar=("BASELINE", "CANDIDATE"),
+                   help="diff two archive dirs and exit 1 when the "
+                        "candidate regressed (p99, breach/drop rate, "
+                        "per-bucket device cost, drift, train loss)")
+    p.add_argument("--gate", action="store_true",
+                   help="continuous-regression framing for --compare: "
+                        "one-line GATE PASS/FAIL verdict, and a missing "
+                        "baseline passes with a note (first run before "
+                        "an artifact-of-record is banked)")
+    from nerrf_tpu_torch.archive.report import CompareConfig as _CmpCfg
+    p.add_argument("--p99-ratio", type=float,
+                   default=_CmpCfg.p99_ratio, metavar="R",
+                   help="flag when candidate e2e p99 > baseline ×R "
+                        "(default %(default)s)")
+    p.add_argument("--cost-ratio", type=float,
+                   default=_CmpCfg.cost_ratio, metavar="R",
+                   help="flag when per-bucket device seconds/batch > "
+                        "baseline ×R (default %(default)s)")
+    p.add_argument("--loss-ratio", type=float,
+                   default=_CmpCfg.loss_ratio, metavar="R",
+                   help="flag when final train loss > baseline ×R "
+                        "(default %(default)s)")
+    p.add_argument("--rate-abs", type=float,
+                   default=_CmpCfg.rate_abs, metavar="A",
+                   help="flag when breach/drop rate > baseline +A "
+                        "(default %(default)s)")
+    p.add_argument("--psi-breach", type=float,
+                   default=_CmpCfg.psi_breach, metavar="P",
+                   help="flag when score-drift PSI crosses P in the "
+                        "candidate only (default %(default)s)")
+    p.add_argument("--since", type=float, default=None, metavar="UNIX",
+                   help="only records at/after this unix timestamp")
+    p.add_argument("--until", type=float, default=None, metavar="UNIX",
+                   help="only records at/before this unix timestamp")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable report")
+    p.set_defaults(fn=cmd_report)
+
+
+    _unported_parser(sub, "doctor")
 
     p = sub.add_parser("ingest", help="drain a tracker into a trace store")
     p.add_argument("--target", required=True, help="tracker host:port")

@@ -7,8 +7,8 @@ bucket into one shared padded batch, so the knobs here trade latency
 (batch-close deadline) against occupancy (windows per forward) against
 memory (queue bounds).  Every field the port's service reads keeps the
 reference's name and default; the fields of the planes the port has not
-taken yet (quality monitoring, SLO-aware shedding and the device-time
-accountant it reads) are left out.
+taken yet (SLO-aware shedding and the device-time accountant it reads) are
+left out.
 """
 
 from __future__ import annotations
@@ -91,6 +91,13 @@ class ServeConfig:
     # the batcher wedged: readiness fails and leave() stops waiting;
     # 0 disables
     scorer_wedge_sec: float = 60.0
+    # detection-quality plane (quality/): trailing score/feature drift
+    # sketches compared against the live version's reference profile,
+    # exported as nerrf_quality_* gauges and cadenced quality_stats journal
+    # records.  Host-side numpy at the demux boundary only; one None check
+    # per window until a version with a profile is serving; False drops
+    # the plane
+    quality_monitoring: bool = True
 
     @property
     def occupancy(self) -> int:

@@ -26,10 +26,18 @@ scorer watchdog, and clean stream join/leave while batches are in flight.
 
 ``connect`` drains a Tracker endpoint (the gRPC wire of `ingest.service`)
 as one stream, and ``attach_respond`` hands every alert to the respond
-tier's `ResponseRouter`.  Not ported yet: shadow scoring, the compile
-cache, and the device-time, quality, archive, learning, flight and SLO
-planes; without the device-time plane there is no SLO-aware shedding, as
-in the reference.
+tier's `ResponseRouter`.
+
+Model lifecycle (`registry/`): ``attach_manager`` binds a `ModelManager`,
+which hot-swaps promoted versions (`swap_params`) and stages candidates
+(`start_shadow`): a staged candidate is a second `NerrfNet` on the device
+that scores every live batch after the live forward, and only the paired
+comparison reaches the manager's guardrails.  The quality plane
+(`quality/`) compares the scored windows against the live version's
+reference profile, and ``attach_archive`` spools the telemetry to a
+durable archive (`archive/`).  Not ported yet: the compile cache, and the
+device-time, learning, flight and SLO planes; without the device-time
+plane there is no SLO-aware shedding, as in the reference.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import dataclasses
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +66,7 @@ from nerrf_tpu_torch.pipeline import (
     make_eval_fn,
     warmup_trace,
 )
+from nerrf_tpu_torch.quality import QualityMonitor
 from nerrf_tpu_torch.schema import EventArrays, StringTable
 from nerrf_tpu_torch.serve.alerts import (AlertSink, WindowAlert,
                                           calibrated_severity)
@@ -154,6 +163,11 @@ class OnlineDetectionService:
         self.warmup_seconds: Dict[str, float] = {}
         self._swap_lock = threading.Lock()
         self._live_version: Optional[int] = None
+        # a staged shadow candidate (its eval function and version), read
+        # with the live model under _swap_lock, and the ModelManager that
+        # judges it (attach_manager)
+        self._shadow: Optional[Tuple[object, int]] = None
+        self._manager = None
         # the operating point the service booted with: a swap to an
         # UNCALIBRATED version restores this instead of leaking the
         # outgoing version's calibrated cut
@@ -164,6 +178,17 @@ class OnlineDetectionService:
         self._window_log = window_log
         # optional respond.ResponseRouter (attach_respond)
         self._respond = None
+        # detection-quality plane: trailing score/feature drift sketches vs
+        # the live version's reference profile, fed at the demux boundary.
+        # Inactive (one None check per window) until set_quality_profile
+        # binds a reference
+        self._quality = (QualityMonitor(registry=registry, journal=self._journal)
+                         if self.cfg.quality_monitoring else None)
+        # telemetry archive plane: when attached, the demux boundary feeds
+        # each scored window's measured structure and stage stamps into the
+        # writer's workload sketches (journal records reach it through its
+        # own subscription)
+        self._archive = None
 
     # -- scoring --------------------------------------------------------------
 
@@ -181,8 +206,11 @@ class OnlineDetectionService:
         with self._swap_lock:
             eval_fn = self._eval_fn
             version = self._live_version
+            shadow = self._shadow
         out = self._run_eval(eval_fn, batch)
         probs = 1.0 / (1.0 + np.exp(-out["node_logit"]))
+        if shadow is not None:
+            self._shadow_score(shadow, batch, probs)
         return probs, version
 
     def _run_eval(self, eval_fn, batch: Dict[str, np.ndarray]
@@ -192,11 +220,88 @@ class OnlineDetectionService:
         stream and returns host arrays."""
         return eval_fn(batch)
 
+    def _shadow_score(self, shadow, batch, live_probs) -> None:
+        """Score the staged candidate on the same padded batch the live
+        model just scored (same shapes, only the weights differ) and feed
+        the paired comparison to the manager.  Best-effort: a shadow failure
+        is counted and never costs a live window."""
+        s_eval_fn, s_version = shadow
+        try:
+            with trace_span("registry_shadow_score", device=True,
+                            version=s_version,
+                            windows=int(live_probs.shape[0])):
+                s_out = self._run_eval(s_eval_fn, batch)
+            s_probs = 1.0 / (1.0 + np.exp(-s_out["node_logit"]))
+            if self._manager is None:
+                return
+            mask = np.asarray(batch["node_mask"]).astype(bool)
+            for j in range(live_probs.shape[0]):
+                if mask[j].any():  # skip the batch's zero-padded tail slots
+                    self._manager.observe_shadow(
+                        live_probs[j], s_probs[j], mask[j], s_version)
+        except Exception as e:  # noqa: BLE001 — shadow is advisory
+            self._reg.counter_inc(
+                "registry_shadow_failures_total",
+                help="shadow-scoring attempts that raised (live scoring "
+                     "unaffected)")
+            if self._manager is not None:
+                self._manager._log(
+                    f"shadow score failed: {type(e).__name__}: {e}")
+
     # -- model lifecycle ------------------------------------------------------
+
+    @property
+    def model_config(self):
+        """The architecture the warmed bucket forwards run."""
+        return self._model.cfg
 
     @property
     def live_version(self) -> Optional[int]:
         return self._live_version
+
+    def attach_manager(self, manager) -> None:
+        self._manager = manager
+
+    def attach_archive(self, writer) -> None:
+        """Bind a telemetry `archive.ArchiveWriter`: scored windows feed
+        its workload sketches at the demux boundary, rejected windows its
+        rejected-demand sketches (journal records reach it through its own
+        subscription)."""
+        self._archive = writer
+
+    @property
+    def quality(self) -> Optional[QualityMonitor]:
+        """The drift monitor (None when disabled by config)."""
+        return self._quality
+
+    def set_quality_profile(self, profile, version=None) -> None:
+        """Bind the live version's reference quality profile (dict or
+        QualityProfile; None clears, so a version published without a
+        profile exports no quality series rather than comparing against a
+        stale reference).  Called by the ModelManager on attach and swap,
+        and by the serve CLI at boot.  No-op when the plane is off."""
+        if self._quality is not None:
+            self._quality.set_reference(profile, version=version)
+
+    def quality_snapshot(self) -> Optional[dict]:
+        """Live sketches and the reference; None when the plane is off or
+        no reference is bound."""
+        return (self._quality.snapshot()
+                if self._quality is not None else None)
+
+    def _stage(self, state_dict: Mapping[str, torch.Tensor]):
+        """Check ``state_dict`` against the live model's (keys, shapes,
+        dtypes), load it into a second `NerrfNet` on the device and return
+        its eval function; the weights' copy has landed on return.  Takes no
+        lock: the caller repoints under ``_swap_lock`` afterwards."""
+        _check_swap_compatible(self._model.state_dict(), state_dict)
+        with torch.device(self.device):
+            staged = NerrfNet(self._model.cfg)
+        staged.load_state_dict(state_dict, strict=True)
+        staged.eval()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return staged, make_eval_fn(staged)
 
     def swap_params(self, state_dict: Mapping[str, torch.Tensor],
                     version: Optional[int] = None,
@@ -208,15 +313,7 @@ class OnlineDetectionService:
         batches.  Nothing queued is touched and no new shape is met.
         ``threshold`` moves the alerting operating point with the weights;
         ``None`` restores the boot-time operating point."""
-        _check_swap_compatible(self._model.state_dict(), state_dict)
-        with torch.device(self.device):
-            staged = NerrfNet(self._model.cfg)
-        staged.load_state_dict(state_dict, strict=True)
-        staged.eval()
-        eval_fn = make_eval_fn(staged)
-        if self.device.type == "cuda":
-            # the weights' copy lands OUTSIDE the lock
-            torch.cuda.synchronize(self.device)
+        staged, eval_fn = self._stage(state_dict)  # OUTSIDE the lock
         want_thr = threshold if threshold is not None else self._boot_threshold
         with self._swap_lock:
             previous = self._live_version
@@ -227,6 +324,21 @@ class OnlineDetectionService:
                 self.cfg = dataclasses.replace(self.cfg, threshold=want_thr)
         self._journal.record("registry_swap", version=version,
                              previous=previous, threshold=want_thr)
+
+    def start_shadow(self, state_dict: Mapping[str, torch.Tensor],
+                     version: int) -> None:
+        """Stage a candidate: from the next batch on, every live batch is
+        also scored by a second `NerrfNet` holding ``state_dict`` (staged as
+        `swap_params` stages, outside the lock, at the live shapes).  Its
+        results never reach alerts or streams, only the paired guardrail
+        statistics."""
+        _staged, eval_fn = self._stage(state_dict)
+        with self._swap_lock:
+            self._shadow = (eval_fn, int(version))
+
+    def stop_shadow(self) -> None:
+        with self._swap_lock:
+            self._shadow = None
 
     def _warmup(self, log=None) -> None:
         """One forward per configured bucket the donor trace can fill,
@@ -281,6 +393,10 @@ class OnlineDetectionService:
         extra = {"model_version": (f"v{self._live_version}"
                                    if self._live_version is not None
                                    else None)}
+        if self._manager is not None:
+            extra["lineage"] = self._manager.lineage
+            if self._manager.shadow_version is not None:
+                extra["shadow_version"] = f"v{self._manager.shadow_version}"
         if not self._warm:
             return False, "warmup in progress", extra
         if not self._admission_open:
@@ -549,6 +665,15 @@ class OnlineDetectionService:
                 handle.rejected += 1
                 self._drop(handle, idx, trace_id, "oversize", nodes=int(n),
                            edges=int(e), files=int(files))
+                try:
+                    if self._archive is not None:
+                        # rejected-demand sketches: the oversize window's
+                        # structure, not just a count.  Fail-open: telemetry
+                        # loss must never become an admission fault
+                        self._archive.observe_rejected(
+                            nodes=int(n), edges=int(e), files=int(files))
+                except Exception:  # noqa: BLE001
+                    pass
                 return
             sp.args["bucket"] = bucket_tag(bucket)
             sample, _stats = window_sample(
@@ -595,19 +720,42 @@ class OnlineDetectionService:
     def _on_scored(self, scored: List[ScoredWindow]) -> None:
         alert_thr = (self.cfg.threshold if self.cfg.threshold is not None
                      else 0.5)
+        t_demux = time.perf_counter()
         for s in scored:
             if self._window_log is not None:
                 self._window_log.append(
                     (s.stream, s.window_idx, s.t_scored - s.t_admit, s.late,
                      s.model_version))
             # alerting: hot windows only, never blocking (bounded sink).
-            # Fail-open per window: a raising sink or router loses at most
-            # this window's alert, never the ledger resolution below — an
-            # unresolved window wedges leave()
+            # Fail-open per window: a raising sink, router, quality or
+            # archive observer loses at most this window's alert, never the
+            # ledger resolution below — an unresolved window wedges leave()
             try:
+                if self._archive is not None:
+                    # workload sketches for the durable archive: the
+                    # window's admission-measured structure and its stage
+                    # stamps, admit → packed (queue) → scorer pickup (pack)
+                    # → scored (device) → here (demux); O(bins), no IO
+                    self._archive.observe_window(
+                        bucket_tag(s.bucket), nodes=s.nodes,
+                        edges=s.edges, files=s.files,
+                        stages={"queue": s.t_packed - s.t_admit,
+                                "pack": s.t_device - s.t_packed,
+                                "device": s.t_scored - s.t_device,
+                                "demux": t_demux - s.t_scored},
+                        e2e_sec=t_demux - s.t_admit)
                 mask = s.node_mask.astype(bool)
                 hot_slots = (np.nonzero(mask & (s.probs >= alert_thr))[0]
                              if mask.any() else np.empty(0, np.int64))
+                if self._quality is not None:
+                    # drift sketches at the demux boundary (base stream
+                    # name: a resident stream's reconnect sessions are the
+                    # same traffic population)
+                    self._quality.observe_window(
+                        _base_stream(s.stream), bucket_tag(s.bucket),
+                        s.probs, mask, s.node_type,
+                        nodes=s.nodes, edges=s.edges, files=s.files,
+                        alerted=bool(len(hot_slots)))
                 if len(hot_slots):
                     order = np.argsort(-s.probs[hot_slots], kind="stable")
                     hot = [("file" if s.node_type[i] == NODE_TYPE_FILE

@@ -20,11 +20,11 @@ beside the reference's ``stream_config.json``: the model's fields with its
 dtype's name, the stream feature width, the schema version and the
 calibrated per-event threshold, which lives in logit space.
 
-Left out (ROADMAP A.6): the reference quality profile that the
-reference's ``calibrate_and_resave`` writes beside the sidecar (a
-checkpoint here ships without a drift baseline, and says so in the log)
-and the producer of the ``provenance`` stamp (``save_checkpoint`` writes
-one when it is given).
+A calibrated checkpoint also carries ``quality_profile.json``, the
+reference quality profile (`quality.profile`) that `calibrate_and_resave`
+builds at the calibrated operating point: the drift baseline a serve pod
+compares live traffic against.  ``provenance`` is written when it is given
+(its producer, the learn plane, is not ported yet).
 """
 
 from __future__ import annotations
@@ -164,19 +164,29 @@ def _check_feature_layout(meta: dict, path: Path, keys: tuple) -> None:
             f"(mismatched: {bad})")
 
 
-def save_checkpoint(path: str | Path, state_dict: Mapping[str, torch.Tensor],
-                    cfg: JointConfig, calibration: dict | None = None,
-                    provenance: dict | None = None) -> None:
-    """Publish ``state_dict`` (a ``NerrfNet``'s, on any device) and ``cfg``'s
-    sidecar at ``path``, atomically (:func:`_atomic_dir`): the weights
-    first, then the sidecar."""
-    meta = {
+def architecture(cfg: JointConfig) -> dict:
+    """The model fields a sidecar records for ``cfg``: what a checkpoint
+    says of the network (no dtype, no routing), and so what two configs are
+    compared on when one of them was loaded from a checkpoint."""
+    return {
         "gnn": {"hidden": cfg.gnn.hidden, "num_layers": cfg.gnn.num_layers,
                 "dropout": cfg.gnn.dropout,
                 "aggregation": cfg.gnn.aggregation},
         "lstm": {"hidden": cfg.lstm.hidden, "num_layers": cfg.lstm.num_layers,
                  "dropout": cfg.lstm.dropout, "impl": cfg.lstm.impl},
         "fuse": cfg.fuse,
+    }
+
+
+def save_checkpoint(path: str | Path, state_dict: Mapping[str, torch.Tensor],
+                    cfg: JointConfig, calibration: dict | None = None,
+                    quality_profile: dict | None = None,
+                    provenance: dict | None = None) -> None:
+    """Publish ``state_dict`` (a ``NerrfNet``'s, on any device) and ``cfg``'s
+    sidecar at ``path``, atomically (:func:`_atomic_dir`): the weights
+    first, then the sidecar, then the quality profile when there is one."""
+    meta = {
+        **architecture(cfg),
         "features": _feature_layout(),
         "schema_version": SCHEMA_VERSION,
     }
@@ -195,6 +205,27 @@ def save_checkpoint(path: str | Path, state_dict: Mapping[str, torch.Tensor],
         with trace_span("checkpoint", kind="params"):
             torch.save(host, tmp / PARAMS_FILENAME)
         (tmp / CONFIG_FILENAME).write_text(json.dumps(meta, indent=2))
+        if quality_profile:
+            # the reference quality profile rides the checkpoint as its own
+            # sidecar: the score/feature distribution this model was
+            # calibrated against, published with the weights so every serve
+            # pod can watch live traffic drift away from it
+            from nerrf_tpu_torch.quality import PROFILE_FILENAME
+
+            (tmp / PROFILE_FILENAME).write_text(
+                json.dumps(quality_profile, indent=2))
+
+
+def load_quality_profile(path: str | Path) -> dict | None:
+    """The checkpoint's reference quality profile sidecar, or None when
+    the checkpoint predates profiles: callers treat None as "export no
+    quality metrics", never as an empty distribution.  Delegates to the
+    quality plane's one loader, so a malformed or newer-schema sidecar fails
+    here with the one-line ValueError every caller already handles."""
+    from nerrf_tpu_torch.quality import load_profile
+
+    prof = load_profile(Path(path).absolute())
+    return prof.to_dict() if prof is not None else None
 
 
 def load_checkpoint(path: str | Path) -> Tuple[Dict[str, torch.Tensor], JointConfig]:
@@ -268,14 +299,39 @@ def calibrate_and_resave(path: str | Path, model, node_loss_weight: float = 1.0,
         calibration.update({"node_threshold_robust": round(r.threshold, 4),
                             "node_threshold_robust_kind": r.kind,
                             "node_threshold_robust_recall": round(r.recall, 4)})
-    if log:
-        log("quality profile not built (not ported); checkpoint ships "
-            "without a drift baseline")
+    # reference quality profile at the freshly calibrated operating point:
+    # the score/feature distribution this model and cut expect, stamped
+    # beside the calibration so every serve pod watching this version has a
+    # drift baseline.  Best-effort, as calibration itself: a failed profile
+    # never blocks the calibrated checkpoint
+    profile = None
+    try:
+        from nerrf_tpu_torch.quality import build_reference_profile
+
+        profile = build_reference_profile(
+            model, traces=profile_traces(),
+            threshold=calibration["node_threshold"], log=log).to_dict()
+    except Exception as e:  # noqa: BLE001 — profile is advisory
+        if log:
+            log(f"quality profile build failed ({type(e).__name__}: {e}); "
+                "checkpoint ships without a drift baseline")
     # provenance is threaded through the re-save: a retrained checkpoint
     # that gets calibrated must not lose its retrain stamp to this rewrite
     save_checkpoint(path, model.state_dict(), model.cfg,
-                    calibration=calibration, provenance=provenance)
+                    calibration=calibration, quality_profile=profile,
+                    provenance=provenance)
     return calibration
+
+
+def profile_traces() -> list:
+    """The held-out traces `calibrate_and_resave` builds the quality profile
+    over, the reference's: four 120 s traces, a quarter of them attacks,
+    seeds from 9500, disjoint from both the training corpus and the
+    calibration incidents (from 9000)."""
+    from nerrf_tpu_torch.data.synth import make_corpus
+
+    return make_corpus(4, attack_fraction=0.25, base_seed=9500,
+                       duration_sec=120.0)
 
 
 def save_stream_checkpoint(path: str | Path, state_dict: Mapping[str, torch.Tensor],

@@ -35,8 +35,10 @@ reference's draw.  The step flavors:
 (``trainwatch/telemetry.py``) to each step's ``aux``; a
 ``trainwatch.TrainHealthMonitor`` passed as ``monitor`` watches the logged
 steps and halts a diverged run.  Left out: the compile cache (with CUDA
-graphs, ROADMAP B.D1), the chaos plane's fault point, the devtime gauges
-(A.6) and the sharded trainer over a mesh (A.8).
+graphs, ROADMAP B.D1), the chaos plane's fault point and the devtime
+gauges (A.6).  A mesh experiment trains on the one card, as the
+reference's does on one device; data parallelism over several cards is
+ROADMAP A.7.
 """
 
 from __future__ import annotations

@@ -23,11 +23,15 @@ writes full-state checkpoints under ``train_state/`` and resumes from the
 newest (``elastic.train_elastic``, or the sharded trainer's own).  A
 ``monitor`` (``trainwatch.TrainHealthMonitor``) turns the in-step telemetry
 on and halts a diverged run, which then writes a ``metrics.json`` saying
-why and no checkpoint.  Left out, each refused with ``NotImplementedError``
-when asked for: the compile cache (``compile_cache``, ROADMAP B.D1), the
-registry publish (``publish_to``) and the training-health plane's server,
-flight recorder and archive (``metrics_port``, ``flight_dir``,
-``archive_dir``) (A.6), and the sharded trainer over a device mesh (A.8).
+why and no checkpoint.  ``publish_to`` publishes the calibrated checkpoint
+into that model registry's ``lineage`` (`registry.ModelRegistry.publish`;
+``metrics.json`` then names the ``published_version``).  An experiment that
+names a mesh trains on the one card, as the reference does on one device.
+Left out, each refused with ``NotImplementedError`` when asked for: the
+compile cache (``compile_cache``, ROADMAP B.D1), and the training-health
+plane's server, flight recorder and archive (``metrics_port``,
+``flight_dir``, ``archive_dir``), which need
+``trainwatch.training_health`` (A.6).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ def run_experiment(name_or_path: str, out_dir: str | Path,
                    ckpt_every: int = 0,
                    calibrate: bool = True,
                    publish_to: str | None = None,
+                   lineage: str = "default",
                    compile_cache=None,
                    metrics_port: int = -1,
                    flight_dir: str | None = None,
@@ -63,25 +68,29 @@ def run_experiment(name_or_path: str, out_dir: str | Path,
     ``num_steps`` overrides the experiment's; ``ckpt_every`` checkpoints the
     full state every so many steps and resumes from the newest;
     ``calibrate=False`` skips the held-out threshold calibration;
-    ``monitor`` watches the run's health (telemetry on)."""
+    ``publish_to`` names a model registry to publish the checkpoint into,
+    as ``lineage``'s next version; ``monitor`` watches the run's health
+    (telemetry on)."""
     left_out = {
-        "publish_to": (publish_to is not None, "the model registry (ROADMAP A.6)"),
         "compile_cache": (compile_cache is not None,
                           "the compile cache (a capture cache of CUDA graphs, "
                           "ROADMAP B.D1)"),
         "metrics_port": (metrics_port >= 0,
-                         "the training-health metrics server (ROADMAP A.6)"),
+                         "the training-health metrics server "
+                         "(trainwatch.training_health, ROADMAP A.6)"),
         "flight_dir": (flight_dir is not None,
-                       "the training flight recorder (ROADMAP A.6)"),
+                       "the training flight recorder "
+                       "(trainwatch.training_health, ROADMAP A.6)"),
         "archive_dir": (archive_dir is not None,
-                        "the telemetry archive (ROADMAP A.6)"),
+                        "the training telemetry archive "
+                        "(trainwatch.training_health, ROADMAP A.6)"),
     }
     for name, (asked, what) in left_out.items():
         if asked:
             raise NotImplementedError(f"run_experiment({name}=...): {what} is not ported")
     dev = resolve_device(device)
     return _run_experiment(name_or_path, out_dir, num_steps, ckpt_every,
-                           calibrate, dev, monitor)
+                           calibrate, dev, monitor, (publish_to, lineage))
 
 
 def _halted_report(exp, cfg, out: Path, monitor, steps_per_sec) -> dict:
@@ -104,7 +113,7 @@ def _halted_report(exp, cfg, out: Path, monitor, steps_per_sec) -> dict:
 
 
 def _run_experiment(name_or_path, out_dir, num_steps, ckpt_every, calibrate,
-                    dev, monitor) -> dict:
+                    dev, monitor, publish) -> dict:
     import dataclasses
 
     from nerrf_tpu_torch.config import get_experiment
@@ -130,7 +139,7 @@ def _run_experiment(name_or_path, out_dir, num_steps, ckpt_every, calibrate,
             cdir = Path(__file__).resolve().parents[2] / cdir
         if (cdir / "manifest.json").exists():
             return _run_on_disk_corpus(exp, cfg, cdir, out, ckpt_dir, ckpt_every,
-                                       calibrate, dev, monitor, t0)
+                                       calibrate, dev, monitor, t0, publish)
         _log(f"corpus_dir {cdir} not generated "
              f"(python scripts/gen_corpus.py --out {cdir}) — falling back "
              f"to the in-memory corpus "
@@ -160,11 +169,11 @@ def _run_experiment(name_or_path, out_dir, num_steps, ckpt_every, calibrate,
     if monitor is not None and monitor.diverged is not None:
         return _halted_report(exp, cfg, out, monitor, res.steps_per_sec)
     return _finish(exp, cfg, out, dev, res.metrics, res.steps_per_sec,
-                   res.state.model, t0, calibrate=calibrate)
+                   res.state.model, t0, calibrate=calibrate, publish=publish)
 
 
 def _run_on_disk_corpus(exp, cfg, cdir, out, ckpt_dir, ckpt_every, calibrate,
-                        dev, monitor, t0) -> dict:
+                        dev, monitor, t0, publish) -> dict:
     """The disk-sharded corpus branch: train by shard rotation, evaluate on
     the corpus's held-out traces, and add the corpus's size to the report."""
     from nerrf_tpu_torch.train.corpus import ShardedCorpus
@@ -194,11 +203,13 @@ def _run_on_disk_corpus(exp, cfg, cdir, out, ckpt_dir, ckpt_every, calibrate,
         "corpus_eval_windows": int(sc.manifest["eval_windows"]),
     }
     return _finish(exp, cfg, out, dev, res.metrics, res.steps_per_sec,
-                   res.state.model, t0, extra, calibrate=calibrate)
+                   res.state.model, t0, extra, calibrate=calibrate,
+                   publish=publish)
 
 
 def _finish(exp, cfg, out: Path, dev, metrics, steps_per_sec, model, t0,
-            extra: dict | None = None, calibrate: bool = True) -> dict:
+            extra: dict | None = None, calibrate: bool = True,
+            publish: tuple = (None, "default")) -> dict:
     from nerrf_tpu_torch.train.checkpoint import (
         calibrate_and_resave,
         save_checkpoint,
@@ -213,6 +224,24 @@ def _finish(exp, cfg, out: Path, dev, metrics, steps_per_sec, model, t0,
                                         node_loss_weight=cfg.node_loss_weight,
                                         log=_log, device=dev)
                    if calibrate else None)
+    publish_to, lineage = publish
+    published = None
+    if publish_to:
+        # after calibrate_and_resave, so the version carries its operating
+        # threshold and quality profile; best-effort: a registry failure
+        # must never lose a finished training run (the checkpoint is
+        # already safe under out/)
+        try:
+            from nerrf_tpu_torch.registry import ModelRegistry
+
+            published = ModelRegistry(publish_to).publish(
+                lineage, out / "model",
+                source=f"nerrf_tpu_torch.train.run --experiment {exp.name}")
+            _log(f"published {out / 'model'} as {lineage}/v{published} "
+                 f"in {publish_to}")
+        except Exception as e:  # noqa: BLE001
+            _log(f"registry publish failed ({type(e).__name__}: {e}); "
+                 f"checkpoint remains at {out / 'model'}")
     report = {
         "experiment": exp.name,
         "backend": dev.type,
@@ -232,6 +261,7 @@ def _finish(exp, cfg, out: Path, dev, metrics, steps_per_sec, model, t0,
                if cfg.seq_loss_weight > 0 else {}),
         },
         "wall_seconds": round(time.time() - t0, 1),
+        **({"published_version": published} if published else {}),
         **(extra or {}),
     }
     (out / "metrics.json").write_text(json.dumps(report, indent=2) + "\n")
@@ -251,12 +281,21 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="full-state checkpoints every N steps, resuming "
                          "from the newest")
+    ap.add_argument("--publish", default=None, metavar="REGISTRY",
+                    help="publish the calibrated checkpoint into this model "
+                         "registry (a new immutable version; promotion "
+                         "stays separate)")
+    ap.add_argument("--lineage", default="default",
+                    help="registry lineage to publish into (with --publish)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where to train (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
+    publish = (dict(publish_to=args.publish, lineage=args.lineage)
+               if args.publish else {})
     report = run_experiment(args.experiment, args.out, args.steps,
-                            ckpt_every=args.ckpt_every, device=args.device)
+                            ckpt_every=args.ckpt_every, device=args.device,
+                            **publish)
     return 0 if all(report["gates"].values()) else 1
 
 

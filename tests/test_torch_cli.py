@@ -441,19 +441,19 @@ def test_unported_subcommands_exit_2_naming_their_item(name):
 
 
 REFUSED_FLAGS = {
-    "--publish": ["train-detector", "--publish", "R"],
     "--aot-cache": ["train-detector", "--aot-cache", "C"],
     "--metrics-port": ["train-detector", "--metrics-port", "0"],
     "--flight-dir": ["train-detector", "--flight-dir", "F"],
     "--archive-dir": ["train-detector", "--archive-dir", "A"],
-    "sd --registry": ["serve-detect", "--registry", "R"],
     "sd --tuned": ["serve-detect", "--tuned", "T"],
     "sd --flight-dir": ["serve-detect", "--flight-dir", "F"],
-    "sd --archive-dir": ["serve-detect", "--archive-dir", "A"],
     "sd --chaos-plan": ["serve-detect", "--chaos-plan", "P"],
     "sd --profiler-port": ["serve-detect", "--profiler-port", "9000"],
     "sd --profile-on-breach-sec": ["serve-detect", "--profile-on-breach-sec", "2"],
     "sd --aot-cache": ["serve-detect", "--aot-cache", "C"],
+    "models --aot": ["models", "publish", "--registry", "R", "--lineage", "l",
+                     "--model-dir", "M", "--aot"],
+    "archive --replay": ["archive", "export", "D", "--replay"],
 }
 
 

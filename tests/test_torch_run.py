@@ -181,8 +181,7 @@ def test_artifacts_read_back(runs):
     assert {k: round(float(v), 4) for k, v in metrics.items()} == got["metrics"]
 
 
-@pytest.mark.parametrize("option", [dict(publish_to="registry"),
-                                    dict(compile_cache=object()), dict(metrics_port=0),
+@pytest.mark.parametrize("option", [dict(compile_cache=object()), dict(metrics_port=0),
                                     dict(flight_dir="flight"), dict(archive_dir="archive")],
                          ids=lambda kw: next(iter(kw)))
 def test_left_out_options_are_refused(tmp_path, option):

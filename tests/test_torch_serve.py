@@ -61,7 +61,7 @@ BUCKET_B = (256, 512, 64)
 # probabilities, port vs JAX package (as test_torch_pipeline.py)
 SCORE_ATOL = 1e-5
 # the reference's fields of the planes the port has not taken (ROADMAP A.6)
-NOT_PORTED_FIELDS = {"quality_monitoring", "slo_aware_shedding",
+NOT_PORTED_FIELDS = {"slo_aware_shedding",
                      "shed_headroom_margin", "devtime_window_sec",
                      "devtime_accounting"}
 PARITY_CFG = dict(buckets=(BUCKET_B,), batch_size=4, window_sec=15.0,
