@@ -152,6 +152,25 @@ to ``model_detect`` after the promotion and after the rollback, ``archive
 verify`` clean and ``report``'s window count the windows served, and the
 CLI's ``models``, ``quality``, ``archive`` and ``report`` exit 0.
 
+Then the continuous-learning loop (``run_learn_path``, benchmarks/
+run_learn_bench.py's flow) on the experiment's checkpoint as v1: its
+quality profile shipped into a fresh registry, the scorer booted from LIVE
+on the serve cell's ladder with the quality monitor, a replay buffer
+(``attach_learn``), the flight recorder (``attach_flight``) and a
+``RetrainSupervisor``; three unshifted streams over the wire, oracle
+dispositions (one through ``alerts label``), three streams at ``drift=0.8``
+during which the one ``quality_drift`` bundle fires and the supervisor
+retrains once on its own CUDA stream (replay and shifted synth, 30 steps at
+batch 4) while serve scores on, that leg and the retrain gated on the sum
+of their launches (its forwards × 28/2/3/2/0, 30 × 56/4/5/2/1, the
+retrain's evaluation forwards); ``archive export --replay`` joining the
+labels; v2 published with its provenance, staged and promoted by the
+guardrails after shifted legs with a shadow (56/4/6/4/0 a batch); a parity
+stream bit-equal to ``model_detect`` under v2; v2's shifted edge AUC within
+0.10 of v1's unshifted; ``doctor`` on the drift bundle and on a later
+bundle whose learn section names the retrain; a retrain at a learning rate
+of 1e12 aborted by the health monitor with nothing published.
+
 Then StreamNet (``run_stream_path``): the three attention entry points of
 ``flash_attention.cu`` against the plain version (forward O and dQ, dK, dV
 against its autograd, within TOL·(1 + Σ|terms|), two kernel runs
@@ -179,8 +198,9 @@ checkpoint bytes and seconds, the telemetry's cost, shards rotated, data
 wait, held-out metrics), each phase's seconds on one line, and the
 lifecycle's line (the profile's seconds, ms a scoring call with and
 without a shadow staged, windows/s of legs with and without one, the
-guardrails' decisions, the archive's bytes).  Exits non-zero, with no
-result line, when a phase fails or there is no card.
+guardrails' decisions, the archive's bytes) and the learn phase's line.
+Exits non-zero, with no result line, when a phase fails or there is no
+card.
 
 ``python3 chip_smoke.py --stream-probe SEED [SEED ...]`` runs only the
 stream quality probe, once for each init seed (the spread of its held-out
@@ -188,6 +208,8 @@ event AUC over inits), and prints one JSON line of their readings.
 
 ``python3 chip_smoke.py --lifecycle`` runs only the lifecycle phase, on a
 seeded full-width checkpoint, and prints one JSON line of its readings.
+``python3 chip_smoke.py --learn [ROOT]`` runs only the learn phase the same
+way, for the package under ROOT (this tree by default).
 
 ``python3 chip_smoke.py --planner [ROOT]`` runs only the search kernel:
 with no ROOT its entries' ``ptxas`` lines, ``check_mcts`` on both entries
@@ -4576,14 +4598,14 @@ def run_lifecycle_path(model_dir: str) -> dict:
     from nerrf_tpu_torch.flight.journal import EventJournal
     from nerrf_tpu_torch.models import NerrfNet
     from nerrf_tpu_torch.observability import MetricsRegistry
-    from nerrf_tpu_torch.pipeline import fit_capacity, model_detect
+    from nerrf_tpu_torch.pipeline import model_detect
     from nerrf_tpu_torch.quality import build_reference_profile
     from nerrf_tpu_torch.registry import ModelManager, ModelRegistry, RegistryConfig
     from nerrf_tpu_torch.serve import ServeConfig
     from nerrf_tpu_torch.train.checkpoint import (
         load_calibration, load_checkpoint, load_quality_profile, profile_traces,
         save_checkpoint)
-    from nerrf_tpu_torch.train.data import DatasetConfig, windows_of_trace
+    from nerrf_tpu_torch.train.data import windows_of_trace
 
     phase_t0 = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix="nerrf-lifecycle-"))
@@ -4641,9 +4663,7 @@ def run_lifecycle_path(model_dir: str) -> dict:
             live = NerrfNet(cfg1)
         live.load_state_dict(sd1, strict=True)
         traces = serve_traces()
-        fits = [fit_capacity(tr, DatasetConfig()) for tr in traces.values()]
-        bucket = (max(f.graph.max_nodes for f in fits),
-                  max(f.graph.max_edges for f in fits), max(f.max_seqs for f in fits))
+        bucket = serve_cell_bucket(traces)
         scfg = ServeConfig(buckets=(bucket,), batch_size=SERVE_BATCH,
                            threshold=cal1.get("node_threshold"))
         ds = scfg.dataset_config(bucket)
@@ -4798,6 +4818,489 @@ def _full_batches(traces, ds):
     samples = [s for tr in traces.values() for s in windows_of_trace(tr, ds)]
     for i in range(0, len(samples) - SERVE_BATCH + 1, SERVE_BATCH):
         yield pad_batch(samples[i:i + SERVE_BATCH], SERVE_BATCH)
+
+
+# --- the continuous-learning loop: drift → retrain → publish → promotion ----
+
+# benchmarks/run_learn_bench.py's settings (:52-60, :194-258): the traffic's
+# shift, the recovery tolerance, the guardrails opened wide (the loop's
+# plumbing is under test, not the guardrails' thresholds), the quality
+# monitor's cadence, and the retrain's shape
+LEARN_DRIFT = 0.8
+LEARN_AUC_TOL = 0.10
+LEARN_STREAMS = 3
+LEARN_SIM_SECONDS = 120.0
+LEARN_POLICY = dict(shadow_min_windows=8, canary_windows=4,
+                    max_disagreement_rate=1.0, max_score_drift=10.0,
+                    canary_max_disagreement=1.0)
+# the retrain's depth: the reference bench's 60 steps cut to 30 to keep the
+# phase near 150 s (the retrain at the serve rung runs about 0.42 steps/s)
+LEARN_STEPS = 30
+# the reference bench's batch: RetrainConfig's default of 8 ran the card out
+# of its 80 GB at the serve rung (4096 sequences a window) beside the scorer
+LEARN_BATCH = 4
+LEARN_PROMOTE_LEGS = 3
+LEARN_DIVERGE = dict(num_steps=20, save_every=2, learning_rate=1e12, seed=3,
+                     batch_size=4, replay_limit=8, synth_traces=2,
+                     synth_seed=7700, synth_duration_sec=60.0,
+                     synth_num_target_files=4, synth_benign_rate_hz=6.0)
+
+
+def _console(*args) -> None:
+    """Print to the process's own standard output: the supervisor and the
+    model manager log from their threads, while ``_cli_run`` may have
+    redirected ``sys.stdout`` to capture a command's output."""
+    print(*args, file=sys.__stdout__, flush=True)
+
+
+def learn_sim(seed: int, drift: float, attack: bool):
+    """The reference bench's traffic (``sim``, run_learn_bench.py:130-134)."""
+    from nerrf_tpu_torch.data import SimConfig
+
+    return SimConfig(duration_sec=LEARN_SIM_SECONDS, attack=attack,
+                     attack_start_sec=LEARN_SIM_SECONDS / 3, num_target_files=4,
+                     benign_rate_hz=6.0, seed=seed, drift=drift)
+
+
+def serve_cell_bucket(traces: dict) -> tuple:
+    """The serve cell's one-bucket ladder: the rung ``fit_capacity`` gives
+    over ``traces`` (the serve cell's four streams)."""
+    from nerrf_tpu_torch.pipeline import fit_capacity
+    from nerrf_tpu_torch.train.data import DatasetConfig
+
+    fits = [fit_capacity(tr, DatasetConfig()) for tr in traces.values()]
+    return (max(f.graph.max_nodes for f in fits), max(f.graph.max_edges for f in fits),
+            max(f.max_seqs for f in fits))
+
+
+def _pcts(lat: list) -> tuple:
+    """(p50, p99) of ``lat`` seconds, in ms (nearest rank)."""
+    s = sorted(lat)
+    return (1e3 * s[len(s) // 2], 1e3 * s[min(int(0.99 * len(s)), len(s) - 1)]) \
+        if s else (None, None)
+
+
+def run_learn_path(model_dir: str) -> dict:
+    """The continuous-learning loop at full width (benchmarks/
+    run_learn_bench.py's flow with the port's modules), v1 being the
+    checkpoint at ``model_dir``:
+
+    a. v1's edge AUC on held-out unshifted and shifted sets; its quality
+       profile over four unshifted traces (their batches × 28/2/3/2/0),
+       shipped with v1 into a fresh registry, promoted; the scorer booted
+       from LIVE through ``ModelManager`` on the serve cell's ladder, with
+       the quality monitor, a ``ReplayWriter`` (``attach_learn``), a
+       ``FlightRecorder`` (``attach_flight``) and a ``RetrainSupervisor``
+       whose retrain runs on its own CUDA stream;
+    b. leg A (three unshifted streams over the wire, ``connect``); oracle
+       tp dispositions on its alerted replay windows (one through ``alerts
+       label``); leg B at ``drift=0.8``: the drift bundle fires during it
+       and the supervisor retrains once (replay + shifted synth, 30 steps)
+       while serve goes on; the leg and the retrain gated together on the
+       sum of their launches; ``archive export --replay`` joins the labels;
+    c. v2 published with its provenance, staged by ``poll()``, promoted by
+       the guardrails after shifted legs with a shadow (56/4/6/4/0 a
+       batch); a parity stream bit-equal to ``model_detect`` under v2;
+       v2's shifted edge AUC within LEARN_AUC_TOL of v1's unshifted;
+    d. ``doctor`` on the drift bundle and on a bundle dumped after the
+       promotion (its learn section names the retrain);
+    e. a second supervisor at a learning rate of 1e12 aborts under the
+       health monitor and publishes nothing.
+    Each leg's launches are read with the counters set to 0 before it."""
+    import math
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    import torch
+
+    from nerrf_tpu_torch.data import Trace, simulate_trace
+    from nerrf_tpu_torch.flight import EventJournal, FlightConfig, FlightRecorder
+    from nerrf_tpu_torch.ingest.service import TraceReplayServer, TrackerClient
+    from nerrf_tpu_torch.learn import (ReplayConfig, ReplayWriter, RetrainConfig,
+                                       RetrainSupervisor, append_disposition,
+                                       iter_replay, replay_stats)
+    from nerrf_tpu_torch.models import NerrfNet
+    from nerrf_tpu_torch.observability import MetricsRegistry
+    from nerrf_tpu_torch.pipeline import make_eval_fn, model_detect
+    from nerrf_tpu_torch.quality import (QualityConfig, QualityMonitor,
+                                         build_reference_profile)
+    from nerrf_tpu_torch.registry import ModelManager, ModelRegistry, RegistryConfig
+    from nerrf_tpu_torch.serve import ServeConfig
+    from nerrf_tpu_torch.train.checkpoint import (load_calibration, load_checkpoint,
+                                                  save_checkpoint)
+    from nerrf_tpu_torch.train.data import build_dataset
+    from nerrf_tpu_torch.train.loop import evaluate
+    from nerrf_tpu_torch.trainwatch import TrainHealthConfig
+
+    phase_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="nerrf-learn-"))
+    lineage = "default"
+    out, part_s = {}, {}
+    state, mcfg = load_checkpoint(model_dir)
+    thr = load_calibration(model_dir).get("node_threshold")
+    per_forward = fused_forward_launches(mcfg.gnn.num_layers)
+    per_shadow = {k: 2 * v for k, v in per_forward.items()}
+    per_step = step_launches("fused", mcfg.gnn.num_layers)
+    bucket = serve_cell_bucket(serve_traces())
+    scfg = ServeConfig(buckets=(bucket,), batch_size=SERVE_BATCH, batch_close_sec=0.1,
+                       window_sec=15.0, stride_sec=5.0, stream_queue_slots=512,
+                       alert_queue_slots=4096, window_deadline_sec=2.0, threshold=thr)
+    ds = scfg.dataset_config(bucket)
+    wpl = int((LEARN_SIM_SECONDS - scfg.window_sec) / scfg.stride_sec) + 1
+    servers, svc, man, flight, sup, replay_w = [], None, None, None, None, None
+
+    def model_of(sd):
+        with torch.device("cuda"):
+            m = NerrfNet(mcfg)
+        m.load_state_dict(sd, strict=True)
+        return m.eval()
+
+    def auc(model, dset) -> float:
+        return float(evaluate(make_eval_fn(model), dset, SERVE_BATCH)["edge_auc"])
+
+    def want(launches: dict, n: int) -> dict:
+        return {k: n * v for k, v in launches.items()}
+
+    try:
+        # --- a. v1, its profile, the registry and the serve planes ------------
+        t0 = time.perf_counter()
+        v1 = model_of(state)
+        eval_unshifted = build_dataset(
+            [simulate_trace(learn_sim(9100 + i, 0.0, True)) for i in range(2)], ds)
+        eval_shifted = build_dataset(
+            [simulate_trace(learn_sim(9200 + i, LEARN_DRIFT, True)) for i in range(2)], ds)
+        out["v1_unshifted_auc"] = auc(v1, eval_unshifted)
+        out["v1_shifted_auc"] = auc(v1, eval_shifted)
+        ptraces = [simulate_trace(learn_sim(500 + i, 0.0, i % 2 == 0)) for i in range(4)]
+        windows, batches = profile_batches(ptraces, ds)
+        _reset_counts()
+        profile = build_reference_profile(v1, ptraces, ds_cfg=ds,
+                                          threshold=thr if thr is not None else 0.5)
+        got = _launch_counts()
+        if got != {**want(per_forward, batches), "mcts_search": 0} \
+                or profile.windows != windows:
+            _fail(f"learn profile: {profile.windows} windows, launches {got} != "
+                  f"{batches} batches × {per_forward}")
+        del v1
+        save_checkpoint(tmp / "v1", state, mcfg, calibration={"node_threshold": thr}
+                        if thr is not None else None, quality_profile=profile.to_dict())
+        reg = MetricsRegistry(namespace="lsmoke")
+        journal = EventJournal(capacity=16384, registry=reg)
+        store = ModelRegistry(tmp / "registry", journal=journal)
+        store.publish(lineage, tmp / "v1", source="learn smoke v1")
+        store.promote(lineage, 1)
+        part_s["v1_auc_and_profile"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        man = ModelManager(store, lineage, cfg=RegistryConfig(**LEARN_POLICY),
+                           registry=reg, journal=journal, log=_console)
+        sd1, cfg1, _cal, _v = man.boot()
+        monitor = QualityMonitor(
+            QualityConfig(min_windows=10, min_scores=150, journal_every=4,
+                          trailing_windows=wpl, feature_trailing_windows=1024),
+            registry=reg, journal=journal)
+        window_log = []
+
+        class LearnService(_counting_service(per="batch")):
+            """Counts forwards too (the scorer thread's, a shadow's
+            included): while the retrain launches from its own thread, a
+            batch's counter deltas are not its own."""
+            forwards = 0
+
+            def _run_eval(self, eval_fn, batch):
+                self.forwards += 1
+                return super()._run_eval(eval_fn, batch)
+
+        svc = LearnService(model_of(sd1), scfg, registry=reg, journal=journal,
+                           quality_monitor=monitor, window_log=window_log,
+                           device="cuda")
+        svc.start()
+        man.attach(svc)     # binds v1's shipped profile to the monitor
+        if svc.live_version != 1 or svc.batch_launches != [per_forward]:
+            _fail(f"learn boot: v{svc.live_version}, warmup {svc.batch_launches}")
+        replay_dir = tmp / "replay"
+        replay_w = ReplayWriter(ReplayConfig(out_dir=str(replay_dir),
+                                             per_stream_quota=48, seed=0), registry=reg)
+        svc.attach_learn(replay_w)
+        flight = FlightRecorder(
+            FlightConfig(out_dir=str(tmp / "flight"), quality_psi_breach=0.25,
+                         quality_min_windows=int(LEARN_STREAMS * wpl * 1.3),
+                         quality_breach_records=2, min_interval_sec=3600.0,
+                         drop_burst_n=10 ** 6, p99_breach_sec=None),
+            registry=reg, journal=journal, slo=svc.slo, info=svc.flight_info,
+            quality=svc.quality_snapshot)
+        svc.attach_flight(flight)
+        sup = RetrainSupervisor(
+            store, mcfg, cfg=RetrainConfig(
+                lineage=lineage, replay_dir=str(replay_dir), out_dir=str(tmp / "retrain"),
+                debounce_triggers=1, cooldown_sec=1e9, num_steps=LEARN_STEPS,
+                batch_size=LEARN_BATCH, seed=2, save_every=LEARN_STEPS,
+                replay_limit=64, synth_traces=4, synth_seed=4200,
+                synth_duration_sec=LEARN_SIM_SECONDS, synth_drift=LEARN_DRIFT,
+                synth_num_target_files=4, synth_benign_rate_hz=6.0),
+            ds_cfg=ds, registry=reg, journal=journal, log=_console,
+            monitor_cfg=TrainHealthConfig(journal_every=8, stall_after_sec=3600.0),
+            device="cuda")
+        part_s["warmup"] = time.perf_counter() - t0
+
+        def leg(name: str, drift: float, seed_base: int,
+                n: int = LEARN_STREAMS) -> dict:
+            """n streams, one trace each, over the wire; the counters from 0."""
+            targets = []
+            for i in range(n):
+                tr = simulate_trace(learn_sim(seed_base + 97 * i, drift, i % 2 == 0))
+                srv = TraceReplayServer(tr.events, tr.strings, batch_size=256)
+                targets.append(f"127.0.0.1:{srv.start()}")
+                servers.append(srv)
+            n_log, n_batch, n_fwd = len(window_log), len(svc.batch_launches), svc.forwards
+            _reset_counts()
+            t0 = time.perf_counter()
+            runs = [svc.connect(f"s{i}", targets[i], timeout=300.0) for i in range(n)]
+            for r in runs:
+                r.done.wait(timeout=600.0)
+            wall = time.perf_counter() - t0
+            errors = {r.stream: repr(r.error) for r in runs if r.error or not r.done.is_set()}
+            if errors:
+                _fail(f"learn leg {name}: stream errors {errors}")
+            log = window_log[n_log:]
+            p50, p99 = _pcts([e[2] for e in log])
+            part_s[f"leg_{name}"] = wall
+            return dict(name=name, t0=t0, seconds=wall, windows=len(log),
+                        windows_per_s=len(log) / wall, p50_ms=p50, p99_ms=p99,
+                        batches=svc.batch_launches[n_batch:],
+                        forwards=svc.forwards - n_fwd)
+
+        def gate_batches(lg: dict, per_batch: dict) -> dict:
+            got = _launch_counts()
+            if not lg["batches"] or any(b != per_batch for b in lg["batches"]) \
+                    or got != {**want(per_batch, len(lg["batches"])), "mcts_search": 0}:
+                _fail(f"learn leg {lg['name']}: launches {got}, per batch "
+                      f"{lg['batches']} != {per_batch}")
+            return got
+
+        def summary(lg: dict, launches: dict) -> dict:
+            return {k: lg[k] for k in ("seconds", "windows", "windows_per_s", "p50_ms",
+                                       "p99_ms", "forwards")} | {"launches": launches}
+
+        # --- b. leg A, dispositions, leg B with the retrain ---------------------
+        leg_a = leg("A", 0.0, 1000)
+        out["leg_A"] = summary(leg_a, gate_batches(leg_a, per_forward))
+        replay_w.flush()
+        alerted = [r for r in iter_replay(replay_dir)
+                   if r.get("max_prob") is not None and r["max_prob"] >= 0.5][:8]
+        first = next(iter_replay(replay_dir))
+        cli_label = "tp" if first in alerted else "fp"
+        rc, text, err = _cli_run("alerts", "label", first["trace_id"], cli_label,
+                                 "--note", "smoke oracle", "--replay-dir", replay_dir)
+        if rc != 0 or json.loads(text)["label"] != cli_label:
+            _fail(f"learn: alerts label exit {rc}: {err[-500:]}")
+        for r in alerted:
+            if r is not first:
+                append_disposition(replay_dir, r["trace_id"], "tp",
+                                   note="smoke oracle: alerted window")
+        tp_ids = {r["trace_id"] for r in alerted}
+
+        leg_b = leg("B", LEARN_DRIFT, 5000)
+        replay_w.flush()
+        export_t0 = time.perf_counter()
+        rc, text, err = _cli_run("archive", "export", replay_dir, "--replay",
+                                 "--batch-size", SERVE_BATCH)
+        doc = json.loads(text) if rc == 0 else {}
+        if rc != 0 or doc["dataset"]["labeled_tp"] != len(tp_ids) \
+                or doc["stats"]["dispositions"] != len(tp_ids | {first["trace_id"]}) \
+                or doc["dataset"]["windows"] != doc["stats"]["windows"]:
+            _fail(f"learn: archive export --replay exit {rc}, {doc.get('dataset')}, "
+                  f"{len(tp_ids)} tp labels: {err[-500:]}")
+        part_s["export_replay"] = time.perf_counter() - export_t0
+        if not sup.wait(timeout=900):
+            _fail("learn: the retrain did not finish in 900 s")
+        if sup.launches != 1 or sup.last_outcome != "published":
+            _fail(f"learn: {sup.launches} retrain launches, outcome {sup.last_outcome}")
+        bundles = journal.tail(kinds=("bundle",))
+        if [b.data["trigger"] for b in bundles] != ["quality_drift"]:
+            _fail(f"learn: bundles {[b.data for b in bundles]}, want one quality_drift")
+        drift_bundle = bundles[0]
+        [trig] = journal.tail(kinds=("retrain_triggered",))
+        [done] = journal.tail(kinds=("retrain_done",))
+        prov = json.loads((store.version_dir(lineage, 2) / "model_config.json")
+                          .read_text()).get("provenance") or {}
+        if not (prov.get("trigger") == "quality_drift"
+                and prov.get("trigger_seq") == drift_bundle.seq
+                and prov.get("parent_version") == 1 and prov.get("replay_fingerprint")
+                and 0 < prov.get("replay_windows", 0) <= 64
+                and prov.get("synth_windows", 0) > 0
+                and prov.get("steps") == LEARN_STEPS and prov.get("seed") == 2):
+            _fail(f"learn: v2's provenance {prov}")
+        train_windows = prov["replay_windows"] + prov["synth_windows"]
+        eval_fwd = math.ceil(train_windows / LEARN_BATCH)
+        got = _launch_counts()
+        expect = {k: leg_b["forwards"] * per_forward[k] + LEARN_STEPS * per_step[k]
+                  + eval_fwd * per_forward[k] for k in per_forward}
+        if got != {**expect, "mcts_search": 0} or leg_b["forwards"] != len(leg_b["batches"]):
+            _fail(f"learn leg B with the retrain: launches {got} != {expect} "
+                  f"({leg_b['forwards']} forwards, {LEARN_STEPS} steps, {eval_fwd} "
+                  f"evaluation forwards)")
+        out["leg_B"] = summary(leg_b, got)
+        out["retrain"] = dict(
+            trigger_to_launch_s=trig.t_perf - drift_bundle.t_perf,
+            seconds=done.data["wall_sec"], steps_per_s=done.data["steps_per_sec"],
+            edge_auc_train=done.data["edge_auc"], train_windows=train_windows,
+            eval_forwards=eval_fwd, provenance=prov,
+            bundle_into_leg_B_s=drift_bundle.t_perf - leg_b["t0"])
+
+        # --- c. the promotion through the guardrails, parity, recovery ----------
+        decisions = [man.poll()]
+        if decisions[0]["action"] != "shadow_start":
+            _fail(f"learn: poll {decisions[0]} after the publish (want shadow_start)")
+        t_stage = time.perf_counter()
+        promote_legs = []
+        while svc.live_version != 2 and len(promote_legs) < LEARN_PROMOTE_LEGS:
+            lg = leg(f"promote{len(promote_legs) + 1}", LEARN_DRIFT,
+                     6000 + 500 * (len(promote_legs) + 1))
+            promote_legs.append(summary(lg, gate_batches(lg, per_shadow)))
+            decisions.append(man.poll())
+        if svc.live_version != 2 or store.live_version(lineage) != 2:
+            _fail(f"learn: live v{svc.live_version} after {len(promote_legs)} "
+                  f"shifted legs; decisions {decisions}")
+        [pub2] = [r for r in journal.tail(kinds=("registry_publish",))
+                  if r.data.get("version") == 2]
+        [promo] = journal.tail(kinds=("registry_promote",))
+        out["promote_legs"] = promote_legs
+        out["publish_to_promotion_s"] = promo.t_perf - pub2.t_perf
+        out["staged_to_promotion_s"] = time.perf_counter() - t_stage
+
+        tr = simulate_trace(learn_sim(9900, LEARN_DRIFT, True))
+        srv = TraceReplayServer(tr.events, tr.strings, batch_size=256)
+        target = f"127.0.0.1:{srv.start()}"
+        servers.append(srv)
+        n_batch = len(svc.batch_launches)
+        _reset_counts()
+        prun = svc.connect("parity0", target, timeout=300.0)
+        prun.done.wait(timeout=600.0)
+        plg = dict(name="parity", batches=svc.batch_launches[n_batch:])
+        parity_launches = gate_batches(plg, per_forward)
+        ev, strings = TrackerClient(target).stream(timeout=60.0)
+        sd2, _c, _cal2, _v2 = store.load(lineage, 2)
+        v2 = model_of(sd2)
+        offline = model_detect(Trace(events=ev, strings=strings, ground_truth=None,
+                                     labels=None, name="parity0"),
+                               v2, ds_cfg=ds, auto_capacity=False, batch_size=SERVE_BATCH,
+                               threshold=svc.cfg.threshold, device="cuda")
+        served = prun.result
+        fields = ("file_scores", "file_window_scores", "proc_scores", "threshold")
+        differ = [f for f in fields
+                  if served is None or getattr(served, f) != getattr(offline, f)]
+        if differ or served.detector != "serve[max]@v2":
+            _fail(f"learn parity under v2: {differ or served.detector} differ")
+        out["v2_shifted_auc"] = auc(v2, eval_shifted)
+        if out["v2_shifted_auc"] < out["v1_unshifted_auc"] - LEARN_AUC_TOL:
+            _fail(f"learn: v2's shifted edge AUC {out['v2_shifted_auc']:.4f} < v1's "
+                  f"unshifted {out['v1_unshifted_auc']:.4f} - {LEARN_AUC_TOL}")
+        del v2
+        seen2, flip_clean = False, True
+        for entry in window_log:
+            seen2 = seen2 or entry[4] == 2
+            flip_clean = flip_clean and not (seen2 and entry[4] == 1)
+        recompiles = _counter_total(reg, "serve_recompiles_total")
+        if not flip_clean or recompiles:
+            _fail(f"learn: a v1 window after v2 ({not flip_clean}), {recompiles} "
+                  f"recompiles")
+        out["parity"] = dict(batches=len(plg["batches"]), launches=parity_launches)
+
+        # --- d. the doctor ------------------------------------------------------
+        drift_path = drift_bundle.data["path"]
+        rc, text, err = _cli_run("doctor", drift_path)
+        if rc != 0 or "trigger=quality_drift" not in text \
+                or "detection quality (drift" not in text:
+            _fail(f"learn: doctor on the drift bundle exit {rc}: {err[-500:]}")
+        # the drift bundle's journal tail ends at its own dump, before the
+        # retrain it arms: a bundle dumped now holds the retrain
+        later = flight.trigger("learn_snapshot", "after the promotion of v2")
+        rc, text, err = _cli_run("doctor", later)
+        if rc != 0 or "1 triggered → 1 published, 0 aborted" not in text \
+                or "v1 → v2" not in text:
+            _fail(f"learn: doctor's learn section exit {rc}: {text[-800:]}")
+        out["bundle_bytes"] = sum(p.stat().st_size for p in Path(drift_path).iterdir())
+        stats = replay_stats(replay_dir)
+        out["replay"] = {k: stats[k] for k in ("windows", "disk_bytes", "dispositions")}
+        slo = svc.slo.snapshot()["per_stream"]
+        out["slo_p99_ms"] = {s: v["p99_ms"] for s, v in sorted(slo.items())}
+        out["window_log_p99_ms"] = {
+            s: _pcts([e[2] for e in window_log if e[0] == s][-256:])[1]
+            for s in sorted(slo)}
+        out["decisions"] = [{k: d.get(k) for k in ("action", "live", "shadow", "verdict",
+                                                   "reason") if k in d} for d in decisions]
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        for closer in (flight and flight.close, sup and sup.close,
+                       replay_w and replay_w.close, man and man.close, svc and svc.stop):
+            if closer:
+                closer()
+        for srv in servers:
+            srv.stop()
+
+    # --- e. the divergence leg: nothing published -------------------------------
+    try:
+        t0 = time.perf_counter()
+        reg2 = MetricsRegistry(namespace="lsmoke2")
+        journal2 = EventJournal(capacity=4096, registry=reg2)
+        store2 = ModelRegistry(tmp / "registry-div", journal=journal2)
+        store2.publish(lineage, tmp / "v1", source="learn smoke v1")
+        store2.promote(lineage, 1)
+        sup2 = RetrainSupervisor(
+            store2, mcfg, cfg=RetrainConfig(
+                lineage=lineage, replay_dir=str(tmp / "no-replay"),
+                out_dir=str(tmp / "retrain-div"), debounce_triggers=1, cooldown_sec=1e9,
+                **LEARN_DIVERGE),
+            ds_cfg=ds, registry=reg2, journal=journal2, log=_console,
+            monitor_cfg=TrainHealthConfig(journal_every=2, stall_after_sec=3600.0),
+            device="cuda")
+        _reset_counts()
+        journal2.record("bundle", trigger="quality_drift", path="injected")
+        ok = sup2.wait(timeout=600)
+        sup2.close()
+        aborted = journal2.tail(kinds=("retrain_aborted",))
+        versions = [v["version"] for v in store2.status(lineage)["versions"]]
+        if not ok or sup2.last_outcome != "aborted" or len(aborted) != 1 \
+                or versions != [1] or reg2.value(
+                    "retrain_runs_total", labels={"outcome": "aborted"}) != 1:
+            _fail(f"learn divergence: outcome {sup2.last_outcome}, aborted "
+                  f"{[a.data for a in aborted]}, versions {versions}")
+        steps_run = aborted[0].data["step"] + 1
+        got = _launch_counts()
+        if got != {**want(per_step, steps_run), "mcts_search": 0}:
+            _fail(f"learn divergence: launches {got} != {steps_run} steps × {per_step}")
+        out["divergence"] = dict(reason=aborted[0].data["reason"], steps=steps_run,
+                                 launches=got)
+        part_s["divergence"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - phase_t0
+    out["parts_s"] = part_s
+    a, b = out["leg_A"], out["leg_B"]
+    r = out["retrain"]
+    print(f"learn ({out['seconds']:.1f} s; parts {json.dumps({k: round(v, 2) for k, v in part_s.items()})}): "
+          f"v1 edge AUC unshifted {out['v1_unshifted_auc']:.4f}, shifted "
+          f"{out['v1_shifted_auc']:.4f}; one quality_drift bundle "
+          f"({out['bundle_bytes']} bytes), the retrain launched "
+          f"{r['trigger_to_launch_s']:.4f} s after it, {LEARN_STEPS} steps at batch "
+          f"{LEARN_BATCH} at {r['steps_per_s']} steps/s, {r['seconds']} s, over "
+          f"{r['train_windows']} windows; published → promoted in "
+          f"{out['publish_to_promotion_s']:.2f} s ({len(out['promote_legs'])} shifted "
+          f"legs with a shadow); v2 shifted edge AUC {out['v2_shifted_auc']:.4f}; "
+          f"serve leg A {a['windows_per_s']:.3f} windows/s, p50 {a['p50_ms']:.1f} ms, "
+          f"p99 {a['p99_ms']:.1f} ms; leg B with the retrain {b['windows_per_s']:.3f} "
+          f"windows/s, p50 {b['p50_ms']:.1f} ms, p99 {b['p99_ms']:.1f} ms (admit→"
+          f"scored, window_log); SLO p99 (admit→demux) {json.dumps(out['slo_p99_ms'])} "
+          f"vs window_log {json.dumps({k: round(v, 1) for k, v in out['window_log_p99_ms'].items() if v is not None})}; "
+          f"replay {out['replay']['windows']} windows, {out['replay']['disk_bytes']} "
+          f"bytes; divergence aborted at step {out['divergence']['steps'] - 1} "
+          f"({out['divergence']['reason']}); peak {out['peak_gb']:.1f} GB; parity "
+          f"bit-equal under v2; on {_smi()}")
+    out["launches"] = {"serve_batch": per_forward, "shadow_batch": per_shadow,
+                       "retrain_step": per_step}
+    return out
 
 
 # --- StreamNet (ROADMAP A.5): the attention kernels, bench.py's stream leg
@@ -5462,9 +5965,10 @@ def main() -> int:
     # package under ROOT (another tree of this repository), to hold two trees
     # against each other in one call, in turns
     mode = sys.argv[1] if sys.argv[1:2] in (
-        ["--kernel-times"], ["--lstm-times"], ["--stream-leg"], ["--planner"]) else None
+        ["--kernel-times"], ["--lstm-times"], ["--stream-leg"], ["--planner"],
+        ["--learn"]) else None
     times_of = sys.argv[2] if mode and len(sys.argv) > 2 else None
-    if mode and mode != "--planner" and times_of is None:
+    if mode and mode not in ("--planner", "--learn") and times_of is None:
         print(f"chip_smoke: {mode} takes the root of a tree", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5492,6 +5996,25 @@ def main() -> int:
             out["value_err"] = check_value_net(bench_domain())["value_err"]
         out["times"] = planner_times()
         print(json.dumps(out))
+        return 0
+    if mode == "--learn":
+        # only the learn phase, for the package under ROOT (this tree by
+        # default), on a seeded full-width checkpoint
+        import tempfile
+
+        from nerrf_tpu_torch.models import JointConfig, build_nerrfnet
+        from nerrf_tpu_torch.train.checkpoint import save_checkpoint
+
+        kernels.build()
+        model_dir = tempfile.mkdtemp(prefix="nerrf-learn-model-")
+        try:
+            model = build_nerrfnet(JointConfig(), seed=0, device="cuda")
+            save_checkpoint(model_dir, model.state_dict(), model.cfg)
+            del model
+            learn = run_learn_path(model_dir)
+        finally:
+            shutil.rmtree(model_dir, ignore_errors=True)
+        print(json.dumps({"root": times_of or here, "card": smi, "learn": learn}))
         return 0
     if times_of:
         if mode == "--stream-leg":
@@ -5593,6 +6116,7 @@ def main() -> int:
             cli_phase = P("cli", run_cli_path, experiment["model_dir"],
                           undo["heuristic"]["mttr_s"])
             lifecycle = P("lifecycle", run_lifecycle_path, experiment["model_dir"])
+            learn = P("learn", run_learn_path, experiment["model_dir"])
         finally:
             shutil.rmtree(experiment["model_dir"], ignore_errors=True)
         stream = P("stream", run_stream_path)
@@ -5646,7 +6170,11 @@ def main() -> int:
          "cli_launches": cli_phase["launches"][name],
          "lifecycle_profile_launches": lifecycle["launches"]["profile"][name],
          "lifecycle_shadow_batch_launches": lifecycle["launches"]["shadow_batch"][name],
-         "lifecycle_batch_launches": lifecycle["launches"]["batch"][name]}
+         "lifecycle_batch_launches": lifecycle["launches"]["batch"][name],
+         "learn_serve_batch_launches": learn["launches"]["serve_batch"][name],
+         "learn_shadow_batch_launches": learn["launches"]["shadow_batch"][name],
+         "learn_retrain_step_launches": learn["launches"]["retrain_step"][name],
+         "learn_leg_b_with_retrain_launches": learn["leg_B"]["launches"][name]}
         for name in segment_kernels]}
     # the search: per plan of 800 simulations (ms: CUDA events around the
     # plan's launches and syncs; plain_ms: the plain version's plan on the

@@ -10,7 +10,10 @@ artifacts and exit codes over the port's paths.  Usage:
     python -m nerrf_tpu_torch.cli status         --incident DIR
     python -m nerrf_tpu_torch.cli models         publish|list|promote|rollback|status
     python -m nerrf_tpu_torch.cli serve-detect   --registry DIR [--archive-dir DIR]
+                                                 [--flight-dir DIR]
     python -m nerrf_tpu_torch.cli report         DIR
+    python -m nerrf_tpu_torch.cli doctor         BUNDLE|ARCHIVE
+    python -m nerrf_tpu_torch.cli alerts label   TRACE_ID tp|fp --replay-dir DIR
 
 An *incident directory* is the unit of state: victim files under ``victim/``,
 the snapshot store under ``store/``, the captured trace, and every stage's
@@ -124,17 +127,34 @@ def cmd_train_detector(args) -> int:
     _log(f"training detector on {len(train_ds)} windows ({args.steps} steps)…")
     train_cfg = TrainConfig(
         model=model_cfg, batch_size=8, num_steps=args.steps,
-        learning_rate=3e-3, warmup_steps=min(30, args.steps // 5))
-    if args.ckpt_every > 0:
-        from nerrf_tpu_torch.train.elastic import train_elastic
+        learning_rate=3e-3, warmup_steps=min(30, args.steps // 5),
+        # arming the health plane turns the in-step telemetry on with it:
+        # divergence detection without grad/update norms is loss-only (an
+        # armed archive wants the same records durable)
+        telemetry=(args.metrics_port >= 0 or bool(args.flight_dir)
+                   or bool(args.archive_dir)))
+    # training-health plane: /readyz with the train-aware check, the
+    # train_divergence/starvation/stall bundles and the telemetry archive;
+    # all three off costs the loop nothing
+    from nerrf_tpu_torch.trainwatch import training_health
 
-        res = train_elastic(
-            train_ds, eval_ds, train_cfg,
-            ckpt_dir=Path(args.model_dir) / "train_state",
-            save_every=args.ckpt_every, log=_log, device=dev)
-    else:
-        res = train_nerrfnet(train_ds, eval_ds, train_cfg, log=_log, device=dev)
+    with training_health(metrics_port=args.metrics_port,
+                         flight_dir=args.flight_dir,
+                         archive_dir=args.archive_dir, log=_log) as monitor:
+        if args.ckpt_every > 0:
+            from nerrf_tpu_torch.train.elastic import train_elastic
+
+            res = train_elastic(
+                train_ds, eval_ds, train_cfg,
+                ckpt_dir=Path(args.model_dir) / "train_state",
+                save_every=args.ckpt_every, log=_log, monitor=monitor,
+                device=dev)
+        else:
+            res = train_nerrfnet(train_ds, eval_ds, train_cfg, log=_log,
+                                 monitor=monitor, device=dev)
     if not res.metrics:
+        # a divergence-halted run has no metrics and no usable weights —
+        # the flight bundle (if armed) carries the evidence
         _log("training halted without metrics (diverged?); not saving a "
              "checkpoint")
         return 1
@@ -379,8 +399,7 @@ def cmd_models(args) -> int:
 def cmd_quality(args) -> int:
     """The detection-quality plane's offline face (docs/quality.md):
     ``show`` renders a reference profile (checkpoint sidecar or bare
-    JSON), or with ``--json`` a flight bundle's ``quality.json`` (its table
-    is the flight doctor's, not ported yet); ``compare`` PSIs
+    JSON) or a flight bundle's live divergence table; ``compare`` PSIs
     two profiles against each other — score distribution, top-drifting
     window features, margin mass and alert-rate deltas."""
     from nerrf_tpu_torch.quality import load_profile
@@ -409,10 +428,10 @@ def cmd_quality(args) -> int:
             if args.json:
                 print(json.dumps(obj, indent=2))
                 return 0
-            _log("rendering a flight bundle's quality table needs the "
-                 "flight doctor, which is not ported yet (ROADMAP A.6); "
-                 "pass --json for the bundle's quality.json")
-            return 2
+            from nerrf_tpu_torch.flight.doctor import quality_section
+
+            print("\n".join(quality_section(obj)))
+            return 0
         if args.json:
             print(json.dumps(obj.to_dict(), indent=2))
             return 0
@@ -481,9 +500,8 @@ def cmd_quality(args) -> int:
 def cmd_archive(args) -> int:
     """Telemetry archive maintenance: segment inventory, retention prune,
     integrity verify, cross-host merge, and the tune-corpus export
-    (docs/archive.md).  All offline: no device, no live process.  The
-    replay export (``--replay``) is refused before this runs (learn plane,
-    ROADMAP A.6)."""
+    (docs/archive.md), and the learn plane's replay-buffer export
+    (``--replay``).  All offline: no device, no live process."""
     from nerrf_tpu_torch.archive import (
         export_tune,
         list_segments,
@@ -535,6 +553,55 @@ def cmd_archive(args) -> int:
         if args.archive_cmd == "merge":
             out = merge_archives(args.sources, args.out, log=_log)
             print(json.dumps(out))
+            return 0
+        if args.archive_cmd == "export" and args.replay:
+            # learn-plane reader: the replay buffer → deterministic,
+            # seedable training batches (docs/learning.md); host code —
+            # window lowering is numpy
+            from nerrf_tpu_torch.learn import (
+                build_replay_dataset,
+                iter_replay,
+                replay_batches,
+                replay_stats,
+            )
+            from nerrf_tpu_torch.serve.config import ServeConfig
+            from nerrf_tpu_torch.train.data import DatasetConfig
+
+            stats = replay_stats(args.dir)
+            if not stats["windows"]:
+                _log(f"refusing to export: replay buffer {args.dir} holds "
+                     "no scored windows (serve with the learn plane "
+                     "attached first)")
+                return 1
+            bucket = None
+            if args.bucket:
+                bucket = tuple(int(x) for x in
+                               args.bucket.replace("x", ",").split(","))
+            else:
+                # shape authority from the buffer itself: replay records
+                # carry the bucket serve admission lowered them into
+                for rec in iter_replay(args.dir):
+                    if rec.get("bucket"):
+                        bucket = tuple(rec["bucket"])
+                    break
+            ds_cfg = (ServeConfig().dataset_config(bucket) if bucket
+                      else DatasetConfig())
+            ds, info = build_replay_dataset(
+                args.dir, ds_cfg, seed=args.seed, limit=args.limit)
+            batches = 0
+            if ds is not None:
+                batches = sum(1 for _ in replay_batches(
+                    ds, args.batch_size, seed=args.seed))
+            doc = {"replay_dir": str(args.dir), "bucket": list(bucket or ()),
+                   "seed": args.seed, "batch_size": args.batch_size,
+                   "batches": batches, "stats": stats, "dataset": info}
+            if args.out and ds is not None:
+                import numpy as np
+
+                np.savez_compressed(args.out, **ds.arrays)
+                _log(f"replay dataset written to {args.out} "
+                     f"({info['windows']} windows, seed {args.seed})")
+            print(json.dumps(doc, indent=2))
             return 0
         if args.archive_cmd == "export":
             corpus = export_tune(args.dir)
@@ -601,6 +668,46 @@ def _load_any_trace(path: str, ground_truth=None):
     return load_trace_jsonl(p, ground_truth=ground_truth)
 
 
+# --------------------------------------------------------------------------
+def cmd_alerts(args) -> int:
+    """Operator feedback on served alerts (docs/learning.md): label a
+    window's alert tp/fp by its trace_id.  The disposition lands twice —
+    an ``alert_disposition`` journal record (flight/archive evidence)
+    and the replay buffer's sidecar, where the `export --replay` reader
+    joins it into training labels by trace_id, last-wins."""
+    from nerrf_tpu_torch.flight.journal import DEFAULT_JOURNAL
+    from nerrf_tpu_torch.learn import append_disposition
+
+    rec = append_disposition(args.replay_dir, args.trace_id,
+                             args.label, note=args.note)
+    DEFAULT_JOURNAL.record(
+        "alert_disposition", trace_id=args.trace_id,
+        label=args.label, note=args.note,
+        replay_dir=str(args.replay_dir))
+    print(json.dumps(rec))
+    return 0
+
+
+def cmd_doctor(args) -> int:
+    """The incident doctor: reconstruct a flight-recorder bundle's
+    timeline and per-stage attribution offline, no live process needed
+    (docs/flight-recorder.md).  A telemetry ARCHIVE directory renders the
+    offline fleet report instead (docs/archive.md).  Without an argument
+    the reference runs its environment doctor, which the port refuses
+    (:data:`UNPORTED_FLAGS`)."""
+    from nerrf_tpu_torch.archive import is_archive_dir
+    from nerrf_tpu_torch.flight.doctor import doctor_main
+
+    if (not Path(args.bundle, "manifest.json").is_file()
+            and is_archive_dir(args.bundle)):
+        # an archive dir, not a bundle: same verb, the report reader
+        from nerrf_tpu_torch.archive import report_main
+
+        return report_main([args.bundle], as_json=args.json)
+    return doctor_main(args.bundle, tail=args.tail, as_json=args.json)
+
+
+# --------------------------------------------------------------------------
 def cmd_serve(args) -> int:
     """Serve a trace over the Tracker wire protocol (+ /metrics endpoint):
     the replay flavor of the tracker daemon."""
@@ -773,6 +880,28 @@ def cmd_serve_detect(args) -> int:
         _log(f"respond tier armed: severity>={args.respond_severity:g}, "
              f"{len(responder.cfg.batch_slots)} batch slots warmed in "
              f"{responder.warmup_seconds:.1f}s")
+    recorder = None
+    uninstall_crash = None
+    if args.flight_dir:
+        # incident flight recorder: trailing-p99 breach / drop burst /
+        # shadow-disagreement / guardrail-veto / quality-drift triggers dump
+        # self-contained bundles into --flight-dir, and the excepthook +
+        # faulthandler hooks turn an uncaught crash into a bundle too —
+        # wired BEFORE streams connect so startup failures are covered
+        from nerrf_tpu_torch.flight import (
+            FlightConfig,
+            FlightRecorder,
+            install_crash_handlers,
+        )
+
+        recorder = FlightRecorder(
+            FlightConfig(out_dir=args.flight_dir,
+                         p99_breach_sec=args.deadline_sec),
+            info=service.flight_info, slo=service.slo,
+            quality=service.quality_snapshot, archive=archive, log=_log)
+        service.attach_flight(recorder)
+        uninstall_crash = install_crash_handlers(recorder)
+        _log(f"flight recorder armed: bundles in {args.flight_dir}")
     if manager is not None:
         manager.attach(service)
         manager.start_polling()
@@ -869,6 +998,19 @@ def cmd_serve_detect(args) -> int:
             summary["respond"] = responder.stats()
         print(json.dumps(summary, indent=2))
         return 0
+    except BaseException as e:
+        # a MAIN-thread crash would only reach sys.excepthook AFTER the
+        # finally below has already uninstalled it — journal (→ bundle)
+        # here, while the recorder is still subscribed.  Ctrl-C is a
+        # routine shutdown, not an incident
+        if recorder is not None and not isinstance(
+                e, (SystemExit, KeyboardInterrupt)):
+            from nerrf_tpu_torch.flight.journal import DEFAULT_JOURNAL
+            from nerrf_tpu_torch.flight.recorder import journal_exception
+
+            journal_exception(DEFAULT_JOURNAL, type(e), e,
+                              e.__traceback__, "main")
+        raise
     finally:
         if manager is not None:
             manager.close()
@@ -879,9 +1021,15 @@ def cmd_serve_detect(args) -> int:
             rs.stop()
         if metrics:
             metrics.close()
+        if recorder is not None:
+            recorder.close()
         if archive is not None:
-            # drains the backlog and seals the tail segment
+            # after the recorder: a crash bundle dumped during teardown
+            # still stamps a live archive position; close() drains the
+            # backlog and seals the tail segment
             archive.close()
+        if uninstall_crash is not None:
+            uninstall_crash()
 
 
 def cmd_respond(args) -> int:
@@ -1024,32 +1172,18 @@ UNPORTED_COMMANDS = {
              "sync, lock discipline, the concurrency tier, metrics "
              "contract); --deep adds the jaxpr-level program contracts",
              "the analysis rules over the port", "A.7"),
-    "alerts": ("operator feedback on served alerts: tp/fp dispositions that "
-               "join the replay buffer's label stream (docs/learning.md)",
-               "the learn plane", "A.6"),
     "tune": ("fit a learned bucket ladder + per-rung kernel routing from an "
              "archived cost corpus; emits the tuned-ladder artifact "
              "serve-detect --tuned and the AOT re-export consume "
              "(docs/tuning.md)", "the ladder tuner", "A.6"),
-    "doctor": ("diagnose the environment, read a flight-recorder incident "
-               "bundle, or report over a telemetry archive directory",
-               "the flight recorder's doctor", "A.6"),
 }
 
 # (subcommand, flag, is it asked for?, what it needs, ROADMAP item)
 UNPORTED_FLAGS = (
     ("train-detector", "--aot-cache", lambda a: a.aot_cache is not None,
      "the compile cache", "A.7"),
-    ("train-detector", "--metrics-port", lambda a: a.metrics_port >= 0,
-     "trainwatch.training_health", "A.6"),
-    ("train-detector", "--flight-dir", lambda a: a.flight_dir is not None,
-     "the training flight recorder", "A.6"),
-    ("train-detector", "--archive-dir", lambda a: a.archive_dir is not None,
-     "trainwatch.training_health (the flight plane)", "A.6"),
     ("serve-detect", "--tuned", lambda a: a.tuned is not None,
      "the ladder tuner", "A.6"),
-    ("serve-detect", "--flight-dir", lambda a: a.flight_dir is not None,
-     "the flight recorder", "A.6"),
     ("serve-detect", "--chaos-plan", lambda a: a.chaos_plan is not None,
      "the chaos plane's fault points", "A.6"),
     ("serve-detect", "$NERRF_CHAOS_PLAN",
@@ -1059,15 +1193,16 @@ UNPORTED_FLAGS = (
      "the device-time plane's profiler server", "A.6"),
     ("serve-detect", "--profile-on-breach-sec",
      lambda a: a.profile_on_breach_sec > 0,
-     "the flight recorder's profiler capture", "A.6"),
+     "the device-time plane's profiler capture", "A.6"),
     ("serve-detect", "--aot-cache", lambda a: a.aot_cache is not None,
      "the compile cache", "A.7"),
     ("models", "publish --aot",
      lambda a: a.models_cmd == "publish" and a.aot,
      "the compile cache", "A.7"),
-    ("archive", "export --replay",
-     lambda a: a.archive_cmd == "export" and a.replay,
-     "the learn plane's replay buffer", "A.6"),
+    ("doctor", "with no bundle (the environment doctor)",
+     lambda a: a.bundle is None,
+     "an environment doctor of the port's own (the reference's runs "
+     "scripts/check_env.py, a JAX backend probe)", "A.7"),
 )
 
 
@@ -1130,16 +1265,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "cache yet (ROADMAP A.7)")
     p.add_argument("--metrics-port", type=int, default=-1,
                    help="training-health /metrics + /healthz + /readyz "
-                        "port (-1 disables): ≥ 0 needs "
-                        "trainwatch.training_health, not ported yet "
-                        "(ROADMAP A.6), exits 2")
+                        "port (-1 disables; 0 = ephemeral); /readyz fails "
+                        "before the first step and on a divergence halt "
+                        "(docs/training-health.md)")
     p.add_argument("--flight-dir", default=None, metavar="DIR",
-                   help="the training flight recorder: not ported yet "
-                        "(ROADMAP A.6), exits 2")
+                   help="arm the training flight recorder: divergence/"
+                        "starvation/stall bundles land here, readable "
+                        "offline with `nerrf doctor <bundle>`")
     p.add_argument("--archive-dir", default=None, metavar="DIR",
-                   help="the training run's telemetry archive: needs "
-                        "trainwatch.training_health, not ported yet "
-                        "(ROADMAP A.6), exits 2")
+                   help="spool the run's telemetry (journal, metrics "
+                        "snapshots, step sketches) into a crash-safe "
+                        "segmented archive `nerrf report` reads offline "
+                        "(docs/archive.md)")
     _add_device(p)
     p.set_defaults(fn=cmd_train_detector)
 
@@ -1301,8 +1438,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None, metavar="DIR",
                    help="write per-stream detection JSON + alerts.jsonl")
     p.add_argument("--flight-dir", default=None, metavar="DIR",
-                   help="the incident flight recorder: not ported yet "
-                        "(ROADMAP A.6), exits 2")
+                   help="arm the incident flight recorder: anomaly "
+                        "triggers (p99 breach, drop burst, shadow "
+                        "disagreement, guardrail veto, quality drift, "
+                        "uncaught crash via excepthook+faulthandler) dump "
+                        "self-contained diagnostic bundles here, readable "
+                        "offline with `nerrf doctor <bundle>`")
     p.add_argument("--archive-dir", default=None, metavar="DIR",
                    help="spool the serve run's telemetry (journal records, "
                         "metrics snapshots, workload sketches) to crash-"
@@ -1326,8 +1467,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="a profiler server on this port: not ported yet "
                         "(ROADMAP A.6), exits 2 when ≥ 0")
     p.add_argument("--profile-on-breach-sec", type=float, default=0.0,
-                   help="profiler trace in p99-breach bundles: not ported "
-                        "yet (ROADMAP A.6), exits 2 when > 0")
+                   help="profiler trace in p99-breach bundles: needs the "
+                        "device-time plane, not ported yet (ROADMAP A.6), "
+                        "exits 2 when > 0")
     p.add_argument("--respond", action="store_true",
                    help="arm the online incident-response tier: alerts at "
                         "or above --respond-severity become incidents, "
@@ -1462,9 +1604,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the cost-model corpus (the default export; "
                          "the flag names the schema)")
     ar.add_argument("--replay", action="store_true",
-                    help="read `dir` as a learn-plane replay buffer: "
-                         "needs the learn plane, not ported yet (ROADMAP "
-                         "A.6), exits 2")
+                    help="read `dir` as a learn-plane replay buffer "
+                         "instead: lower its scored windows (with "
+                         "disposition labels joined by trace_id) into "
+                         "deterministic, seedable training batches "
+                         "(docs/learning.md)")
     ar.add_argument("--seed", type=int, default=0,
                     help="replay shuffle/batch seed (same buffer + same "
                          "seed = bit-identical batches)")
@@ -1484,8 +1628,27 @@ def build_parser() -> argparse.ArgumentParser:
     ar.set_defaults(fn=cmd_archive)
 
 
-    for name in ("alerts", "tune"):
-        _unported_parser(sub, name)
+    p = sub.add_parser("alerts", help="operator feedback on served "
+                                      "alerts: tp/fp dispositions that "
+                                      "join the replay buffer's label "
+                                      "stream (docs/learning.md)")
+    alsub = p.add_subparsers(dest="alerts_cmd", required=True)
+    al = alsub.add_parser("label", help="record one disposition by "
+                                        "trace_id (journal record + "
+                                        "replay-buffer sidecar)")
+    al.add_argument("trace_id", help="the alert's trace_id (alert "
+                                     "records, `nerrf doctor` timeline)")
+    al.add_argument("label", choices=["tp", "fp"],
+                    help="true positive (the window really was an "
+                         "attack) or false positive")
+    al.add_argument("--note", default=None,
+                    help="free-text context stored with the disposition")
+    al.add_argument("--replay-dir", default="replay-buffer", metavar="DIR",
+                    help="the replay buffer whose sidecar receives the "
+                         "label (default: ./replay-buffer)")
+    al.set_defaults(fn=cmd_alerts)
+
+    _unported_parser(sub, "tune")
 
     p = sub.add_parser("report", help="offline fleet report over archived "
                                       "telemetry: SLO/capacity/drift/"
@@ -1535,7 +1698,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_report)
 
 
-    _unported_parser(sub, "doctor")
+    p = sub.add_parser("doctor", help="diagnose the environment, read a "
+                                      "flight-recorder incident bundle, "
+                                      "or report over a telemetry "
+                                      "archive directory")
+    p.add_argument("bundle", nargs="?", default=None,
+                   help="flight bundle directory (bundle-<utc>-<trigger>): "
+                        "print the incident timeline + per-stage "
+                        "attribution offline; or a telemetry archive "
+                        "directory: its report; omit for the environment "
+                        "doctor (not ported: exits 2)")
+    p.add_argument("--tail", type=int, default=None,
+                   help="only the last N journal records of the timeline")
+    p.add_argument("--build", action="store_true",
+                   help="also build missing native libraries (env mode)")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable summary")
+    p.set_defaults(fn=cmd_doctor)
 
     p = sub.add_parser("ingest", help="drain a tracker into a trace store")
     p.add_argument("--target", required=True, help="tracker host:port")

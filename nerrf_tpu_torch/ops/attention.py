@@ -56,8 +56,7 @@ _NEG = -1e30
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    kernels.reset_counts(LAUNCHES)
 
 
 def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,7 +90,7 @@ def _one_layout(q, k, v):
 
 def _launch(name: str, q, *args, **kw) -> None:
     kernels.launch_attention(name, q, *args, **kw)
-    LAUNCHES[name] += 1
+    kernels.count_launch(LAUNCHES, name)
 
 
 class CausalAttention(torch.autograd.Function):

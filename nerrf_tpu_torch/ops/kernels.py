@@ -96,6 +96,24 @@ MAX_ROW_WIDTH = 256
 
 _LOCK = threading.Lock()
 _FNS: Dict[str, object] = {}
+# the launch counters' lock: a wrapper counts from whichever thread launches
+# (serve's scorer, a retrain worker, autograd's backward thread), and ``+= 1``
+# on a dict entry is a read, an add and a store, so increments could be lost
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counts: Dict[str, int], name: str) -> None:
+    """Add one launch of ``name`` to ``counts`` (a wrapper's LAUNCHES)."""
+    with _COUNT_LOCK:
+        counts[name] += 1
+
+
+def reset_counts(*counts: Dict[str, int]) -> None:
+    """Set every entry of each of ``counts`` to 0."""
+    with _COUNT_LOCK:
+        for c in counts:
+            for k in c:
+                c[k] = 0
 
 
 def library_path(name: str) -> Path:

@@ -81,9 +81,7 @@ W2_PAD = 8
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTE_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    kernels.reset_counts(LAUNCHES, ROUTE_LAUNCHES)
 
 
 class MCTSTree(NamedTuple):
@@ -472,8 +470,8 @@ def search_chunk(tree: MCTSTree, num_sims: int, ctx: SearchCtx,
         *(t.data_ptr() for t in tree), *(t.data_ptr() for t in ctx),
         None if value is None else value.flat.data_ptr(), hidden,
         B, M, Fp, Pp, int(num_sims))
-    LAUNCHES["mcts_search"] += 1
-    ROUTE_LAUNCHES[route] += 1
+    kernels.count_launch(LAUNCHES, "mcts_search")
+    kernels.count_launch(ROUTE_LAUNCHES, route)
     return tree
 
 
@@ -495,5 +493,5 @@ def leaf_value(feats: torch.Tensor, consts: torch.Tensor,
         kernels._launch("mcts_value", feats.device, feats.data_ptr(), consts.data_ptr(),
                         None if value is None else value.flat.data_ptr(), hidden,
                         feats.shape[0], out.data_ptr())
-        LAUNCHES["mcts_value"] += 1
+        kernels.count_launch(LAUNCHES, "mcts_value")
     return out

@@ -103,8 +103,7 @@ _FORCE_PLAIN = False
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    kernels.reset_counts(LAUNCHES)
 
 
 @contextlib.contextmanager
@@ -154,8 +153,17 @@ def _window_offsets(B: int, n: int, device) -> torch.Tensor:
     return (torch.arange(B, device=device, dtype=torch.int64) * n)[:, None]
 
 
-@functools.lru_cache(maxsize=32)
 def _row_numbers(B: int, num_rows: int, device: torch.device) -> torch.Tensor:
+    """[B, num_rows + 1] int32 row numbers, made once per calling stream:
+    a tensor made on one stream may not have been written yet when another
+    stream reads it (serve's scorer and a retrain worker run on two)."""
+    stream = kernels._stream(device) if device.type == "cuda" else 0
+    return _row_numbers_on(B, num_rows, device, stream)
+
+
+@functools.lru_cache(maxsize=32)
+def _row_numbers_on(B: int, num_rows: int, device: torch.device,
+                    stream: int) -> torch.Tensor:
     return torch.arange(num_rows + 1, dtype=torch.int32,
                         device=device).expand(B, -1).contiguous()
 
@@ -285,7 +293,7 @@ def _segment_sum_cuda(name, data, segment_ids, num_segments, plan):
     out = torch.empty(B, num_segments, F, dtype=data.dtype, device=data.device)
     if out.numel():
         kernels.launch_segment_sum(name, data, plan, out)
-        LAUNCHES[name] += 1
+        kernels.count_launch(LAUNCHES, name)
     return out
 
 
@@ -343,7 +351,7 @@ def _gather_cuda(name: str, table, idx):
                       dtype=table.dtype, device=table.device)
     if out.numel():
         kernels.launch_gather(name, table, _int32(idx), out)
-        LAUNCHES[name] += 1
+        kernels.count_launch(LAUNCHES, name)
     return out
 
 
@@ -524,7 +532,7 @@ def _sage_cuda(msg, dst_ids, src_by_dst, src_ids, dst_by_src, wf_d, wr_s,
         kernels.launch_sage_aggregate(
             msg, ptr_f, _int32(src_by_dst), wf_d.float().contiguous(),
             ptr_r, _int32(dst_by_src), wr_s.float().contiguous(), out)
-        LAUNCHES["sage_aggregate"] += 1
+        kernels.count_launch(LAUNCHES, "sage_aggregate")
     return out
 
 

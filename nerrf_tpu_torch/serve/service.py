@@ -35,9 +35,16 @@ that scores every live batch after the live forward, and only the paired
 comparison reaches the manager's guardrails.  The quality plane
 (`quality/`) compares the scored windows against the live version's
 reference profile, and ``attach_archive`` spools the telemetry to a
-durable archive (`archive/`).  Not ported yet: the compile cache, and the
-device-time, learning, flight and SLO planes; without the device-time
-plane there is no SLO-aware shedding, as in the reference.
+durable archive (`archive/`).
+
+The flight and learn planes: every scored window's stage stamps feed the
+SLO tracker (``slo``, `flight/slo.py`: per-stream e2e histograms, budget
+burn, exemplar trace IDs), ``attach_flight`` feeds a `FlightRecorder`'s
+p99 trigger, and ``attach_learn`` tees admitted windows into a
+`learn.ReplayWriter` (the payload at admission, the scores at demux, a
+failed window discarded).  Each observer is fail-open where the reference's
+is.  Not ported yet: the compile cache and the device-time plane; without
+the device-time plane there is no SLO-aware shedding, as in the reference.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from nerrf_tpu_torch.data.loaders import Trace
 from nerrf_tpu_torch.device import resolve_device
 from nerrf_tpu_torch.flight.journal import (DEFAULT_JOURNAL, fingerprint,
                                             make_trace_id)
+from nerrf_tpu_torch.flight.slo import SLOTracker
 from nerrf_tpu_torch.graph.builder import NODE_TYPE_FILE, measure_window
 from nerrf_tpu_torch.models.joint import JointConfig, NerrfNet, build_nerrfnet
 from nerrf_tpu_torch.pipeline import (
@@ -123,6 +131,7 @@ class OnlineDetectionService:
         window_log: Optional[list] = None,
         journal=None,
         device=None,
+        quality_monitor=None,
     ) -> None:
         if registry is None:
             from nerrf_tpu_torch.observability import DEFAULT_REGISTRY
@@ -140,6 +149,14 @@ class OnlineDetectionService:
         self._eval_fn = make_eval_fn(model)
         self._reg = registry
         self._journal = journal if journal is not None else DEFAULT_JOURNAL
+        # the SLO plane: per-stream e2e histograms + per-stage budget burn
+        # from the stage stamps every window carries (flight/slo.py)
+        self._slo = SLOTracker(self.cfg.window_deadline_sec,
+                               registry=registry, journal=self._journal)
+        # optional FlightRecorder (flight/recorder.py, attach_flight): fed
+        # per-window e2e latencies for the p99-breach trigger; journal
+        # records reach it through its own subscription
+        self._flight = None
         self.sink = alert_sink or AlertSink(self.cfg.alert_queue_slots,
                                             registry=registry,
                                             journal=self._journal)
@@ -181,14 +198,19 @@ class OnlineDetectionService:
         # detection-quality plane: trailing score/feature drift sketches vs
         # the live version's reference profile, fed at the demux boundary.
         # Inactive (one None check per window) until set_quality_profile
-        # binds a reference
-        self._quality = (QualityMonitor(registry=registry, journal=self._journal)
-                         if self.cfg.quality_monitoring else None)
+        # binds a reference.  ``quality_monitor`` brings one of the caller's
+        # own (its QualityConfig: evidence gates and cadences)
+        self._quality = (quality_monitor if quality_monitor is not None
+                         else (QualityMonitor(registry=registry,
+                                              journal=self._journal)
+                               if self.cfg.quality_monitoring else None))
         # telemetry archive plane: when attached, the demux boundary feeds
         # each scored window's measured structure and stage stamps into the
         # writer's workload sketches (journal records reach it through its
         # own subscription)
         self._archive = None
+        # optional learn.ReplayWriter (attach_learn)
+        self._learn = None
 
     # -- scoring --------------------------------------------------------------
 
@@ -262,12 +284,45 @@ class OnlineDetectionService:
     def attach_manager(self, manager) -> None:
         self._manager = manager
 
+    def attach_flight(self, recorder) -> None:
+        """Bind a FlightRecorder: per-window e2e latencies feed its
+        p99-breach trigger (journal-record triggers need no binding — the
+        recorder subscribes to the journal itself)."""
+        self._flight = recorder
+
     def attach_archive(self, writer) -> None:
         """Bind a telemetry `archive.ArchiveWriter`: scored windows feed
         its workload sketches at the demux boundary, rejected windows its
         rejected-demand sketches (journal records reach it through its own
         subscription)."""
         self._archive = writer
+
+    def attach_learn(self, writer) -> None:
+        """Bind a learn.ReplayWriter: admission tees each window's event
+        payload (per-stream reservoir decides acceptance), the demux
+        boundary joins the scores, and the writer's own thread owns the
+        disk."""
+        self._learn = writer
+
+    @property
+    def slo(self) -> SLOTracker:
+        return self._slo
+
+    def flight_info(self) -> dict:
+        """Live identity for a flight bundle's manifest: which model is
+        serving, what the ladder/threshold are — captured at dump time."""
+        info = {
+            "model_version": (f"v{self._live_version}"
+                              if self._live_version is not None else None),
+            "threshold": self.cfg.threshold,
+            "buckets": [bucket_tag(b) for b in self.cfg.buckets],
+            "config_fingerprint": fingerprint(self.cfg),
+        }
+        if self._manager is not None:
+            info["lineage"] = self._manager.lineage
+            if self._manager.shadow_version is not None:
+                info["shadow_version"] = f"v{self._manager.shadow_version}"
+        return info
 
     @property
     def quality(self) -> Optional[QualityMonitor]:
@@ -693,6 +748,19 @@ class OnlineDetectionService:
                 deadline=now + self.cfg.window_deadline_sec,
                 trace_id=trace_id,
                 nodes=int(n), edges=int(e), files=int(files))
+            try:
+                if self._learn is not None:
+                    # replay-buffer tee: the event payload must be
+                    # captured HERE (the windower's buffer behind `ev`
+                    # is reused); the writer's per-stream reservoir
+                    # decides acceptance before serializing.  Fail-open
+                    # like every observer at this seam — experience
+                    # collection must never become an admission fault
+                    self._learn.observe_admit(
+                        trace_id, base, idx, lo, hi, ev,
+                        handle.windower.strings)
+            except Exception:  # noqa: BLE001
+                pass
             dropped_old = None
             with handle.cond:
                 if len(handle.live) >= self.cfg.stream_queue_slots:
@@ -726,24 +794,39 @@ class OnlineDetectionService:
                 self._window_log.append(
                     (s.stream, s.window_idx, s.t_scored - s.t_admit, s.late,
                      s.model_version))
+            # SLO accounting from the stage stamps the window carried:
+            # admit → packed (queue) → scorer pickup (pack) → scored
+            # (device) → here (demux); e2e runs admit → demux
+            e2e = t_demux - s.t_admit
+            stages = {"queue": s.t_packed - s.t_admit,
+                      "pack": s.t_device - s.t_packed,
+                      "device": s.t_scored - s.t_device,
+                      "demux": t_demux - s.t_scored}
+            self._slo.observe(
+                s.stream, s.trace_id, s.window_idx,
+                stages=stages, e2e_sec=e2e)
+            if self._flight is not None:
+                self._flight.observe_window(s.stream, s.trace_id, e2e)
             # alerting: hot windows only, never blocking (bounded sink).
-            # Fail-open per window: a raising sink, router, quality or
-            # archive observer loses at most this window's alert, never the
-            # ledger resolution below — an unresolved window wedges leave()
+            # Fail-open per window: a raising sink, router, quality,
+            # archive or learn observer loses at most this window's alert,
+            # never the ledger resolution below — an unresolved window
+            # wedges leave()
             try:
                 if self._archive is not None:
                     # workload sketches for the durable archive: the
-                    # window's admission-measured structure and its stage
-                    # stamps, admit → packed (queue) → scorer pickup (pack)
-                    # → scored (device) → here (demux); O(bins), no IO
+                    # window's admission-measured structure and the same
+                    # stage stamps the SLO plane just consumed; O(bins),
+                    # no IO
                     self._archive.observe_window(
                         bucket_tag(s.bucket), nodes=s.nodes,
-                        edges=s.edges, files=s.files,
-                        stages={"queue": s.t_packed - s.t_admit,
-                                "pack": s.t_device - s.t_packed,
-                                "device": s.t_scored - s.t_device,
-                                "demux": t_demux - s.t_scored},
-                        e2e_sec=t_demux - s.t_admit)
+                        edges=s.edges, files=s.files, stages=stages,
+                        e2e_sec=e2e)
+                if self._learn is not None:
+                    # replay-buffer join: marry the scores to the
+                    # admit-time payload by trace_id (the writer's
+                    # thread owns the disk; this is dict ops only)
+                    self._learn.observe_scored(s)
                 mask = s.node_mask.astype(bool)
                 hot_slots = (np.nonzero(mask & (s.probs >= alert_thr))[0]
                              if mask.any() else np.empty(0, np.int64))
@@ -811,6 +894,13 @@ class OnlineDetectionService:
                     handle.live.pop(r.window_idx, None)
                     handle.failed += 1
                     handle.cond.notify_all()
+            try:
+                if self._learn is not None:
+                    # a window the device failed never becomes training
+                    # data: drop its parked replay payload
+                    self._learn.discard(r.trace_id)
+            except Exception:  # noqa: BLE001
+                pass
             # strike/metric key: the BASE stream name (a resident stream
             # renames per session, s0, s0#1, …)
             base = _base_stream(r.stream)

@@ -27,11 +27,10 @@ why and no checkpoint.  ``publish_to`` publishes the calibrated checkpoint
 into that model registry's ``lineage`` (`registry.ModelRegistry.publish`;
 ``metrics.json`` then names the ``published_version``).  An experiment that
 names a mesh trains on the one card, as the reference does on one device.
-Left out, each refused with ``NotImplementedError`` when asked for: the
-compile cache (``compile_cache``, ROADMAP B.D1), and the training-health
-plane's server, flight recorder and archive (``metrics_port``,
-``flight_dir``, ``archive_dir``), which need
-``trainwatch.training_health`` (A.6).
+``metrics_port``, ``flight_dir`` and ``archive_dir`` arm the training-health
+plane through ``trainwatch.training_health``, as the reference's do.  Left
+out, refused with ``NotImplementedError`` when asked for: the compile cache
+(``compile_cache``, ROADMAP B.D1).
 """
 
 from __future__ import annotations
@@ -69,28 +68,30 @@ def run_experiment(name_or_path: str, out_dir: str | Path,
     full state every so many steps and resumes from the newest;
     ``calibrate=False`` skips the held-out threshold calibration;
     ``publish_to`` names a model registry to publish the checkpoint into,
-    as ``lineage``'s next version; ``monitor`` watches the run's health
-    (telemetry on)."""
-    left_out = {
-        "compile_cache": (compile_cache is not None,
-                          "the compile cache (a capture cache of CUDA graphs, "
-                          "ROADMAP B.D1)"),
-        "metrics_port": (metrics_port >= 0,
-                         "the training-health metrics server "
-                         "(trainwatch.training_health, ROADMAP A.6)"),
-        "flight_dir": (flight_dir is not None,
-                       "the training flight recorder "
-                       "(trainwatch.training_health, ROADMAP A.6)"),
-        "archive_dir": (archive_dir is not None,
-                        "the training telemetry archive "
-                        "(trainwatch.training_health, ROADMAP A.6)"),
-    }
-    for name, (asked, what) in left_out.items():
-        if asked:
-            raise NotImplementedError(f"run_experiment({name}=...): {what} is not ported")
+    as ``lineage``'s next version.  ``metrics_port`` ≥ 0 and
+    ``flight_dir`` arm the training-health plane
+    (`trainwatch.training_health`: a train-aware ``/readyz`` and
+    doctor-readable bundles of the train triggers), and ``archive_dir``
+    spools the run's journal and metrics to a telemetry archive; or
+    ``monitor`` watches the run's health (telemetry on) without them."""
+    if compile_cache is not None:
+        raise NotImplementedError(
+            "run_experiment(compile_cache=...): the compile cache (a capture "
+            "cache of CUDA graphs, ROADMAP B.D1) is not ported")
     dev = resolve_device(device)
-    return _run_experiment(name_or_path, out_dir, num_steps, ckpt_every,
-                           calibrate, dev, monitor, (publish_to, lineage))
+    publish = (publish_to, lineage)
+    if monitor is not None:
+        if metrics_port >= 0 or flight_dir or archive_dir:
+            raise ValueError("run_experiment: pass a monitor or the "
+                             "training-health surfaces, not both")
+        return _run_experiment(name_or_path, out_dir, num_steps, ckpt_every,
+                               calibrate, dev, monitor, publish)
+    from nerrf_tpu_torch.trainwatch import training_health
+
+    with training_health(metrics_port=metrics_port, flight_dir=flight_dir,
+                         archive_dir=archive_dir, log=_log) as monitor:
+        return _run_experiment(name_or_path, out_dir, num_steps, ckpt_every,
+                               calibrate, dev, monitor, publish)
 
 
 def _halted_report(exp, cfg, out: Path, monitor, steps_per_sec) -> dict:
@@ -287,15 +288,36 @@ def main(argv=None) -> int:
                          "stays separate)")
     ap.add_argument("--lineage", default="default",
                     help="registry lineage to publish into (with --publish)")
+    ap.add_argument("--metrics-port", type=int, default=-1,
+                    help="training-health /metrics + /healthz + /readyz "
+                         "port (-1 disables; 0 = ephemeral).  /readyz is "
+                         "train-aware: 503 before the first completed "
+                         "step and after a divergence halt")
+    ap.add_argument("--flight-dir", default=None, metavar="DIR",
+                    help="arm the training flight recorder: "
+                         "train_divergence / train_starvation / "
+                         "train_stall triggers dump self-contained "
+                         "bundles here, readable offline with `nerrf "
+                         "doctor <bundle>`")
+    ap.add_argument("--archive-dir", default=None, metavar="DIR",
+                    help="spool the run's telemetry (journal records, "
+                         "cadenced metrics snapshots, step-cadence "
+                         "workload sketches) into a crash-safe segmented "
+                         "archive here; `nerrf report` reads it offline")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where to train (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
     publish = (dict(publish_to=args.publish, lineage=args.lineage)
                if args.publish else {})
+    # the training-health surfaces asked for, and only those
+    health = {k: v for k, v in (("metrics_port", args.metrics_port),
+                                ("flight_dir", args.flight_dir),
+                                ("archive_dir", args.archive_dir))
+              if v is not None and v != -1}
     report = run_experiment(args.experiment, args.out, args.steps,
                             ckpt_every=args.ckpt_every, device=args.device,
-                            **publish)
+                            **publish, **health)
     return 0 if all(report["gates"].values()) else 1
 
 

@@ -20,8 +20,9 @@ attached flight recorder:
     bounded join in `stop`) sees no completed step for ``stall_after_sec``
     while the run is mid-flight.
 
-The flight recorder is not ported (ROADMAP A.6): with none attached, a
-trigger logs its reason and dumps no bundle, as the reference does.
+``trainwatch.training_health`` attaches a `flight.FlightRecorder` when
+given a flight directory; with none attached, a trigger logs its reason and
+dumps no bundle, as the reference does.
 
 Gauges: ``nerrf_train_grad_norm``, ``nerrf_train_update_ratio``,
 ``nerrf_train_nonfinite_total{component}``,

@@ -43,6 +43,7 @@ import json
 import shutil
 import threading
 import time
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -442,18 +443,15 @@ def test_unported_subcommands_exit_2_naming_their_item(name):
 
 REFUSED_FLAGS = {
     "--aot-cache": ["train-detector", "--aot-cache", "C"],
-    "--metrics-port": ["train-detector", "--metrics-port", "0"],
-    "--flight-dir": ["train-detector", "--flight-dir", "F"],
-    "--archive-dir": ["train-detector", "--archive-dir", "A"],
     "sd --tuned": ["serve-detect", "--tuned", "T"],
-    "sd --flight-dir": ["serve-detect", "--flight-dir", "F"],
     "sd --chaos-plan": ["serve-detect", "--chaos-plan", "P"],
     "sd --profiler-port": ["serve-detect", "--profiler-port", "9000"],
     "sd --profile-on-breach-sec": ["serve-detect", "--profile-on-breach-sec", "2"],
     "sd --aot-cache": ["serve-detect", "--aot-cache", "C"],
     "models --aot": ["models", "publish", "--registry", "R", "--lineage", "l",
                      "--model-dir", "M", "--aot"],
-    "archive --replay": ["archive", "export", "D", "--replay"],
+    # with no bundle the reference runs its environment doctor (a JAX probe)
+    "doctor": ["doctor", "--json"],
 }
 
 
@@ -467,6 +465,151 @@ def test_unported_flags_exit_2_naming_their_item(flag, tmp_path):
     assert err.count("\n") == 1 and flag.split()[-1] in err
     assert "(ROADMAP A.6)" in err or "(ROADMAP A.7)" in err
     assert not (tmp_path / "m").exists()
+
+
+# -- the lifted refusals: the flight and learn planes' commands --------------------
+
+
+def _replay_buffer(trace, out):
+    from nerrf_tpu_torch.learn import ReplayConfig, ReplayWriter
+    from nerrf_tpu_torch.observability import MetricsRegistry
+
+    writer = ReplayWriter(ReplayConfig(out_dir=str(out)),
+                          registry=MetricsRegistry(namespace="t"))
+    t0 = int(trace.events.ts_ns[trace.events.valid].min())
+    for i in range(3):
+        lo, hi = t0 + i * 5_000_000_000, t0 + i * 5_000_000_000 + 15_000_000_000
+        writer.observe_admit(f"t-{i}", "s0", i, lo, hi, trace.events, trace.strings)
+        writer.observe_scored(SimpleNamespace(
+            trace_id=f"t-{i}", stream="s0", bucket=BUCKET, model_version=1,
+            node_mask=np.ones(4, bool), probs=np.full(4, 0.25, np.float32),
+            nodes=4, edges=6, files=2))
+    writer.close()
+
+
+def _bundle_and_archive(root):
+    from nerrf_tpu_torch.archive import ArchiveConfig, ArchiveWriter
+    from nerrf_tpu_torch.flight import EventJournal, FlightConfig, FlightRecorder
+    from nerrf_tpu_torch.observability import MetricsRegistry
+
+    reg = MetricsRegistry(namespace="t")
+    journal = EventJournal(registry=reg)
+    archive = ArchiveWriter(ArchiveConfig(out_dir=str(root / "archive")),
+                            registry=reg, journal=journal)
+    rec = FlightRecorder(FlightConfig(out_dir=str(root / "flight")), registry=reg,
+                         journal=journal, archive=archive)
+    journal.record("admission_drop", stream="s0", window_id=1, reason="backpressure")
+    bundle = rec.trigger("guardrail_veto", "v2 vetoed")
+    rec.close()
+    archive.close()
+    return bundle, root / "archive"
+
+
+def _health_run(tmp_path, monkeypatch, flag, value):
+    """train-detector with one training-health flag; the trainer stands in
+    (training is test_torch_train's): it sees the armed monitor, reports a
+    non-finite loss, and returns no metrics, as a halted run does."""
+    from nerrf_tpu_torch.train import loop
+
+    seen = {}
+
+    def stand_in(train_ds, eval_ds, cfg, log=None, monitor=None, device=None):
+        seen.update(monitor=monitor, telemetry=cfg.telemetry, ready=monitor.ready()[0])
+        monitor.observe_step(0, float("nan"))
+        return SimpleNamespace(metrics={}, steps_per_sec=0.0, state=None)
+
+    monkeypatch.setattr(loop, "train_nerrfnet", stand_in)
+    rc, _, err = _run(cli.main, ["train-detector", "--model-dir", tmp_path / "m",
+                                 "--traces", "6", "--device", "cpu", flag, value])
+    assert rc == 1 and "halted without metrics" in err
+    assert seen["monitor"] is not None and seen["telemetry"] and not seen["ready"]
+    assert seen["monitor"].diverged is not None and not (tmp_path / "m").exists()
+
+
+def _lifted_alerts(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    from nerrf_tpu_torch.learn import load_dispositions
+
+    rc, out, _ = _run(cli.main, ["alerts", "label", "t-9", "tp", "--note", "exfil",
+                                 "--replay-dir", tmp_path])
+    assert rc == 0 and json.loads(out)["trace_id"] == "t-9"
+    assert load_dispositions(tmp_path)["t-9"]["note"] == "exfil"
+
+
+def _lifted_replay_export(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    _replay_buffer(small_trace[0], tmp_path / "replay")
+    rc, out, _ = _run(cli.main, ["alerts", "label", "t-1", "tp", "--replay-dir",
+                                 tmp_path / "replay"])
+    assert rc == 0
+    rc, out, _ = _run(cli.main, ["archive", "export", tmp_path / "replay", "--replay",
+                                 "--seed", "1", "--batch-size", "2",
+                                 "--out", tmp_path / "replay.npz"])
+    doc = json.loads(out)
+    assert rc == 0 and doc["stats"]["windows"] == 3 and doc["batches"] == 2
+    assert doc["dataset"]["labeled_tp"] == 1 and doc["bucket"] == list(BUCKET)
+    assert np.load(tmp_path / "replay.npz")["node_mask"].shape[0] == 3
+    (tmp_path / "empty").mkdir()
+    assert _run(cli.main, ["archive", "export", tmp_path / "empty", "--replay"])[0] == 1
+
+
+def _lifted_doctor(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    bundle, archive = _bundle_and_archive(tmp_path)
+    rc, out, _ = _run(cli.main, ["doctor", bundle])
+    assert rc == 0 and "trigger=guardrail_veto" in out and "archive context" in out
+    rc, out, _ = _run(cli.main, ["doctor", archive, "--json"])
+    assert rc == 0 and json.loads(out)
+    assert _run(cli.main, ["doctor", tmp_path / "nothing"])[0] == 2
+
+
+def _lifted_metrics_port(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    _health_run(tmp_path, monkeypatch, "--metrics-port", "0")
+
+
+def _lifted_flight_dir(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    _health_run(tmp_path, monkeypatch, "--flight-dir", tmp_path / "flight")
+    [bundle] = [p for p in (tmp_path / "flight").iterdir() if p.name.startswith("bundle-")]
+    rc, out, _ = _run(cli.main, ["doctor", bundle])
+    assert rc == 0 and "trigger=train_divergence" in out and "training health:" in out
+
+
+def _lifted_archive_dir(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    from nerrf_tpu_torch.archive import is_archive_dir
+
+    _health_run(tmp_path, monkeypatch, "--archive-dir", tmp_path / "archive")
+    assert is_archive_dir(tmp_path / "archive")
+    assert _run(cli.main, ["report", tmp_path / "archive", "--json"])[0] == 0
+
+
+def _lifted_serve_flight_dir(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    import sys
+
+    hooks = (sys.excepthook, threading.excepthook)
+    rc, out, _ = _run(cli.main, [
+        "serve-detect", "--device", "cpu", "--model-dir", tiny_model_dir,
+        "--trace", small_trace[1] / "s5.jsonl", "--buckets", "x".join(map(str, BUCKET)),
+        "--metrics-port", "-1", "--flight-dir", tmp_path / "flight"])
+    assert rc == 0 and json.loads(out)["windows_scored"] > 0
+    assert (tmp_path / "flight" / "faulthandler.log").exists()
+    assert (sys.excepthook, threading.excepthook) == hooks  # uninstalled
+
+
+LIFTED = {
+    "alerts": _lifted_alerts,
+    "archive --replay": _lifted_replay_export,
+    "doctor": _lifted_doctor,
+    "--metrics-port": _lifted_metrics_port,
+    "--flight-dir": _lifted_flight_dir,
+    "--archive-dir": _lifted_archive_dir,
+    "sd --flight-dir": _lifted_serve_flight_dir,
+}
+
+
+@pytest.mark.parametrize("name", sorted(LIFTED))
+def test_lifted_commands_run(name, tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    """The subcommands and flags the flight and learn planes lifted from the
+    refusal tables run and exit as the reference's do."""
+    assert name not in cli.UNPORTED_COMMANDS
+    assert not [f for c, f, *_ in cli.UNPORTED_FLAGS if f"{c} {f}".endswith(name)]
+    LIFTED[name](tmp_path, monkeypatch, small_trace, tiny_model_dir)
 
 
 def test_chaos_plan_from_the_environment_is_refused(monkeypatch):

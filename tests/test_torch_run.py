@@ -181,13 +181,46 @@ def test_artifacts_read_back(runs):
     assert {k: round(float(v), 4) for k, v in metrics.items()} == got["metrics"]
 
 
-@pytest.mark.parametrize("option", [dict(compile_cache=object()), dict(metrics_port=0),
-                                    dict(flight_dir="flight"), dict(archive_dir="archive")],
+@pytest.mark.parametrize("option", [dict(compile_cache=object())],
                          ids=lambda kw: next(iter(kw)))
 def test_left_out_options_are_refused(tmp_path, option):
     with pytest.raises(NotImplementedError, match="is not ported"):
         run.run_experiment("toy-graphsage", tmp_path, device="cpu", **option)
     assert not list(tmp_path.iterdir())  # refused before any work
+
+
+@pytest.mark.parametrize("surface", ["metrics_port", "flight_dir", "archive_dir"])
+def test_training_health_surfaces_arm_the_monitor(tmp_path, monkeypatch, surface):
+    """``metrics_port``, ``flight_dir`` and ``archive_dir`` build the health
+    plane through ``trainwatch.training_health`` and hand its monitor to the
+    run (the run itself is stood in for: the trainer's use of the monitor
+    is test_torch_trainwatch.py's); a monitor and a surface together are
+    refused."""
+    seen = {}
+
+    def stand_in(*args):
+        seen["monitor"] = monitor = args[6]
+        seen["ready"] = monitor.ready()[0]
+        seen["recorder"] = monitor._recorder
+        return {"gates": {}}
+
+    monkeypatch.setattr(run, "_run_experiment", stand_in)
+    value = {"metrics_port": 0, "flight_dir": str(tmp_path / "flight"),
+             "archive_dir": str(tmp_path / "archive")}[surface]
+    assert run.run_experiment("toy-graphsage", tmp_path / "out", device="cpu",
+                              **{surface: value}) == {"gates": {}}
+    assert seen["monitor"] is not None and seen["ready"] is False  # no step yet
+    assert (seen["recorder"] is not None) == (surface == "flight_dir")
+    assert (tmp_path / "archive").is_dir() == (surface == "archive_dir")
+    with pytest.raises(ValueError, match="not both"):
+        run.run_experiment("toy-graphsage", tmp_path / "out", device="cpu",
+                           monitor=seen["monitor"], **{surface: value})
+    # the command line's flag reaches the same wiring
+    seen.clear()
+    flag = "--" + surface.replace("_", "-")
+    assert run.main(["--experiment", "toy-graphsage", "--out", str(tmp_path / "cli"),
+                     "--device", "cpu", flag, str(value)]) == 0
+    assert seen["monitor"] is not None
 
 
 def test_telemetry_and_disk_corpus_are_refused(tmp_path):
