@@ -136,7 +136,7 @@ the incident recovered and verified, no byte lost, no clean file
 reverted), ``serve`` of a CSV trace as a subprocess drained by ``ingest``
 (every event back, bit-equal in ``model_detect``), and in-process with the
 counters read around each: ``undo --model-dir`` with ``--trace-out`` and
-``trace``, ``train-detector`` (100 steps, 8 traces; exit 0, the checkpoint
+``trace``, ``train-detector`` (50 steps, 8 traces; exit 0, the checkpoint
 reloaded bit-equal), ``warmup``, ``serve-detect`` over two streams (each
 bit-equal to ``model_detect``, 28/2/3/2/0 a forward, no recompile) and
 ``respond`` (every family verified), each leg's launches derived.
@@ -171,6 +171,25 @@ stream bit-equal to ``model_detect`` under v2; v2's shifted edge AUC within
 bundle whose learn section names the retrain; a retrain at a learning rate
 of 1e12 aborted by the health monitor with nothing published.
 
+Then the device-time plane (``run_devtime_path``) on the experiment's
+checkpoint: the card's row of the peak table (which also sets every bound
+here: no row, no smoke); the serve cell rung's cost traced on meta tensors
+with no launch, its FLOPs equal to ``serve_flops_closed_form``; the train
+step's cost cold and memoized; two of the serve cell's streams on a
+service with the plane on and one with it off, legs in turns (windows/s;
+28/2/3/2/0 a batch, bit-equal to ``model_detect``), the MFU, utilization,
+useful-FLOPs and headroom gauges, utilization beside the profiler's busy
+share of one leg; a breached p99 with ``profile_on_p99_sec`` (one bundle
+whose ``torch_trace/`` holds the scorer's kernel events; ``doctor`` on
+it); ``profile costs --measure 5 --cross-check`` (measured MFU =
+flops / (peak × seconds a call)), ``profile capture`` locally and with
+``--target`` against a ``serve-detect --profiler-port`` subprocess (port
+kernel events in each trace); SLO-aware shedding (three healthy streams
+paced on a small rung and a burner on the serve rung at three times the
+plane-on legs' windows/s: ``capacity_saturation`` journaled, every
+``fleet_shed`` victim the burner, the healthy streams bit-equal to
+``model_detect``); the experiment run's train MFU gauge.
+
 Then StreamNet (``run_stream_path``): the three attention entry points of
 ``flash_attention.cu`` against the plain version (forward O and dQ, dK, dV
 against its autograd, within TOL·(1 + Σ|terms|), two kernel runs
@@ -198,7 +217,8 @@ checkpoint bytes and seconds, the telemetry's cost, shards rotated, data
 wait, held-out metrics), each phase's seconds on one line, and the
 lifecycle's line (the profile's seconds, ms a scoring call with and
 without a shadow staged, windows/s of legs with and without one, the
-guardrails' decisions, the archive's bytes) and the learn phase's line.
+guardrails' decisions, the archive's bytes), the learn phase's line and
+the device-time phase's line.
 Exits non-zero, with no result line, when a phase fails or there is no
 card.
 
@@ -209,7 +229,9 @@ event AUC over inits), and prints one JSON line of their readings.
 ``python3 chip_smoke.py --lifecycle`` runs only the lifecycle phase, on a
 seeded full-width checkpoint, and prints one JSON line of its readings.
 ``python3 chip_smoke.py --learn [ROOT]`` runs only the learn phase the same
-way, for the package under ROOT (this tree by default).
+way, for the package under ROOT (this tree by default), and
+``python3 chip_smoke.py --devtime [ROOT]`` the device-time phase (its train
+MFU from a 5-step run at the training rung).
 
 ``python3 chip_smoke.py --planner [ROOT]`` runs only the search kernel:
 with no ROOT its entries' ``ptxas`` lines, ``check_mcts`` on both entries
@@ -230,10 +252,14 @@ import sys
 import time
 import warnings
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, and float32
-# operations/s outside the tensor cores (the kernels sum in f32 registers)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+# the card's peaks, read from the port's one peak table
+# (nerrf_tpu_torch/devtime/peaks.py, NVIDIA's data sheet) for the card the
+# smoke runs on, by set_peaks(): HBM bytes/s, float32 operations/s outside
+# the tensor cores (the kernels sum in f32 registers) and bf16 operations/s
+# on them.  A card without a row fails the smoke: no guessed figure
+HBM_BYTES_PER_S = None
+F32_OPS_PER_S = None
+BF16_OPS_PER_S = None
 
 MAIN_B, MAIN_N, MAIN_E, MAIN_F = 8, 4096, 4096, 160   # sage / gather shapes
 SEQ_S, SEQ_F = 4096, 24                                # fusion segment_sum
@@ -321,6 +347,29 @@ def _timed(name: str, fn, *args, **kw):
 
 def _fail(msg: str) -> None:
     raise AssertionError(msg)
+
+
+def set_peaks():
+    """Set the roofline constants from the port's peak table for the card
+    (torch.cuda.get_device_name()), read from this checkout's
+    ``nerrf_tpu_torch/devtime/peaks.py`` whatever package a mode times.
+    Returns the card's row, None when the table has none."""
+    import importlib.util
+
+    import torch
+
+    global HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S
+    spec = importlib.util.spec_from_file_location(
+        "nerrf_peaks_table", os.path.join(ROOT, "nerrf_tpu_torch", "devtime", "peaks.py"))
+    table = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = table  # its dataclass resolves its module
+    spec.loader.exec_module(table)
+    peaks = table.resolve_kind(torch.cuda.get_device_name(0))
+    if peaks is not None:
+        HBM_BYTES_PER_S = peaks.hbm_gbps * 1e9
+        F32_OPS_PER_S = peaks.tflops_f32 * 1e12
+        BF16_OPS_PER_S = peaks.tflops_bf16 * 1e12
+    return peaks
 
 
 def _sync() -> None:
@@ -1086,18 +1135,21 @@ def run_main_path() -> dict:
                 batch=batch)
 
 
-def device_busy_share(what: str, run, wall_s: float):
+def device_busy_share(what: str, run, wall_s):
     """Kernel and copy time on the card during ``run()`` (a profiler trace,
     summed over the device's own events: not over the host-side operators
     and spans, which carry their kernels' time again), over ``wall_s``, the
-    same run's unprofiled wall time; and the kernels that took the most.
-    Returns the share, or None when the trace caught no device event."""
+    same run's unprofiled wall time (or a callable giving a wall time that
+    ``run`` measured itself); and the kernels that took the most.  Returns
+    the share, or None when the trace caught no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         _sync()
+    if callable(wall_s):
+        wall_s = wall_s()
     self_us = lambda e: getattr(e, "self_device_time_total",
                                 getattr(e, "self_cuda_time_total", 0.0))
     evts = sorted((e for e in prof.key_averages()
@@ -1404,7 +1456,9 @@ def run_serve_path(detect_rung: tuple) -> dict:
     if len(svc2.warmup_seconds) != len(svc2.cfg.buckets):
         _fail(f"serve default ladder: warmed {list(svc2.warmup_seconds)} of "
               f"{len(svc2.cfg.buckets)} buckets")
-    _, wall2 = replay(svc2, traces)
+    # two of the four streams (four until the device-time phase needed the
+    # smoke's time, ROADMAP B.C1)
+    _, wall2 = replay(svc2, {sid: traces[sid] for sid in ("s5", "s6")})
     svc2.stop()
     got2 = {k: _counter_total(reg2, f"serve_{k}") for k in (
         "recompiles_total", "batch_failures_total", "windows_failed_total",
@@ -3224,8 +3278,8 @@ def run_planner_cell(bench, net) -> dict:
     version on the card, in turns (each after one warm plan); the kernel's
     device time per launch (profiler) and per plan (CUDA events), launches
     per plan from the counter, select depth, and the bound: the bytes of the
-    tree a plan writes, with its inputs, over 3.35 TB/s (a floor that the
-    chain of dependent levels, not bandwidth, sets)."""
+    tree a plan writes, with its inputs, over the card's HBM rate (a floor
+    that the chain of dependent levels, not bandwidth, sets)."""
     import statistics
 
     from nerrf_tpu_torch.ops import mcts as ops_mcts
@@ -3286,7 +3340,8 @@ def run_planner_cell(bench, net) -> dict:
           f"mcts_search {launches}x ({reading['route']} entry); search {search_ms:.3f} ms "
           f"a plan (CUDA events, with the per-chunk syncs), device {device_plan_ms} ms a "
           f"plan (profiler: {split}); mean select depth {out['depth']} levels; bound "
-          f"{bound:.6f} ms ({nbytes} bytes of tree and inputs over 3.35 TB/s); all "
+          f"{bound:.6f} ms ({nbytes} bytes of tree and inputs over "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s); all "
           f"{MCTS_SIMS} simulations in one launch: " + json.dumps(reading))
     return out
 
@@ -4017,12 +4072,12 @@ CLI_README = (("simulate", "--incident", "{D}", "--files", "20", "--seed", "5"),
 # time was cut, ROADMAP B.C1)
 CLI_SERVE_SECONDS = 10
 # train-detector at the CLI's own defaults (the reference's flags: hidden 48,
-# 4 GNN layers and a 1-layer LSTM, 256n/512e/128s windows) but for depth: 100
+# 4 GNN layers and a 1-layer LSTM, 256n/512e/128s windows) but for depth: 50
 # steps and 8 traces, 2 held out (the defaults, 300 and 12, until the smoke's
-# own time was cut, ROADMAP B.C1), with --ckpt-every 100, which takes
-# train_elastic
-CLI_TRAIN_CUT = ("--steps", "100", "--traces", "8")
-CLI_CKPT_EVERY = 100
+# own time was cut, ROADMAP B.C1; 100 until the device-time phase needed the
+# smoke's time), with --ckpt-every 50, which takes train_elastic
+CLI_TRAIN_CUT = ("--steps", "50", "--traces", "8")
+CLI_CKPT_EVERY = 50
 CLI_SERVE_BUCKET = (4096, 4096, 4096)
 
 
@@ -4834,7 +4889,8 @@ LEARN_POLICY = dict(shadow_min_windows=8, canary_windows=4,
                     max_disagreement_rate=1.0, max_score_drift=10.0,
                     canary_max_disagreement=1.0)
 # the retrain's depth: the reference bench's 60 steps cut to 30 to keep the
-# phase near 150 s (the retrain at the serve rung runs about 0.42 steps/s)
+# phase near 150 s (the retrain at the serve rung runs about 0.42 steps/s;
+# at 20, v2's shifted edge AUC read 0.4571 on the H100, under the gate)
 LEARN_STEPS = 30
 # the reference bench's batch: RetrainConfig's default of 8 ran the card out
 # of its 80 GB at the serve rung (4096 sequences a window) beside the scorer
@@ -5309,7 +5365,6 @@ def run_learn_path(model_dir: str) -> dict:
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W): the
 # attention's bound, its inputs being bf16 (the kernels run on the CUDA
 # cores; the bound is what the card could do)
-BF16_OPS_PER_S = 989e12
 # bench.py's stream leg (bench.py:131-134, :347-378): its corpus's first 6
 # traces as 4096-event segments, step 0 timed apart, then
 # min(50, max(3, 200 // 4)) steps (200 is bench.py's default step count);
@@ -5950,6 +6005,725 @@ def lstm_times(iters: int = 10) -> dict:
             "seq_logit_sum": float(logit.sum()), "seq_logit_abs_sum": float(logit.abs().sum())}
 
 
+# --- the device-time plane: costs, MFU, headroom, capture, shedding ----------
+
+# the phase's legs: serve windows/s with the plane on and off in turns, two
+# of the serve cell's streams a leg (s5, s6), then one profiled leg for the
+# busy share and one for the p99 capture
+DEVTIME_TURNS = ("on", "off", "on", "off")
+DEVTIME_STREAMS = ("s5", "s6")
+# the p99 leg's breach threshold (the serve cell's admit→demux p50 is about
+# 2.5 s) and its capture's seconds
+DEVTIME_P99_SEC = 0.25
+DEVTIME_CAPTURE_SEC = 1.0
+# the serve-detect subprocess's seconds of resident streams, and the
+# --target capture's, pulled as soon as its capture server is up: the
+# warmup forward and the first sessions' batches (a session scores its
+# windows in under a second, then reconnects)
+DEVTIME_TARGET_SEC = 3
+DEVTIME_PULL_SEC = 4
+# the shedding leg: per-stream queue slots (no fewer than the 3 windows a
+# leave's flush closes at once, 15 s windows at a 5 s stride), the burner's
+# feed rate as a multiple of the
+# windows/s a stream of the plane-on legs sustained (a stream's rate: one
+# feeder lowers a 4096-rung window in about 60-70 ms of host, so three
+# times the service's whole rate is out of one feeder's reach)
+SHED_SLOTS = 3
+SHED_HEALTHY = 3
+# a healthy stream's opening windows, fed one at a time, each after the
+# last was scored: its trailing device-stage burn starts from its steady
+# state (three feeders lowering at once slowed the scorer's first small
+# batches until a healthy stream outranked the burner, on the H100)
+SHED_OPENING = 4
+SHED_RATE_X = 3.0
+SHED_LEG_MAX_S = 60.0
+# the port's kernels as the profiler names them (#1-#5: the chunked sums'
+# and the gathers' templates)
+PORT_KERNEL_EVENTS = ("nerrf::segment_chunks_kernel", "nerrf::gather_packs_kernel")
+
+
+def serve_flops_closed_form(cfg, batch: int, bucket) -> int:
+    """One serve forward's matmul FLOPs (2·M·N·K a product) of ``batch``
+    windows at ``bucket`` (N nodes, E edges, S sequences), in the ``fused``
+    and ``segment`` modes, from ``cfg``'s widths and the dataset's sequence
+    length T (R = batch·S sequences, BN = batch·N, BE = batch·E):
+
+    * BiLSTM (hidden H, L layers): the input projection R·T·12·H; a layer
+      each direction's input products over all T, R·T·H·4H, its recurrent
+      products, R·H·4H a step over T, and the merge R·T·2H·H; the head R·H;
+    * the fusion: R·H·24 (the node features' width);
+    * GraphSAGE-T (hidden G, its layers): the node encoder BN·24·G, the
+      edge encoder BE·13·G; a layer's message BN·G·G and update BN·2G·G;
+      the node head BN·G; the edge head BE·4G·G + BE·G.
+    """
+    from nerrf_tpu_torch.data.sequences import SEQ_FEATURE_DIM
+    from nerrf_tpu_torch.graph.builder import EDGE_FEATURE_DIM, NODE_FEATURE_DIM
+    from nerrf_tpu_torch.train.data import DatasetConfig
+
+    n, e, s = bucket
+    T = DatasetConfig().seq_len
+    H, L = cfg.lstm.hidden, cfg.lstm.num_layers
+    G, LG = cfg.gnn.hidden, cfg.gnn.num_layers
+    R, BN, BE = batch * s, batch * n, batch * e
+    lstm = R * T * SEQ_FEATURE_DIM * H + L * 2 * (
+        R * T * H * 4 * H + T * R * H * 4 * H) + L * R * T * 2 * H * H + R * H
+    fusion = R * H * NODE_FEATURE_DIM if cfg.fuse else 0
+    gnn = (BN * NODE_FEATURE_DIM * G + BE * EDGE_FEATURE_DIM * G
+           + LG * (BN * G * G + BN * 2 * G * G) + BN * G + BE * 4 * G * G + BE * G)
+    return 2 * (lstm + fusion + gnn)
+
+
+def trace_kernel_events(trace_dir) -> dict:
+    """{port kernel name: events} in the Chrome traces under ``trace_dir``:
+    the card's kernel events whose names hold one of PORT_KERNEL_EVENTS."""
+    counts = {k: 0 for k in PORT_KERNEL_EVENTS}
+    for root, _dirs, names in os.walk(trace_dir):
+        for name in names:
+            if not name.endswith(".json"):
+                continue
+            with open(os.path.join(root, name)) as f:
+                events = json.load(f).get("traceEvents", [])
+            for ev in events:
+                if ev.get("cat") != "kernel":
+                    continue
+                for k in PORT_KERNEL_EVENTS:
+                    if k in str(ev.get("name", "")):
+                        counts[k] += 1
+    return counts
+
+
+def _gate_kernel_events(what: str, trace_dir) -> dict:
+    got = trace_kernel_events(trace_dir)
+    if not sum(got.values()):
+        _fail(f"{what}: no port kernel event in the trace under {trace_dir} ({got})")
+    return got
+
+
+def _gauge_present(reg, name: str, **labels) -> bool:
+    key = ",".join(f"{k}={v}" for k, v in sorted(labels.items()))
+    return key in reg.snapshot()["gauges"].get(name, {})
+
+
+def run_devtime_path(model_dir: str, train_mfu=None) -> dict:
+    """The device-time plane at full width on the checkpoint at
+    ``model_dir`` (the Detection model's widths):
+
+    a. the card's peaks from ``devtime.peaks``; the serve cell rung's cost
+       traced on meta tensors with the counters from 0 (no launch), its
+       FLOPs equal to :func:`serve_flops_closed_form`; the train step's cost
+       at the training rung, cold and memoized;
+    b. the serve cell's ladder and four streams on two services, the plane
+       on and off, legs in turns (windows/s); every leg gated 28/2/3/2/0 a
+       batch, no drop, the on-legs' streams bit-equal to ``model_detect``;
+       the cost thread launches nothing; after the on-legs the MFU,
+       utilization, useful-FLOPs and headroom gauges; one profiled on-leg:
+       ``util_fraction`` beside the profiler's busy share;
+    c. a leg with ``FlightConfig(profile_on_p99_sec=1.0)`` and a breached
+       deadline: one ``p99_breach`` bundle whose ``torch_trace/`` holds the
+       scorer's kernel events, and ``doctor`` on it;
+    d. ``profile costs --measure 5 --cross-check`` (every row's measured
+       MFU, mfu × peak × seconds_per_call = flops), ``profile capture``
+       locally, and ``profile capture --target`` against a ``serve-detect
+       --profiler-port`` subprocess: kernel events in each trace;
+    e. SLO-aware shedding: three healthy streams on a small rung at the
+       service's pace, and a burner on the serve cell's rung fed at
+       SHED_RATE_X × a stream's windows/s in the on-legs:
+       ``capacity_saturation`` journaled, every ``fleet_shed`` victim the
+       burner, the counter equal to the records, the healthy streams
+       bit-equal to ``model_detect``;
+    f. the train MFU gauge (``program="train_step"``) of the last training
+       run (``train_mfu``, else a 5-step run here)."""
+    import dataclasses
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from nerrf_tpu_torch import cli
+    from nerrf_tpu_torch.devtime import chip_peaks, costmodel, serve_program_costs
+    from nerrf_tpu_torch.flight import EventJournal, FlightConfig, FlightRecorder
+    from nerrf_tpu_torch.observability import MetricsRegistry
+    from nerrf_tpu_torch.pipeline import model_detect, warmup_trace
+    from nerrf_tpu_torch.schema.events import events_to_jsonl
+    from nerrf_tpu_torch.serve import ServeConfig, bucket_tag
+    from nerrf_tpu_torch.train.data import DatasetConfig, windows_of_trace
+    from nerrf_tpu_torch.train.loop import TrainConfig
+
+    phase_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="nerrf-devtime-"))
+    out, part_s = {}, {}
+    dev = torch.device("cuda")
+    smi = _smi()
+    services, serve_proc = [], None
+    try:
+        # --- a. peaks and the cost model ---------------------------------------
+        t0 = time.perf_counter()
+        peaks = chip_peaks(dev)
+        name = torch.cuda.get_device_name(dev)
+        if peaks is None or peaks.kind != name.strip().lower():
+            _fail(f"devtime: no peak row for {name!r} ({peaks})")
+        print(f"devtime peaks: {peaks} for {name!r}; nvidia-smi: {smi}")
+        out["peaks"] = dataclasses.asdict(peaks)
+        model = cli._load_model(model_dir, dev)
+        mcfg = model.cfg
+        per_forward = fused_forward_launches(mcfg.gnn.num_layers)
+        traces = serve_traces()
+        rung = serve_cell_bucket(traces)
+        tag = bucket_tag(rung)
+        cfg_on = ServeConfig(buckets=(rung,), batch_size=SERVE_BATCH)
+        costmodel._COSTS.clear()  # cold: the services and the CLI reuse it
+        _reset_counts()
+        t1 = time.perf_counter()
+        costs = serve_program_costs(model, cfg_on)
+        out["cost_trace_s"] = time.perf_counter() - t1
+        if any(_launch_counts().values()):
+            _fail(f"devtime: the cost trace launched {_launch_counts()}")
+        closed = serve_flops_closed_form(mcfg, SERVE_BATCH, rung)
+        if set(costs) != {tag} or costs[tag].flops != closed:
+            _fail(f"devtime: the {tag} cost {costs.get(tag)} != the closed form {closed}")
+        out["serve_cost"] = costs[tag].to_dict()
+        # the train step's cost at the training rung: cold, then memoized
+        ds_train = DatasetConfig(graph=dataclasses.replace(
+            DatasetConfig().graph, max_nodes=TRAIN_RUNG[0], max_edges=TRAIN_RUNG[1]),
+            seq_len=TRAIN_RUNG[3], max_seqs=TRAIN_RUNG[2])
+        samples = windows_of_trace(warmup_trace("devtime-train"), ds_train)
+        arrays = {k: np.stack([s[k] for s in samples] * SERVE_BATCH) for k in samples[0]}
+        tcfg = TrainConfig(model=mcfg, batch_size=SERVE_BATCH)
+        t1 = time.perf_counter()
+        tc = costmodel.train_step_cost(model, tcfg, arrays)
+        cold = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        again = costmodel.train_step_cost(model, tcfg, arrays)
+        warm = time.perf_counter() - t1
+        if tc is None or again is not tc:
+            _fail(f"devtime: train step cost {tc}, memoized {again}")
+        out["train_cost"] = dict(tc.to_dict(), trace_s=cold, memo_s=warm)
+        part_s["costs"] = time.perf_counter() - t0
+        print(f"devtime part costs: {part_s['costs']:.1f} s", flush=True)
+
+        # --- b. the plane on and off, in turns ------------------------------------
+        t0 = time.perf_counter()
+        CountingService = _counting_service(per="batch")
+        svcs = {}
+        for turn, on in (("on", True), ("off", False)):
+            reg = MetricsRegistry(namespace=f"devtime_{turn}")
+            journal = EventJournal(capacity=16384, registry=reg)
+            cfg = dataclasses.replace(cfg_on, devtime_accounting=on)
+            _reset_counts()
+            svc = CountingService(cli._load_model(model_dir, dev), cfg, registry=reg,
+                                  journal=journal, device="cuda")
+            services.append(svc)
+            svc.start()
+            if on:
+                # the cost thread: done, its cost registered, and it launched
+                # nothing beyond the warmup forward (read below)
+                svc._devtime_thread.join(timeout=120.0)
+                if svc._devtime_thread.is_alive() or \
+                        f"serve_eval[{tag}]" not in svc.devtime._costs:
+                    _fail("devtime: the serve cost did not register")
+            got = _launch_counts()
+            if got != {**per_forward, "mcts_search": 0}:
+                _fail(f"devtime {turn}: warmup and cost thread launched {got}")
+            svcs[turn] = (svc, reg, journal)
+        part_s["boot"] = time.perf_counter() - t0
+        print(f"devtime part boot: {part_s['boot']:.1f} s", flush=True)
+        traces = {sid: traces[sid] for sid in DEVTIME_STREAMS}
+        refs = {sid: model_detect(tr, model, ds_cfg=cfg_on.dataset_config(rung),
+                                  auto_capacity=False, batch_size=SERVE_BATCH,
+                                  device="cuda").file_scores
+                for sid, tr in traces.items()}
+        legs = []
+        for i, turn in enumerate(DEVTIME_TURNS):
+            svc, reg, _journal = svcs[turn]
+            n_batch = len(svc.batch_launches)
+            w0 = _counter_total(reg, "serve_windows_scored_total")
+            dets, wall = replay(svc, traces)
+            _serve_gates(reg, svc, n_batch, per_forward, f"devtime leg {i} ({turn})")
+            windows = _counter_total(reg, "serve_windows_scored_total") - w0
+            if any(dets[sid].file_scores != refs[sid] for sid in traces):
+                _fail(f"devtime leg {i} ({turn}): a stream differs from model_detect")
+            legs.append(dict(turn=turn, seconds=wall, windows=windows,
+                             batches=len(svc.batch_launches) - n_batch,
+                             windows_per_s=windows / wall))
+        out["turns"] = legs
+        svc, reg, journal = svcs["on"]
+        tprog = f"serve_eval[{tag}]"
+        missing = [g for g, lab in (("device_mfu", {"program": tprog}),
+                                    ("device_util_fraction", {}),
+                                    ("capacity_headroom_streams", {}),
+                                    ("device_useful_flops_fraction", {"bucket": tag}),
+                                    ("device_roofline_ridge", {}),
+                                    ("device_roofline_intensity", {"program": tprog}))
+                   if not _gauge_present(reg, g, **lab)]
+        useful = reg.value("device_useful_flops_fraction", labels={"bucket": tag})
+        if missing or not 0 < useful <= 1:
+            _fail(f"devtime: gauges missing {missing}, useful fraction {useful}")
+        if _gauge_present(svcs["off"][1], "device_util_fraction"):
+            _fail("devtime: the plane-off service exported device gauges")
+        out["gauges"] = {
+            "device_mfu": reg.value("device_mfu", labels={"program": tprog}),
+            "device_util_fraction": reg.value("device_util_fraction"),
+            "capacity_headroom_streams": reg.value("capacity_headroom_streams"),
+            "device_useful_flops_fraction": useful,
+            "capacity_saturation_records": len(journal.tail(kinds=("capacity_saturation",)))}
+        # one profiled on-leg: the plane's utilization beside the busy share
+        n_batch = len(svc.batch_launches)
+        box = {}
+
+        def profiled_leg():
+            box["dets"], box["wall"] = replay(svc, traces)
+
+        busy = device_busy_share("devtime's plane-on leg", profiled_leg,
+                                 lambda: box["wall"])
+        _serve_gates(reg, svc, n_batch, per_forward, "devtime busy leg")
+        snap = svc.devtime.snapshot()
+        out["busy_leg"] = dict(seconds=box["wall"], busy_share=busy,
+                               util_fraction=snap["util_fraction"],
+                               mfu=snap["programs"][tprog]["mfu"],
+                               headroom=snap["headroom"])
+        print(f"devtime busy leg: util_fraction {snap['util_fraction']} (the synced "
+              f"scoring calls' host wall over the trailing window) beside the "
+              f"profiler's busy share {busy} (kernel time over the leg's wall); "
+              f"snapshot {json.dumps(snap)}")
+        part_s["turns"] = time.perf_counter() - t0
+        print(f"devtime part turns: {part_s['turns']:.1f} s", flush=True)
+
+        # --- c. the p99 bundle with a torch.profiler capture ---------------------
+        t0 = time.perf_counter()
+        rec = FlightRecorder(
+            FlightConfig(out_dir=str(tmp / "flight"), p99_breach_sec=DEVTIME_P99_SEC,
+                         p99_min_count=4, profile_on_p99_sec=DEVTIME_CAPTURE_SEC,
+                         min_interval_sec=3600.0, drop_burst_n=10 ** 6),
+            registry=reg, journal=journal, slo=svc.slo, info=svc.flight_info,
+            quality=svc.quality_snapshot)
+        svc.attach_flight(rec)
+        n_batch = len(svc.batch_launches)
+        try:
+            replay(svc, traces)
+        finally:
+            svc.attach_flight(None)
+            rec.close()
+        _serve_gates(reg, svc, n_batch, per_forward, "devtime p99 leg")
+        bundles = sorted((tmp / "flight").glob("bundle-*"))
+        if len(bundles) != 1 or not bundles[0].name.endswith("p99_breach"):
+            _fail(f"devtime: p99 bundles {[b.name for b in bundles]}")
+        man = json.loads((bundles[0] / "manifest.json").read_text())
+        if (man.get("profile") or {}).get("dir") != "torch_trace":
+            _fail(f"devtime: the p99 bundle's profile {man.get('profile')}")
+        p99_events = _gate_kernel_events("the p99 bundle", bundles[0] / "torch_trace")
+        rc, text, _ = _cli_run("doctor", bundles[0])
+        if rc != 0 or "profiler trace:" not in text or "torch_trace/" not in text:
+            _fail(f"devtime: doctor on the p99 bundle exit {rc}: {text[-800:]}")
+        out["p99_bundle"] = dict(profile=man["profile"], kernel_events=p99_events,
+                                 bytes=sum(f.stat().st_size for f in bundles[0].rglob("*")
+                                           if f.is_file()))
+        part_s["p99"] = time.perf_counter() - t0
+        print(f"devtime part p99: {part_s['p99']:.1f} s", flush=True)
+        for s in services:
+            s.stop()
+        services.clear()
+        del svcs, svc
+        torch.cuda.empty_cache()
+
+        # --- d. profile costs, profile capture, --target -------------------------
+        t0 = time.perf_counter()
+        ladder = ["x".join(map(str, rung))]
+        rc, text, log = _cli_run("profile", "costs", "--measure", 5, "--cross-check",
+                                 "--no-train", "--json", "--model-dir", model_dir,
+                                 "--buckets", *ladder)
+        if rc != 0:
+            _fail(f"devtime: profile costs exit {rc}: {log[-1500:]}")
+        doc = json.loads(text)
+        bad = {}
+        for prog, row in doc["programs"].items():
+            m = row.get("measured") or {}
+            if m.get("mfu") is None or abs(
+                    m["mfu"] * peaks.tflops_bf16 * 1e12 * m["seconds_per_call"]
+                    - row["flops"]) > 1e-6 * row["flops"]:
+                bad[prog] = m
+        if bad or len(doc["programs"]) != len(ladder) or \
+                doc["programs"][tprog]["flops"] != closed or \
+                doc["peaks"]["tflops_bf16"] != peaks.tflops_bf16:
+            _fail(f"devtime: profile costs rows {bad}, {len(doc['programs'])} programs, "
+                  f"peaks {doc['peaks']}")
+        out["profile_costs"] = {p: dict(flops=r["flops"], mfu=r["measured"]["mfu"],
+                                        seconds_per_call=r["measured"]["seconds_per_call"],
+                                        profiler_flops=r["profiler_flops"],
+                                        profiler_device_sec=r["profiler_device_sec"],
+                                        intensity=r["intensity_flops_per_byte"])
+                                for p, r in doc["programs"].items()}
+        rc, text, log = _cli_run("profile", "capture", "--seconds", 2, "--model-dir",
+                                 model_dir, "--buckets", ladder[-1], "--out",
+                                 tmp / "capture")
+        if rc != 0:
+            _fail(f"devtime: profile capture exit {rc}: {log[-1500:]}")
+        out["capture_events"] = _gate_kernel_events("profile capture", tmp / "capture")
+        part_s["profile"] = time.perf_counter() - t0
+        print(f"devtime part profile: {part_s['profile']:.1f} s", flush=True)
+
+        t0 = time.perf_counter()
+        for sid in ("s5", "s6"):
+            tr = traces[sid]
+            (tmp / f"{sid}.jsonl").write_text(events_to_jsonl(tr.events, tr.strings))
+        lines = []
+        # resident streams (--follow: each replays its trace again at its
+        # end) for DEVTIME_TARGET_SEC after the warmup
+        serve_proc = subprocess.Popen(
+            _cli_argv("serve-detect", "--model-dir", model_dir, "--trace", tmp / "s5.jsonl",
+                      "--trace", tmp / "s6.jsonl", "--buckets", ladder[-1],
+                      "--metrics-port", -1, "--profiler-port", 0, "--follow",
+                      "--duration", DEVTIME_TARGET_SEC),
+            cwd=sys.path[0], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        reader = threading.Thread(target=lambda: lines.extend(serve_proc.stderr),
+                                  daemon=True)
+        reader.start()
+        port, deadline = None, time.monotonic() + 300.0
+        while time.monotonic() < deadline and serve_proc.poll() is None:
+            text = "".join(lines)
+            m = re.search(r"profiler server on :(\d+)", text)
+            if m:
+                port = int(m.group(1))
+                break
+            time.sleep(0.05)
+        if port is None:
+            _fail(f"devtime: serve-detect --profiler-port never served "
+                  f"(exit {serve_proc.poll()}): {''.join(lines)[-1500:]}")
+        t1 = time.perf_counter()
+        rc, text, log = _cli_run("profile", "capture", "--target", f"127.0.0.1:{port}",
+                                 "--seconds", DEVTIME_PULL_SEC, "--out", tmp / "target")
+        pulled_s = time.perf_counter() - t1
+        events = trace_kernel_events(tmp / "target")
+        if rc != 0 or not sum(events.values()):
+            _fail(f"devtime: profile capture --target exit {rc} in {pulled_s:.1f} s, "
+                  f"kernel events {events}: {log[-800:]}; serve-detect: "
+                  f"{''.join(lines)[-1500:]}")
+        out["target_events"] = dict(events, pulled_s=pulled_s)
+        stdout, _ = serve_proc.communicate(timeout=300)
+        reader.join(timeout=10)
+        if serve_proc.returncode != 0:
+            _fail(f"devtime: serve-detect exit {serve_proc.returncode}: "
+                  f"{''.join(lines)[-1500:]}")
+        out["target_serve"] = json.loads(stdout)["windows_scored"]
+        serve_proc = None
+        part_s["target"] = time.perf_counter() - t0
+        print(f"devtime part target: {part_s['target']:.1f} s", flush=True)
+
+        # --- e. SLO-aware shedding ---------------------------------------------------
+        t0 = time.perf_counter()
+        per_stream = max(lg["windows_per_s"] for lg in legs
+                         if lg["turn"] == "on") / len(traces)
+        out["shed"] = run_shed_leg(model_dir, model, rung, per_forward,
+                                   rate=SHED_RATE_X * per_stream)
+        part_s["shed"] = time.perf_counter() - t0
+        print(f"devtime part shed: {part_s['shed']:.1f} s", flush=True)
+
+        # --- f. the train MFU gauge ---------------------------------------------------
+        if train_mfu is None:
+            train_mfu = devtime_train_probe()
+        if not train_mfu or train_mfu.get("mfu") is None:
+            _fail(f"devtime: no train MFU gauge ({train_mfu})")
+        out["train_mfu"] = train_mfu
+    finally:
+        for s in services:
+            s.stop()
+        if serve_proc is not None:
+            serve_proc.kill()
+            serve_proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["part_s"] = part_s
+    out["seconds"] = time.perf_counter() - phase_t0
+    print("devtime: " + json.dumps(out))
+    return out
+
+
+def _window_blocks(trace, window_sec: float, stride_sec: float):
+    """``trace``'s events cut where a window closes (at the first window's
+    end, then every stride): fed in turn, each block after the first closes
+    one window (the healthy traces' events are never 5 s apart)."""
+    import dataclasses
+
+    import numpy as np
+
+    ev = trace.events
+    ts = np.asarray(ev.ts_ns)
+    valid = np.flatnonzero(np.asarray(ev.valid))
+    t0, t1 = int(ts[valid].min()), int(ts[valid].max())
+    ends = np.arange(t0 + int(window_sec * 1e9), t1 + 1, int(stride_sec * 1e9))
+    cuts = [0, *valid[np.searchsorted(ts[valid], ends)].tolist(), len(ev)]
+    for lo, hi in zip(cuts, cuts[1:]):
+        if hi > lo:
+            yield type(ev)(**{f.name: getattr(ev, f.name)[lo:hi]
+                              for f in dataclasses.fields(ev)})
+
+
+def _shifted(block, offset_ns: int):
+    """``block`` with its timestamps ``offset_ns`` later."""
+    import dataclasses
+
+    return type(block)(**{f.name: getattr(block, f.name) + offset_ns
+                          if f.name == "ts_ns" else getattr(block, f.name)
+                          for f in dataclasses.fields(block)})
+
+
+def run_shed_leg(model_dir: str, model, burner_rung: tuple, per_forward: dict,
+                 rate: float) -> dict:
+    """SLO-aware shedding under a burner.  Three healthy streams
+    (run_learn_bench's traffic: 120 s at 6 Hz, 4 files) on the small rung
+    that fits them, each fed one window's events a block at the service's
+    pace: with SHED_SLOTS windows outstanding, its next window
+    (which overflows the stream's queue) is fed once the earlier ones are
+    all in batches, so under pressure it sheds the burner, and it never
+    drops one of its own; one burner (the serve cell's benign recipe,
+    looped with its timestamps shifted) on ``burner_rung``, fed at ``rate``
+    windows/s until the healthy streams are done; the learn cell's
+    windowing (15 s, stride 5 s), SHED_SLOTS queue slots a stream.  The
+    healthy feeders start once the headroom predictor reads pressure and
+    the burner's windows have burned device time.  Gates: ``capacity_saturation`` journaled; every fleet_shed
+    victim the burner, and every victim any overflow ranked; the counter
+    equal to the records and to the shed drops; no healthy window dropped;
+    each healthy stream bit-equal to ``model_detect``; every batch
+    28/2/3/2/0; the burner fed at ``rate``.  A shed needs the burner to hold
+    a queued window when a healthy queue overflows, which the card's runs
+    found in 1 of 3-6 overflows: the count is reported, not gated."""
+    import threading
+
+    from nerrf_tpu_torch import cli
+    from nerrf_tpu_torch.data import simulate_trace
+    from nerrf_tpu_torch.flight import EventJournal
+    from nerrf_tpu_torch.observability import MetricsRegistry
+    from nerrf_tpu_torch.pipeline import model_detect
+    from nerrf_tpu_torch.serve import ServeConfig
+
+    healthy = {f"h{i}": simulate_trace(learn_sim(700 + i, 0.0, i == 0))
+               for i in range(SHED_HEALTHY)}
+    burner = serve_traces()["s8"]
+    small = fit_rung(healthy, 15.0, 5.0)
+    cfg = ServeConfig(buckets=(small, burner_rung), batch_size=SERVE_BATCH,
+                      window_sec=15.0, stride_sec=5.0, stream_queue_slots=SHED_SLOTS)
+    landed = {name: rungs_of(tr, cfg) for name, tr in (*healthy.items(), ("burner", burner))}
+    if any(set(landed[sid]) != {small} for sid in healthy) \
+            or landed["burner"].get(burner_rung, 0) < 0.9 * sum(landed["burner"].values()):
+        _fail(f"devtime shed leg: windows by rung {landed} (small {small}, burner "
+              f"{burner_rung})")
+    reg = MetricsRegistry(namespace="devtime_shed")
+    journal = EventJournal(capacity=65536, registry=reg)
+    window_log = []
+    svc = _counting_service(per="batch")(cli._load_model(model_dir, "cuda"), cfg,
+                                         registry=reg, journal=journal, device="cuda",
+                                         window_log=window_log)
+    svc.start()
+    # what each stream's queue overflows met, by feeder: the pressure
+    # gate's answer, the victim ranked (the burner, or another), a window
+    # shed (read from the service's own calls)
+    seen = {}
+    pressure_of, victim_of, shed_of = (svc._shed_pressure, svc._select_shed_victim,
+                                       svc._shed_one)
+
+    def tally(key, hit=True):
+        name = threading.current_thread().name.removeprefix("feeder-")
+        per = seen.setdefault(name, {"overflows": 0, "pressure": 0, "victim": 0,
+                                     "victim_other": 0, "shed": 0})
+        per[key] += bool(hit)
+        return hit
+
+    def shed_pressure():
+        tally("overflows")
+        return tally("pressure", pressure_of())
+
+    def select_victim(base):
+        picked = victim_of(base)
+        if picked is not None:
+            tally("victim" if picked[0].id == "burner" else "victim_other")
+        return picked
+
+    svc._shed_pressure = shed_pressure
+    svc._select_shed_victim = select_victim
+    svc._shed_one = lambda base: tally("shed", shed_of(base))
+    refs = {sid: model_detect(tr, model, ds_cfg=cfg.dataset_config(small),
+                              auto_capacity=False, batch_size=SERVE_BATCH,
+                              device="cuda").file_scores for sid, tr in healthy.items()}
+    dets, errors, stop = {}, [], threading.Event()
+    fed = {"windows": 0, "seconds": 0.0, "loops": 0}
+    span_ns = int(burner.events.ts_ns.max() - burner.events.ts_ns.min()) + 10 ** 9 \
+        * int(cfg.window_sec)
+
+    def burn():
+        try:
+            svc.join("burner")
+            t0 = time.perf_counter()
+            while not stop.is_set():
+                for block in _blocks(burner, size=SERVE_BLOCK):
+                    if stop.is_set():
+                        break
+                    fed["windows"] += svc.feed(
+                        "burner", _shifted(block, fed["loops"] * span_ns), burner.strings)
+                    # hold the offered rate at `rate` windows/s
+                    ahead = fed["windows"] / rate - (time.perf_counter() - t0)
+                    if ahead > 0:
+                        time.sleep(ahead)
+                fed["loops"] += 1
+            fed["seconds"] = time.perf_counter() - t0
+            svc.leave("burner", flush=False, timeout=120.0)
+        except Exception as e:  # noqa: BLE001 — raised below, on the caller
+            errors.append(e)
+
+    paced = {}
+
+    def heal(sid, trace):
+        try:
+            svc.join(sid)
+            h = svc._streams[sid]
+            tm = paced.setdefault(sid, {"feed_s": 0.0, "wait_s": 0.0, "max_live": 0})
+            for i, block in enumerate(_window_blocks(trace, cfg.window_sec,
+                                                     cfg.stride_sec)):
+                t1 = time.perf_counter()
+                with h.cond:
+                    # the first windows one at a time (a stream's steady
+                    # state, not three feeders' joint cold start), then
+                    # at the service's pace
+                    while (i <= SHED_OPENING and h.live) or (
+                            len(h.live) >= SHED_SLOTS
+                            and any(not r.inflight for r in h.live.values())):
+                        h.cond.wait(timeout=0.005)
+                t2 = time.perf_counter()
+                svc.feed(sid, block, trace.strings)
+                tm["wait_s"] += t2 - t1
+                tm["feed_s"] += time.perf_counter() - t2
+                tm["max_live"] = max(tm["max_live"], len(h.live))
+            with h.cond:  # the leave's flush closes up to 3 windows at once
+                while h.live:
+                    h.cond.wait(timeout=0.25)
+            dets[sid] = svc.leave(sid, timeout=300.0)
+        except Exception as e:  # noqa: BLE001 — raised below, on the caller
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    n_batch = len(svc.batch_launches)
+    bt = threading.Thread(target=burn, name="feeder-burner")
+    bt.start()
+    pressure_s = None
+    try:
+        while time.perf_counter() - t0 < SHED_LEG_MAX_S and not errors:
+            est = svc.devtime.last_estimate
+            burns = svc.slo.snapshot()["per_stream"].get("burner", {})
+            if est is not None and est.headroom_streams < cfg.shed_headroom_margin \
+                    and (burns.get("budget_burn") or {}).get("device"):
+                pressure_s = time.perf_counter() - t0
+                break
+            time.sleep(0.05)
+        if pressure_s is None:
+            _fail(f"devtime shed leg: no pressure in {SHED_LEG_MAX_S} s "
+                  f"(estimate {svc.devtime.last_estimate}, burner fed {fed})")
+        hts = [threading.Thread(target=heal, args=(sid, tr), name=f"feeder-{sid}")
+               for sid, tr in healthy.items()]
+        for t in hts:
+            t.start()
+        for t in hts:
+            t.join(timeout=max(SHED_LEG_MAX_S - (time.perf_counter() - t0), 1.0))
+    finally:
+        stop.set()
+        bt.join(timeout=180.0)
+        wall = time.perf_counter() - t0
+        svc.stop()
+    if errors:
+        raise errors[0]
+    sheds = journal.tail(kinds=("fleet_shed",))
+    drops = {r: _counter_total(reg, "serve_admission_dropped_total", reason=r)
+             for r in ("backpressure", "shed", "oversize", "quarantined", "closed",
+                       "leave")}
+    healthy_drops = [r.to_dict() for r in journal.tail(kinds=("admission_drop",))
+                     if r.stream in healthy]
+    sat = journal.tail(kinds=("capacity_saturation",))
+    per_batch = svc.batch_launches[n_batch:]
+    counted = _counter_total(reg, "fleet_shed_total")
+    differs = [sid for sid in healthy if dets.get(sid) is None
+               or dets[sid].file_scores != refs[sid]]
+    burner_rate = fed["windows"] / max(fed["seconds"], 1e-9)
+    if not sat or any(r.stream != "burner" for r in sheds) \
+            or any(v["victim_other"] for v in seen.values()) \
+            or counted != len(sheds) or drops["shed"] != len(sheds) \
+            or healthy_drops or differs or wall > SHED_LEG_MAX_S + 30 \
+            or any(b != per_forward for b in per_batch) or burner_rate < 0.95 * rate:
+        _fail(f"devtime shed leg: {len(sat)} capacity_saturation, {len(sheds)} "
+              f"fleet_shed (victims {sorted({r.stream for r in sheds})}), counter "
+              f"{counted}, drops {drops}, healthy drops {healthy_drops[:3]}, "
+              f"differ {differs}, {wall:.1f} s, burner fed {fed} ({burner_rate:.2f} "
+              f"windows/s of {rate:.2f}), overflows {seen}, paced {paced}, latency "
+              f"{ {sid: _pcts([e[2] for e in window_log if e[0] == sid]) for sid in healthy} }")
+    return dict(seconds=wall, pressure_s=pressure_s, rate=rate, burner_rate=burner_rate,
+                burner_fed=fed["windows"], burner_feed_s=fed["seconds"],
+                sheds=len(sheds), overflows=seen, paced=paced,
+                healthy_latency_ms={sid: _pcts([e[2] for e in window_log if e[0] == sid])
+                                    for sid in healthy},
+                drops=drops,
+                saturation_records=len(sat),
+                healthy_windows={sid: len(d.file_scores) for sid, d in dets.items()},
+                rankings=[r.data["ranking"][:2] for r in sheds[:3]],
+                small_rung=list(small), batches=len(per_batch),
+                headroom=svc.devtime.last_estimate.to_dict()
+                if svc.devtime.last_estimate else None)
+
+
+def fit_rung(traces: dict, window_sec: float, stride_sec: float) -> tuple:
+    """The least rung ``fit_capacity`` gives over ``traces`` at this
+    windowing (grown from 16 nodes and edges and 8 sequences)."""
+    from nerrf_tpu_torch.graph import GraphConfig
+    from nerrf_tpu_torch.pipeline import fit_capacity
+    from nerrf_tpu_torch.train.data import DatasetConfig
+
+    ds = DatasetConfig(graph=GraphConfig(window_sec=window_sec, stride_sec=stride_sec,
+                                         max_nodes=16, max_edges=16), max_seqs=8)
+    fits = [fit_capacity(tr, ds) for tr in traces.values()]
+    return (max(f.graph.max_nodes for f in fits), max(f.graph.max_edges for f in fits),
+            max(f.max_seqs for f in fits))
+
+
+def rungs_of(trace, cfg) -> dict:
+    """{rung: windows} of ``trace``'s windows as serve's admission selects
+    them (``select_bucket`` over ``cfg``'s ladder)."""
+    import numpy as np
+
+    from nerrf_tpu_torch.graph.builder import measure_window, snapshot_windows
+    from nerrf_tpu_torch.serve.config import select_bucket
+
+    ev = trace.events
+    ts = ev.ts_ns[ev.valid]
+    out = {}
+    graph = cfg.dataset_config(cfg.buckets[0]).graph
+    for lo, hi in snapshot_windows(int(ts.min()), int(ts.max()), graph):
+        n, e = measure_window(ev, lo, hi)
+        sel = ev.valid & (ev.ts_ns >= lo) & (ev.ts_ns < hi)
+        files = len(np.unique(ev.inode[sel & (ev.inode > 0)]))
+        b = select_bucket(n, e, files, cfg.buckets)
+        out[b] = out.get(b, 0) + 1
+    return out
+
+
+def devtime_train_probe() -> dict:
+    """A 5-step ``train_nerrfnet`` at the training rung: its train MFU gauge
+    (``device_mfu{program="train_step"}``) and steps/s."""
+    import dataclasses
+
+    from nerrf_tpu_torch.train.loop import train_nerrfnet
+
+    _traces, ds, cfg = train_rung()
+    res = train_nerrfnet(ds, cfg=dataclasses.replace(cfg, num_steps=5), device="cuda")
+    return train_mfu_reading(res.steps_per_sec)
+
+
+def train_mfu_reading(steps_per_sec: float) -> dict:
+    """The train MFU gauge of the last ``train_nerrfnet`` run, beside its
+    steps/s (None where the gauge is absent)."""
+    from nerrf_tpu_torch.observability import DEFAULT_REGISTRY
+
+    labels = {"program": "train_step"}
+    present = _gauge_present(DEFAULT_REGISTRY, "device_mfu", **labels)
+    return dict(mfu=DEFAULT_REGISTRY.value("device_mfu", labels=labels) if present else None,
+                intensity=DEFAULT_REGISTRY.value("device_roofline_intensity", labels=labels),
+                steps_per_sec=steps_per_sec)
+
 def main() -> int:
     try:
         import torch
@@ -5966,9 +6740,9 @@ def main() -> int:
     # against each other in one call, in turns
     mode = sys.argv[1] if sys.argv[1:2] in (
         ["--kernel-times"], ["--lstm-times"], ["--stream-leg"], ["--planner"],
-        ["--learn"]) else None
+        ["--learn"], ["--devtime"]) else None
     times_of = sys.argv[2] if mode and len(sys.argv) > 2 else None
-    if mode and mode not in ("--planner", "--learn") and times_of is None:
+    if mode and mode not in ("--planner", "--learn", "--devtime") and times_of is None:
         print(f"chip_smoke: {mode} takes the root of a tree", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5984,6 +6758,13 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
+    peaks = set_peaks()
+    if peaks is None:
+        print(f"chip_smoke: no peak row for {torch.cuda.get_device_name(0)!r} in "
+              f"nerrf_tpu_torch/devtime/peaks.py; the bounds need the card's "
+              f"published peaks", file=sys.stderr)
+        return 1
+    print(f"peaks ({smi}): {peaks}")
     if mode == "--planner":
         # only the search: with no ROOT its ptxas lines, check_mcts on both
         # entries and check_value_net first; then the timings of the
@@ -5996,6 +6777,25 @@ def main() -> int:
             out["value_err"] = check_value_net(bench_domain())["value_err"]
         out["times"] = planner_times()
         print(json.dumps(out))
+        return 0
+    if mode == "--devtime":
+        # only the device-time phase, for the package under ROOT (this tree
+        # by default), on a seeded full-width checkpoint
+        import tempfile
+
+        from nerrf_tpu_torch.models import JointConfig, build_nerrfnet
+        from nerrf_tpu_torch.train.checkpoint import save_checkpoint
+
+        kernels.build()
+        model_dir = tempfile.mkdtemp(prefix="nerrf-devtime-model-")
+        try:
+            model = build_nerrfnet(JointConfig(), seed=0, device="cuda")
+            save_checkpoint(model_dir, model.state_dict(), model.cfg)
+            del model
+            devtime = run_devtime_path(model_dir)
+        finally:
+            shutil.rmtree(model_dir, ignore_errors=True)
+        print(json.dumps({"root": times_of or here, "card": smi, "devtime": devtime}))
         return 0
     if mode == "--learn":
         # only the learn phase, for the package under ROOT (this tree by
@@ -6101,6 +6901,8 @@ def main() -> int:
         elastic = P("elastic", run_elastic_path, train_ds, train_cfg)
         watch = P("trainwatch", run_trainwatch_path, train_ds, train_cfg)
         experiment = P("experiment", run_experiment_path)
+        # the experiment run's train MFU gauge, read before later runs set it
+        train_mfu = train_mfu_reading(experiment["report"]["steps_per_sec"])
         small_experiment = P("check_small_experiment", check_small_experiment)
         corpus = P("disk_corpus", run_disk_corpus_path)
         try:
@@ -6117,6 +6919,7 @@ def main() -> int:
                           undo["heuristic"]["mttr_s"])
             lifecycle = P("lifecycle", run_lifecycle_path, experiment["model_dir"])
             learn = P("learn", run_learn_path, experiment["model_dir"])
+            devtime = P("devtime", run_devtime_path, experiment["model_dir"], train_mfu)
         finally:
             shutil.rmtree(experiment["model_dir"], ignore_errors=True)
         stream = P("stream", run_stream_path)
@@ -6335,6 +7138,21 @@ def main() -> int:
           f"one request: wire {respond['wire']['m1']['seconds']:.4f} s, connect "
           f"{m1s['serve_s']:.4f} s, {m1s['alerts']} alerts, alert → plan result "
           f"p50 {m1s['alert_to_plan_p50_ms']} ms; on {smi}")
+    dt, turns = devtime, devtime["turns"]
+    print(f"devtime ({devtime['seconds']:.1f} s): serve cost {dt['serve_cost']['flops']:.0f} "
+          f"FLOPs a batch at {serve['bucket']} (the closed form), traced in "
+          f"{dt['cost_trace_s']:.3f} s; train step {dt['train_cost']['flops']:.0f} FLOPs, "
+          f"traced {dt['train_cost']['trace_s']:.3f} s, memoized "
+          f"{dt['train_cost']['memo_s'] * 1e3:.3f} ms; windows/s plane "
+          f"{' / '.join(f'{lg['turn']} {lg['windows_per_s']:.3f}' for lg in turns)}; "
+          f"serve MFU {dt['gauges']['device_mfu']:.5f}, util "
+          f"{dt['busy_leg']['util_fraction']} beside busy share "
+          f"{dt['busy_leg']['busy_share']}, headroom "
+          f"{dt['gauges']['capacity_headroom_streams']:.3f} streams; profile costs "
+          f"{json.dumps(dt['profile_costs'])}; train MFU {json.dumps(dt['train_mfu'])}; "
+          f"captures p99 {dt['p99_bundle']['kernel_events']}, local "
+          f"{dt['capture_events']}, --target {dt['target_events']}; shed "
+          f"{json.dumps(dt['shed'])}; on {smi}")
     leg, probe = stream["leg"], stream["probe"]
     print(f"stream ({stream['seconds']:.1f} s): bench.py's leg {leg['B']} x {leg['T']}, "
           f"{leg['ms_per_step']:.2f} ms a step, {leg['events_per_s']:.1f} events/s, "

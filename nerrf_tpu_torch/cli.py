@@ -314,6 +314,193 @@ def cmd_warmup(args) -> int:
 
 
 # --------------------------------------------------------------------------
+def _profile_model(args, cfg, dev):
+    """The profile subcommands' model on ``dev``: the checkpoint when given,
+    else the untrained small detector (shapes are what the cost and capture
+    planes measure; weights don't matter)."""
+    from nerrf_tpu_torch.models import JointConfig
+    from nerrf_tpu_torch.serve import init_untrained_model
+
+    if getattr(args, "model_dir", None):
+        return _load_model(args.model_dir, dev)
+    return init_untrained_model(JointConfig().small, cfg, device=dev)
+
+
+def _profile_serve_cfg(args):
+    from nerrf_tpu_torch.serve import ServeConfig
+
+    if getattr(args, "smoke", False):
+        return ServeConfig(buckets=((64, 128, 32),))
+    if getattr(args, "buckets", None):
+        return ServeConfig(buckets=_buckets(args.buckets))
+    return ServeConfig()
+
+
+def cmd_profile(args) -> int:
+    """Device-efficiency plane CLI (docs/device-efficiency.md):
+
+    ``costs``   — the per-program cost/MFU table: analytic FLOPs, byte
+    floor, roofline intensity for every serve bucket program + the train
+    step; ``--measure N`` times real calls so the same invocation prints
+    measured MFU on the card (null off it — never fabricated).
+    ``capture`` — a torch.profiler trace: drive the serve ladder locally
+    under the profiler, or pull one from a live service started with
+    ``--profiler-port`` (``--target``).
+    """
+    if args.profile_cmd == "costs":
+        return _profile_costs(args)
+    return _profile_capture(args)
+
+
+def _profile_costs(args) -> int:
+    import numpy as np
+    import torch
+
+    from nerrf_tpu_torch.device import resolve_device
+    from nerrf_tpu_torch.devtime import chip_peaks, serve_program_costs
+    from nerrf_tpu_torch.pipeline import make_eval_fn
+    from nerrf_tpu_torch.serve.service import warmup_batches
+
+    dev = resolve_device(args.device)
+    cfg = _profile_serve_cfg(args)
+    model = _profile_model(args, cfg, dev)
+    eval_fn = make_eval_fn(model)
+    peaks = chip_peaks(dev)
+    costs = serve_program_costs(model, cfg, cross_check=args.cross_check)
+    rows = {}
+    for cost in costs.values():
+        rows[cost.program] = {**cost.to_dict(), "measured": None}
+    if not args.no_train:
+        from nerrf_tpu_torch.devtime import train_step_cost
+        from nerrf_tpu_torch.pipeline import warmup_trace
+        from nerrf_tpu_torch.train.data import windows_of_trace
+        from nerrf_tpu_torch.train.loop import TrainConfig
+
+        samples = windows_of_trace(
+            warmup_trace("profile-costs"),
+            cfg.dataset_config(sorted(cfg.buckets)[0]))
+        if samples:
+            arrays = {k: np.stack([s[k] for s in samples])
+                      for k in samples[0]}
+            tc = train_step_cost(model, TrainConfig(model=model.cfg),
+                                 arrays, cross_check=args.cross_check)
+            if tc is not None:
+                rows[tc.program] = {**tc.to_dict(), "measured": None}
+    if args.measure > 0:
+        # real timed calls per bucket, after one call outside the timing
+        # (the kernel libraries' build and load): the measured-MFU column.
+        # The eval function returns host arrays, so each call is synced.
+        # Unrounded, so mfu × peak × seconds_per_call gives back the flops
+        for _bucket, tag, batch in warmup_batches(cfg):
+            program = f"serve_eval[{tag}]"
+            if program not in rows:
+                continue
+            eval_fn(batch)
+            t0 = time.perf_counter()
+            for _ in range(args.measure):
+                eval_fn(batch)
+            per_call = (time.perf_counter() - t0) / args.measure
+            flops = rows[program]["flops"]
+            achieved = flops / per_call if per_call > 0 else None
+            rows[program]["measured"] = {
+                "seconds_per_call": per_call,
+                "achieved_tflops": achieved / 1e12 if achieved else None,
+                "mfu": (achieved / (peaks.tflops_bf16 * 1e12)
+                        if achieved and peaks else None),
+            }
+    out = {
+        "backend": dev.type,
+        "device_kind": (torch.cuda.get_device_name(dev)
+                        if dev.type == "cuda" else ""),
+        "peaks": ({"kind": peaks.kind,
+                   "tflops_bf16": peaks.tflops_bf16,
+                   "hbm_gbps": peaks.hbm_gbps,
+                   "ridge_flops_per_byte":
+                       round(peaks.ridge_flops_per_byte, 1)}
+                  if peaks else None),
+        "flops_authority": "analytic FlopCounterMode counts on meta tensors "
+                           "(bench/flops.py); the profiler's count recorded "
+                           "as cross-check only",
+        "programs": rows,
+    }
+    if args.json:
+        print(json.dumps(out, indent=2))
+        return 0
+    peak_s = (f"{peaks.tflops_bf16:g} TFLOP/s bf16, {peaks.hbm_gbps:g} GB/s"
+              if peaks else "unknown (no card-relative numbers)")
+    print(f"device: {out['device_kind'] or out['backend']}  peak: {peak_s}")
+    print(f"{'program':<28} {'Gflops/call':>12} {'MB floor':>9} "
+          f"{'flops/B':>8} {'s/call':>8} {'MFU':>7}")
+    for name, r in sorted(rows.items()):
+        meas = r.get("measured") or {}
+        mfu = meas.get("mfu")
+        spc = meas.get("seconds_per_call")
+        print(f"{name:<28} {r['flops'] / 1e9:>12.2f} "
+              f"{r['bytes_accessed'] / 1e6:>9.1f} "
+              f"{(r['intensity_flops_per_byte'] or 0):>8.1f} "
+              f"{f'{spc:.5f}' if spc is not None else '-':>8} "
+              f"{f'{mfu:.2%}' if mfu is not None else 'null':>7}")
+    return 0
+
+
+def _profile_capture(args) -> int:
+    from nerrf_tpu_torch.devtime import profiled, trace_summary
+
+    if args.target:
+        # remote capture from a service started with --profiler-port: its
+        # GET /capture?seconds=S captures in the serving process and
+        # answers with the trace file
+        from nerrf_tpu_torch.devtime.capture import fetch_capture
+
+        try:
+            fetch_capture(args.target, args.seconds, args.out)
+        except (OSError, ValueError) as e:
+            _log(f"remote capture from {args.target} failed: "
+                 f"{type(e).__name__}: {e}")
+            return 1
+        summary = trace_summary(args.out)
+        print(json.dumps({"trace_dir": args.out, **(summary or {})}))
+        return 0 if summary else 1
+    # local driven capture: score the serve ladder's donor batches under
+    # the profiler for --seconds, so the trace holds real device work
+    from nerrf_tpu_torch.device import resolve_device
+    from nerrf_tpu_torch.pipeline import make_eval_fn
+    from nerrf_tpu_torch.serve.service import warmup_batches
+
+    dev = resolve_device(args.device)
+    cfg = _profile_serve_cfg(args)
+    model = _profile_model(args, cfg, dev)
+    eval_fn = make_eval_fn(model)
+    donors = [(tag, batch) for _b, tag, batch in warmup_batches(cfg)]
+    if not donors:
+        _log("no warmup donor batches for the configured ladder")
+        return 2
+    for _tag, batch in donors:
+        # build and load the kernel libraries OUTSIDE the capture window,
+        # so the capture shows steady-state scoring
+        eval_fn(batch)
+    with profiled(args.out) as active:
+        if active is None:
+            _log("profiler could not start (see profile_failed journal "
+                 "record) — nothing captured")
+            return 1
+        # the window opens once the profiler has started (its first start
+        # takes a while), and holds at least one pass over the ladder
+        deadline = time.monotonic() + args.seconds
+        while True:
+            for _tag, batch in donors:
+                eval_fn(batch)
+            if time.monotonic() >= deadline:
+                break
+    summary = trace_summary(args.out)
+    print(json.dumps({"trace_dir": args.out, **(summary or {})}))
+    if summary:
+        _log(f"trace captured: {summary['files']} file(s) in {args.out} — "
+             f"load in Perfetto/TensorBoard")
+    return 0 if summary else 1
+
+
+# --------------------------------------------------------------------------
 def cmd_trace(args) -> int:
     """Offline inspector for ``--trace-out`` artifacts: per-stage latency
     table (count, total/mean/p50/max ms, % of wall) from a Chrome-trace
@@ -896,12 +1083,24 @@ def cmd_serve_detect(args) -> int:
 
         recorder = FlightRecorder(
             FlightConfig(out_dir=args.flight_dir,
-                         p99_breach_sec=args.deadline_sec),
+                         p99_breach_sec=args.deadline_sec,
+                         profile_on_p99_sec=args.profile_on_breach_sec),
             info=service.flight_info, slo=service.slo,
             quality=service.quality_snapshot, archive=archive, log=_log)
         service.attach_flight(recorder)
         uninstall_crash = install_crash_handlers(recorder)
-        _log(f"flight recorder armed: bundles in {args.flight_dir}")
+        _log(f"flight recorder armed: bundles in {args.flight_dir}"
+             + (f" (+{args.profile_on_breach_sec:g}s profiler trace per "
+                f"p99 breach)" if args.profile_on_breach_sec > 0 else ""))
+    profiler = None
+    if args.profiler_port >= 0:
+        # the capture endpoint: `profile capture --target` pulls a
+        # torch.profiler trace of the live pod without touching the hot path
+        from nerrf_tpu_torch.devtime.capture import ProfilerServer
+
+        profiler = ProfilerServer(host="0.0.0.0", port=args.profiler_port)
+        _log(f"profiler server on :{profiler.port} "
+             f"(GET /capture?seconds=S)")
     if manager is not None:
         manager.attach(service)
         manager.start_polling()
@@ -1021,6 +1220,8 @@ def cmd_serve_detect(args) -> int:
             rs.stop()
         if metrics:
             metrics.close()
+        if profiler is not None:
+            profiler.close()
         if recorder is not None:
             recorder.close()
         if archive is not None:
@@ -1165,9 +1366,6 @@ UNPORTED_COMMANDS = {
               "A.6"),
     "cache": ("persistent compile cache: list, prune, verify, pre-warm",
               "the compile cache (a capture cache of CUDA graphs)", "A.7"),
-    "profile": ("device-efficiency plane: per-program cost/MFU table, jax "
-                "profiler capture (docs/device-efficiency.md)",
-                "the device-time plane", "A.6"),
     "lint": ("static analysis over nerrf_tpu's own ASTs (purity, recompile, "
              "sync, lock discipline, the concurrency tier, metrics "
              "contract); --deep adds the jaxpr-level program contracts",
@@ -1189,11 +1387,6 @@ UNPORTED_FLAGS = (
     ("serve-detect", "$NERRF_CHAOS_PLAN",
      lambda a: bool(os.environ.get("NERRF_CHAOS_PLAN")),
      "the chaos plane's fault points", "A.6"),
-    ("serve-detect", "--profiler-port", lambda a: a.profiler_port >= 0,
-     "the device-time plane's profiler server", "A.6"),
-    ("serve-detect", "--profile-on-breach-sec",
-     lambda a: a.profile_on_breach_sec > 0,
-     "the device-time plane's profiler capture", "A.6"),
     ("serve-detect", "--aot-cache", lambda a: a.aot_cache is not None,
      "the compile cache", "A.7"),
     ("models", "publish --aot",
@@ -1464,12 +1657,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="arm a chaos fault plan: not ported yet (ROADMAP "
                         "A.6), exits 2, as does $NERRF_CHAOS_PLAN when set")
     p.add_argument("--profiler-port", type=int, default=-1,
-                   help="a profiler server on this port: not ported yet "
-                        "(ROADMAP A.6), exits 2 when ≥ 0")
+                   help="serve GET /capture?seconds=S on this port (a "
+                        "torch.profiler trace of the live pod, pulled by "
+                        "`profile capture --target`; -1 disables)")
     p.add_argument("--profile-on-breach-sec", type=float, default=0.0,
-                   help="profiler trace in p99-breach bundles: needs the "
-                        "device-time plane, not ported yet (ROADMAP A.6), "
-                        "exits 2 when > 0")
+                   help="with --flight-dir: embed this many seconds of "
+                        "torch.profiler trace in every p99-breach bundle "
+                        "(0 = off; keep it ≤ 2 s)")
     p.add_argument("--respond", action="store_true",
                    help="arm the online incident-response tier: alerts at "
                         "or above --respond-severity become incidents, "
@@ -1547,8 +1741,66 @@ def build_parser() -> argparse.ArgumentParser:
     qp.set_defaults(fn=cmd_quality)
 
 
-    for name in ("cache", "profile"):
-        _unported_parser(sub, name)
+    _unported_parser(sub, "cache")
+
+    p = sub.add_parser("profile", help="device-efficiency plane: per-"
+                                       "program cost/MFU table, "
+                                       "torch.profiler capture "
+                                       "(docs/device-efficiency.md)")
+    psub = p.add_subparsers(dest="profile_cmd", required=True)
+    pp = psub.add_parser("costs", help="per-program cost table: analytic "
+                                       "FLOPs / byte floor / roofline "
+                                       "intensity for the serve ladder + "
+                                       "the train step; --measure adds "
+                                       "timed calls → measured MFU (null "
+                                       "off the card, never fabricated)")
+    pp.add_argument("--model-dir", default=None,
+                    help="checkpoint whose programs to cost (default: the "
+                         "untrained small detector — shapes are what "
+                         "matter)")
+    pp.add_argument("--buckets", nargs="*", default=None, metavar="NxExS",
+                    help="capacity-bucket ladder (default: the serve "
+                         "ladder)")
+    pp.add_argument("--smoke", action="store_true",
+                    help="one tiny bucket (64n/128e/32s)")
+    pp.add_argument("--measure", type=int, default=0, metavar="N",
+                    help="time N real calls per bucket after one untimed "
+                         "call (the measured-MFU column; 0 = analytic only)")
+    pp.add_argument("--cross-check", action="store_true",
+                    help="also record torch.profiler's FLOP count and the "
+                         "kernel seconds of one real call per program on "
+                         "the card (recorded as cross-check, never the MFU "
+                         "numerator; null on the CPU)")
+    pp.add_argument("--no-train", action="store_true",
+                    help="skip the train-step row")
+    pp.add_argument("--json", action="store_true")
+    pp.add_argument("--no-probe", action="store_true",
+                    help="accepted and does nothing: the port probes no "
+                         "backend (no fallback, by rule)")
+    _add_device(pp)
+    pp.set_defaults(fn=cmd_profile)
+    pp = psub.add_parser("capture", help="capture a torch.profiler trace "
+                                         "(Perfetto/TensorBoard readable): "
+                                         "drive the serve ladder locally, "
+                                         "or pull one from a live service's "
+                                         "--profiler-port")
+    pp.add_argument("--out", required=True, metavar="DIR",
+                    help="trace output directory")
+    pp.add_argument("--seconds", type=float, default=3.0,
+                    help="capture duration")
+    pp.add_argument("--target", default=None, metavar="HOST:PORT",
+                    help="a live service's --profiler-port endpoint "
+                         "(GET /capture)")
+    pp.add_argument("--model-dir", default=None,
+                    help="checkpoint to drive in local mode")
+    pp.add_argument("--buckets", nargs="*", default=None, metavar="NxExS")
+    pp.add_argument("--smoke", action="store_true",
+                    help="one tiny bucket (fast local capture)")
+    pp.add_argument("--no-probe", action="store_true",
+                    help="accepted and does nothing: the port probes no "
+                         "backend (no fallback, by rule)")
+    _add_device(pp)
+    pp.set_defaults(fn=cmd_profile)
 
     p = sub.add_parser("trace", help="per-stage latency table from a "
                                      "--trace-out Chrome-trace file")

@@ -1,7 +1,7 @@
 """Offline bundle reader: `nerrf doctor <bundle>`.
 
 A host copy of ``nerrf_tpu/flight/doctor.py``, kept identical but for
-the profiler capture's inventory in `read_bundle`.
+the profiler capture's directory, which the manifest names.
 
 Reconstructs an incident from a flight-recorder bundle alone — no live
 process, no scrape history.  The report has four sections:
@@ -84,10 +84,16 @@ def read_bundle(path) -> dict:
             out["metrics"] = f.read()
     else:
         out["missing"].append("metrics.prom")
-    # the embedded profiler capture's inventory: a port bundle carries no
-    # capture until the device-time plane is ported (ROADMAP A.6), so the
-    # report renders its "not captured" branch
-    out["profile"] = None
+    # optional embedded torch.profiler capture (the flight recorder's
+    # opt-in profile_on_p99_sec action), in the dir the manifest names:
+    # inventory only — the trace itself loads in Perfetto/TensorBoard,
+    # not here.  trace_summary imports no torch and devtime's package
+    # init is lazy, so the offline doctor stays light
+    from nerrf_tpu_torch.devtime.capture import trace_summary
+
+    pdir = (manifest.get("profile") or {}).get("dir")
+    out["profile"] = (trace_summary(os.path.join(root, pdir))
+                      if pdir else None)
     # optional embedded quality snapshot (live drift sketches + reference
     # profile) — bundles from profile-less versions simply lack it
     out["quality"] = None
@@ -209,7 +215,7 @@ def format_report(bundle: dict, tail: Optional[int] = None) -> str:
         lines.append("")
         lines.append(
             f"profiler trace: {prof['files']} file(s), {prof['bytes']} "
-            f"bytes in jax_trace/"
+            f"bytes in {man_prof['dir']}/"
             + (f" ({man_prof['seconds']:g}s capture on the breach)"
                if man_prof.get("seconds") else "")
             + " — load in Perfetto or TensorBoard")

@@ -4,8 +4,10 @@ The port of ``nerrf_tpu/flight/recorder.py``: a copy but in three places.
 `env_fingerprint` reports PyTorch, its CUDA and the card instead of jax;
 the chaos plane's ``flight.disk_full`` fault point waits for
 ``chaos/points`` (ROADMAP A.6); and the p99 bundle's profiler capture
-(``profile_on_p99_sec > 0``) waits for the device-time plane (ROADMAP A.6)
-and is refused at construction.
+(``profile_on_p99_sec > 0``) is a torch.profiler trace under
+``torch_trace/``, taken on a capture thread of its own: the p99 trigger
+fires on the scorer's thread (demux), and a capture taken there would
+watch a scorer it blocks.
 
 The journal ring and the span ring both wrap — by the time an operator
 logs in, the 2am incident's records are gone.  `FlightRecorder` watches
@@ -114,10 +116,16 @@ class FlightConfig:
     quality_psi_breach: float = 0.25
     quality_min_windows: int = 64
     quality_breach_records: int = 3
-    # the p99-breach profiler capture: a p99_breach bundle would embed
-    # this many seconds of a live device trace.  It waits for the
-    # device-time plane (ROADMAP A.6): anything but 0 (the default, as in
-    # the reference) is refused by FlightRecorder
+    # OPT-IN p99-breach profiler capture (devtime/capture.py): when > 0, a
+    # p99_breach bundle additionally embeds this many seconds of live
+    # torch.profiler trace under <bundle>/torch_trace/ — the scorer keeps
+    # scoring while the profiler watches, so the trace shows the card
+    # during exactly the overload that fired the trigger.  The bundle is
+    # written by a capture thread once the capture ends (close() waits for
+    # it).  Fail-open: a profiler that cannot start journals
+    # profile_failed and the bundle ships without the trace.  The capture
+    # holds the dump lock for its duration, so keep it SMALL (≤2 s).
+    # 0 (default) disables
     profile_on_p99_sec: float = 0.0
 
 
@@ -127,11 +135,6 @@ class FlightRecorder:
     def __init__(self, cfg: FlightConfig, registry=None, journal=None,
                  tracer=None, slo=None, info=None, quality=None,
                  archive=None, log=None) -> None:
-        if cfg.profile_on_p99_sec > 0:
-            raise NotImplementedError(
-                "FlightConfig(profile_on_p99_sec > 0): the p99 bundle's profiler "
-                "capture needs the device-time plane, which is not ported yet "
-                "(ROADMAP A.6)")
         if registry is None:
             from nerrf_tpu_torch.observability import DEFAULT_REGISTRY
 
@@ -169,10 +172,21 @@ class FlightRecorder:
         self._bundle_n = 0  # monotonic: bundle names sort chronologically
         self._e2e: deque = deque(maxlen=max(cfg.p99_window, 1))
         self._drops: deque = deque()
+        # the capture threads of p99 bundles with a profiler trace (joined
+        # by close()); the profiler is imported here, not first on one
+        self._captures: list = []
+        if cfg.profile_on_p99_sec > 0:
+            from nerrf_tpu_torch.observability import load_profiler
+
+            load_profiler()
         self._journal.subscribe(self._on_record)
 
     def close(self) -> None:
         self._journal.unsubscribe(self._on_record)
+        with self._lock:
+            captures, self._captures = self._captures, []
+        for t in captures:
+            t.join(timeout=self.cfg.profile_on_p99_sec + 60.0)
 
     # -- signal intake --------------------------------------------------------
 
@@ -280,7 +294,8 @@ class FlightRecorder:
                 context: Optional[dict] = None) -> Optional[str]:
         """Fire a trigger: rate-limit, then dump.  Returns the bundle path
         (None when suppressed or the dump failed — the recorder must never
-        take the serving plane down with it)."""
+        take the serving plane down with it — and for a p99 bundle with a
+        profiler capture, which a capture thread writes)."""
         now = time.monotonic()
         with self._lock:
             last = self._last_fire.get(name)
@@ -295,6 +310,24 @@ class FlightRecorder:
                 help="trigger firings suppressed by the per-trigger rate "
                      "limit (a bundle for this incident already exists)")
             return None
+        if name == "p99_breach" and self.cfg.profile_on_p99_sec > 0:
+            # the trigger fires on the scorer's thread: the bundle and its
+            # capture go to a thread of their own, so the profiler watches
+            # a scorer that keeps scoring.  Non-daemon and joined by close()
+            t = threading.Thread(
+                target=self._fire, args=(name, reason, context, now, last),
+                name="nerrf-flight-capture", daemon=False)
+            with self._lock:
+                self._captures = [c for c in self._captures
+                                  if c.is_alive()] + [t]
+            t.start()
+            return None
+        return self._fire(name, reason, context, now, last)
+
+    def _fire(self, name: str, reason: str, context: Optional[dict],
+              now: float, last: Optional[float]) -> Optional[str]:
+        """Dump one bundle for a trigger that passed its rate limit (stamped
+        ``now``, the previous stamp ``last``)."""
         try:
             path = self.dump(name, reason, context or {})
         except Exception as e:  # noqa: BLE001 — evidence capture is
@@ -340,9 +373,28 @@ class FlightRecorder:
             shutil.rmtree(tmp)
         try:
             os.makedirs(tmp)
-            # no profiler capture (refused at construction): the manifest's
-            # "profile" stays None, as in a reference bundle without one
             profile = None
+            if trigger == "p99_breach" and self.cfg.profile_on_p99_sec > 0:
+                # capture FIRST (the overload is happening now; the
+                # journal tail written below then includes the capture's
+                # own profile_capture/profile_failed record), into the
+                # tmp dir so the os.replace below keeps bundles atomic
+                from nerrf_tpu_torch.devtime.capture import (
+                    capture_trace,
+                    trace_summary,
+                )
+
+                pdir = os.path.join(tmp, "torch_trace")
+                got = capture_trace(pdir,
+                                    seconds=self.cfg.profile_on_p99_sec,
+                                    journal=self._journal)
+                summary = trace_summary(pdir) if got else None
+                profile = ({"dir": "torch_trace",
+                            "seconds": self.cfg.profile_on_p99_sec,
+                            **summary} if summary else
+                           {"dir": None,
+                            "error": "profiler capture failed (fail-open; "
+                                     "see profile_failed journal record)"})
             quality = _safe(self._quality) if self._quality is not None \
                 else None
             if quality:

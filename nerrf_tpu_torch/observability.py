@@ -6,14 +6,17 @@ identical: ``MetricsRegistry`` (thread-safe counters, gauges and
 fixed-bucket histograms with labels, rendered in the Prometheus text
 exposition format), ``DEFAULT_REGISTRY`` and ``MetricsServer`` (stdlib HTTP
 on a daemon thread: ``/metrics``, ``/healthz``, ``/readyz``).  The
-reference's ``trace_profile`` wraps the JAX profiler; its counterpart over
-``torch.profiler`` comes with the device-time plane (ROADMAP A.6).
+reference's ``trace_profile`` wraps the JAX profiler; the port's wraps
+``torch.profiler`` and writes a Chrome trace (`devtime.capture` drives it).
 """
 
 from __future__ import annotations
 
+import contextlib
 import http.server
 import json
+import os
+import socket
 import threading
 import time
 import warnings
@@ -339,3 +342,74 @@ class MetricsServer:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def load_profiler() -> None:
+    """Ready ``torch.profiler`` on the calling thread: import it and what
+    its start imports (``torch._dynamo``), then start and stop one empty
+    session unless one is active (the first start sets up the device's
+    tracing, which takes seconds).  Whatever captures on a thread of its
+    own (the flight recorder's p99 capture, the capture server) calls this
+    first: a first import on that thread, while another thread imports the
+    same modules, can deadlock on their module locks, and a capture's
+    window should not open with the set-up."""
+    import torch
+    import torch._dynamo  # noqa: F401
+    import torch.autograd.profiler as autograd_profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    if getattr(autograd_profiler, "_is_profiler_enabled", False):
+        return
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities, experimental_config=_profiler_config())
+    prof.start()
+    prof.stop()
+
+
+def _profiler_config():
+    """The profiler's config recording the CPU ops of every thread (the
+    serve plane scores on its own thread), where this PyTorch has the
+    option; None (the calling thread's ops only) where it has not.  The
+    card's kernels are recorded from every thread either way."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
+@contextlib.contextmanager
+def trace_profile(log_dir: str, enabled: bool = True):
+    """A ``torch.profiler`` trace around a region: the CPU activity, and the
+    card's kernels when CUDA is available.  On exit one Chrome trace
+    (``<host>_<pid>.<ns>.pt.trace.json``, readable in Perfetto and
+    TensorBoard) is written into ``log_dir``.  Raises RuntimeError on entry
+    while another ``torch.profiler`` session is active in this process: a
+    second session would stop the first and record nothing itself."""
+    if not enabled:
+        yield
+        return
+    import torch
+    import torch.autograd.profiler as autograd_profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    if getattr(autograd_profiler, "_is_profiler_enabled", False):
+        raise RuntimeError("a torch.profiler session is already active in "
+                           "this process")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities,
+                   experimental_config=_profiler_config())
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"{socket.gethostname()}_{os.getpid()}."
+                     f"{time.time_ns()}.pt.trace.json"))

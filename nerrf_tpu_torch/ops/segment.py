@@ -10,6 +10,11 @@ batch dimension) and has two versions:
 * the plain PyTorch version (``<op>_plain``), run when the operands lie on
   the CPU.  It is the reference the kernel is held against.
 
+Operands on the ``meta`` device take the plain version's shape logic too:
+the cost model (`devtime.costmodel`) traces a forward on meta tensors to
+count its matmuls, and a meta tensor holds no data for a kernel to read.
+That is a shape trace, not a fallback: nothing runs and nothing launches.
+
 There is no fallback between them: a CUDA operand launches the kernel or
 raises.  :func:`plain_ops` runs the plain versions on the card on purpose,
 for comparing a forward against its kernels.
@@ -131,7 +136,7 @@ def _use_kernel(op: str, *ts: torch.Tensor) -> bool:
     if len(devices) != 1:
         raise ValueError(f"{op}: operands on several devices {devices}")
     dev = devices.pop()
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):  # meta: a shape trace, no data to read
         return False
     if dev.type == "cuda":
         return not _FORCE_PLAIN

@@ -5,10 +5,8 @@ The port of ``nerrf_tpu/serve/config.py``.  The online service admits
 windows from many streams and packs those that land in the same capacity
 bucket into one shared padded batch, so the knobs here trade latency
 (batch-close deadline) against occupancy (windows per forward) against
-memory (queue bounds).  Every field the port's service reads keeps the
-reference's name and default; the fields of the planes the port has not
-taken yet (SLO-aware shedding and the device-time accountant it reads) are
-left out.
+memory (queue bounds).  Every field keeps the reference's name and
+default.
 """
 
 from __future__ import annotations
@@ -98,6 +96,28 @@ class ServeConfig:
     # per window until a version with a profile is serving; False drops
     # the plane
     quality_monitoring: bool = True
+    # SLO-aware shedding: when a stream's bounded queue overflows AND the
+    # capacity-headroom predictor says the whole service is under pressure
+    # (headroom below shed_headroom_margin), the victim window comes from
+    # the stream burning the most SLO budget on the device (flight/slo)
+    # instead of from the admitting stream: budget-burners lose evidence
+    # first, healthy streams keep bit-parity.  Drop-oldest stays as the
+    # intra-stream bound (and as the whole policy when this is False or
+    # headroom shows slack)
+    slo_aware_shedding: bool = True
+    # predicted headroom (in streams) below which shedding goes SLO-ranked;
+    # requires devtime_accounting (the headroom predictor)
+    shed_headroom_margin: float = 1.0
+    # trailing window of the devtime accountant's rate/cost/utilization
+    # state (seconds): the headroom prediction follows traffic shifts at
+    # this horizon
+    devtime_window_sec: float = 60.0
+    # device-efficiency plane (devtime/): live per-program MFU /
+    # utilization / useful-FLOPs gauges and the capacity-headroom
+    # predictor, fed from the scorer's measured seconds, with each bucket's
+    # analytic cost traced on meta tensors on a background thread.  No
+    # extra device work; False drops the plane
+    devtime_accounting: bool = True
 
     @property
     def occupancy(self) -> int:

@@ -43,8 +43,18 @@ burn, exemplar trace IDs), ``attach_flight`` feeds a `FlightRecorder`'s
 p99 trigger, and ``attach_learn`` tees admitted windows into a
 `learn.ReplayWriter` (the payload at admission, the scores at demux, a
 failed window discarded).  Each observer is fail-open where the reference's
-is.  Not ported yet: the compile cache and the device-time plane; without
-the device-time plane there is no SLO-aware shedding, as in the reference.
+is.
+
+The device-time plane (`devtime/`): every scored batch's synced scoring
+call is timed on the host clock and fed, after warmup, to a
+`DeviceTimeAccountant` (``devtime``: per-program MFU against the card's
+peak, utilization, useful-FLOPs and the capacity-headroom predictor),
+whose per-bucket analytic costs a background thread traces on ``meta``
+tensors after warmup (no launch, no device work).  Under predicted
+pressure (headroom below ``shed_headroom_margin``) an overflowing stream's
+queue sheds the worst device-stage SLO budget burner's oldest window
+instead of its own (SLO-aware shedding, ``fleet_shed``).  Not ported yet:
+the compile cache (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ import torch
 
 from nerrf_tpu_torch.data.loaders import Trace
 from nerrf_tpu_torch.device import resolve_device
+from nerrf_tpu_torch.devtime.accounting import DeviceTimeAccountant
 from nerrf_tpu_torch.flight.journal import (DEFAULT_JOURNAL, fingerprint,
                                             make_trace_id)
 from nerrf_tpu_torch.flight.slo import SLOTracker
@@ -211,6 +222,19 @@ class OnlineDetectionService:
         self._archive = None
         # optional learn.ReplayWriter (attach_learn)
         self._learn = None
+        # device-efficiency plane (devtime/): per-program MFU / utilization
+        # / useful-FLOPs gauges from the scorer's measured seconds + the
+        # analytic cost model registered after warmup, and the capacity-
+        # headroom predictor over the admit stream.  Card-relative gauges
+        # stay absent on the CPU (null-not-fake)
+        self._devtime = (DeviceTimeAccountant(
+                             registry=registry, journal=self._journal,
+                             window_sec=self.cfg.devtime_window_sec)
+                         if self.cfg.devtime_accounting else None)
+        # the background cost-registration thread (start()) and its stop
+        # flag: stop() waits it out, so no trace outlives the service
+        self._devtime_thread: Optional[threading.Thread] = None
+        self._devtime_stop = threading.Event()
 
     # -- scoring --------------------------------------------------------------
 
@@ -229,11 +253,38 @@ class OnlineDetectionService:
             eval_fn = self._eval_fn
             version = self._live_version
             shadow = self._shadow
+        # the host clock around the synced call (the eval function returns
+        # host arrays, so its copy out waits for the card), as the
+        # reference times its device_get
+        t_dev = time.perf_counter()
         out = self._run_eval(eval_fn, batch)
+        device_sec = time.perf_counter() - t_dev
         probs = 1.0 / (1.0 + np.exp(-out["node_logit"]))
+        if self._devtime is not None and self._warm:
+            # steady state only: the warmup call's seconds include the
+            # kernel libraries' build and load
+            self._observe_devtime(batch, device_sec)
         if shadow is not None:
             self._shadow_score(shadow, batch, probs)
         return probs, version
+
+    def _observe_devtime(self, batch: Dict[str, np.ndarray],
+                         device_sec: float) -> None:
+        """Feed one scoring call to the efficiency accountant: the bucket
+        tag comes from the padded shapes (exactly how the program is
+        keyed), occupancy from which slots carry real nodes, and the
+        padding discount from the occupied slots' node-mask density."""
+        n = batch["node_feat"].shape[1]
+        e = batch["edge_src"].shape[1]
+        s = batch["seq_feat"].shape[1]
+        tag = f"{n}n/{e}e/{s}s"
+        mask = np.asarray(batch["node_mask"])
+        occupied = mask.any(axis=1)
+        occ = int(occupied.sum())
+        density = float(mask[occupied].mean()) if occ else None
+        self._devtime.observe_batch(
+            f"serve_eval[{tag}]", tag, device_sec,
+            occupancy=occ, slots=int(mask.shape[0]), real_density=density)
 
     def _run_eval(self, eval_fn, batch: Dict[str, np.ndarray]
                   ) -> Dict[str, np.ndarray]:
@@ -325,6 +376,12 @@ class OnlineDetectionService:
         return info
 
     @property
+    def devtime(self) -> Optional[DeviceTimeAccountant]:
+        """The device-efficiency accountant (None when disabled): its
+        snapshot() is the serve leg's devtime block."""
+        return self._devtime
+
+    @property
     def quality(self) -> Optional[QualityMonitor]:
         """The drift monitor (None when disabled by config)."""
         return self._quality
@@ -414,6 +471,25 @@ class OnlineDetectionService:
             if log:
                 log(f"serve bucket {tag} warm ({self.warmup_seconds[tag]}s)")
 
+    def _register_devtime_costs(self) -> None:
+        """Resolve the analytic cost of every warmup bucket program and
+        bind it to the accountant (background; see start()): a meta copy
+        of the live architecture traced per bucket (memoized by
+        architecture and shapes), no launch, no device work.  Best-effort
+        throughout: a failed trace leaves that program's MFU gauge absent,
+        never blocks or raises into the serving plane."""
+        from nerrf_tpu_torch.devtime.costmodel import serve_cost
+
+        try:
+            for _bucket, tag, batch in warmup_batches(self.cfg):
+                if self._devtime_stop.is_set():
+                    return  # stopping: remaining costs don't matter
+                cost = serve_cost(self._model, batch, tag)
+                if cost is not None:
+                    self._devtime.register_cost(f"serve_eval[{tag}]", cost)
+        except Exception:  # noqa: BLE001 — advisory gauges only
+            pass
+
     def attach_respond(self, router) -> None:
         """Bind a respond.ResponseRouter: every WindowAlert leaving the
         demux boundary is also offered to the incident queue (the router
@@ -436,6 +512,23 @@ class OnlineDetectionService:
         if self.cfg.warmup_on_start:
             self._warmup(log=log)
         self._warm = True
+        if self._devtime is not None:
+            # cost-model registration OFF the boot path: readiness never
+            # waits on it, and until a program's cost lands its MFU gauge
+            # is simply absent (the seconds/util gauges flow from the first
+            # scored batch either way).  Non-daemon, with a stop flag that
+            # stop() sets and a join: no trace outlives the service.  The
+            # counter's first use imports torch._dynamo, as a profiler's
+            # start does: imported here, so that the cost thread and a
+            # capture thread never both import it (their module locks can
+            # deadlock)
+            import torch._dynamo  # noqa: F401
+
+            self._devtime_stop.clear()
+            self._devtime_thread = threading.Thread(
+                target=self._register_devtime_costs, daemon=False,
+                name="nerrf-devtime-costs")
+            self._devtime_thread.start()
         self._batcher.start()
         self._admission_open = True
         self._journal.record("readiness", ready=True,
@@ -467,6 +560,12 @@ class OnlineDetectionService:
             self._journal.record("readiness", ready=False, reason="stopping")
         self._admission_open = False
         self._batcher.stop(drain=drain)
+        if self._devtime_thread is not None:
+            # the stop flag skips the remaining buckets; the trace in
+            # progress is O(seconds)
+            self._devtime_stop.set()
+            self._devtime_thread.join(timeout=30.0)
+            self._devtime_thread = None
 
     # -- stream membership ----------------------------------------------------
 
@@ -659,6 +758,90 @@ class OnlineDetectionService:
             except KeyError:
                 raise KeyError(f"stream {stream_id!r} not joined") from None
 
+    # -- SLO-aware shedding -----------------------------------------------------
+
+    def _shed_pressure(self) -> bool:
+        """True when the capacity-headroom predictor says the whole
+        service is under pressure (predicted headroom below the shed
+        margin) — the gate that turns a per-stream queue overflow into
+        a fleet-ranked shed instead of a private drop-oldest."""
+        if not self.cfg.slo_aware_shedding or self._devtime is None:
+            return False
+        est = self._devtime.last_estimate
+        return est is not None and \
+            est.headroom_streams < self.cfg.shed_headroom_margin
+
+    def _select_shed_victim(self, base: str):
+        """The stream that loses evidence under pressure: worst trailing
+        DEVICE-stage SLO budget burn (flight/slo stage accounting) among
+        non-quarantined streams burning MORE than the admitting one —
+        healthy streams keep bit-parity, and when the admitting stream
+        is itself the worst burner the answer is None (its own
+        drop-oldest bound already sheds the right victim).  Returns
+        ``(handle, burn_ratio, ranking)`` or None.
+
+        Device stage, NOT the summed total: on a saturated shared FIFO
+        every cohabitant's total burn converges to the deadline — their
+        latency is set by the queue they all share, so the total cannot
+        separate the stream CAUSING the pressure from the streams
+        suffering it.  The device stage is the occupancy a stream's own
+        windows impose on the fleet, and it separates cause from victim
+        by construction."""
+        snap = self._slo.snapshot()
+        burns: Dict[str, float] = {}
+        for s, ent in (snap.get("per_stream") or {}).items():
+            burn = (ent.get("budget_burn") or {}).get("device", 0.0)
+            b = _base_stream(s)
+            burns[b] = max(burns.get(b, 0.0), burn)
+        own = burns.get(base, 0.0)
+        with self._lock:
+            quarantined = set(self._quarantined)
+            by_base: Dict[str, List[StreamHandle]] = {}
+            for h in self._streams.values():
+                by_base.setdefault(_base_stream(h.id), []).append(h)
+        ranking = sorted(((b, round(r, 4)) for b, r in burns.items()
+                          if r > 0), key=lambda kv: kv[1], reverse=True)
+        for b, r in ranking:
+            if r <= own:
+                break  # sorted: nobody below burns more than us
+            if b == base or b in quarantined:
+                continue
+            for h in by_base.get(b, ()):
+                if h.live:  # racy hint; _shed_one rechecks under cond
+                    return h, r, ranking
+        return None
+
+    def _shed_one(self, base: str) -> Optional[dict]:
+        """Drop the worst budget-burner's OLDEST queued window (the
+        intra-stream bound survives inside the victim) and return the
+        evidence for the fleet_shed record, or None when no ranked
+        victim exists.  The victim's cond is taken and released here —
+        never nested with the admitting stream's."""
+        picked = self._select_shed_victim(base)
+        if picked is None:
+            return None
+        vhandle, burn, ranking = picked
+        with vhandle.cond:
+            for old_idx, old in vhandle.live.items():
+                if self._batcher.mark_dropped(old):
+                    del vhandle.live[old_idx]
+                    vhandle.dropped += 1
+                    self._reg.counter_inc(
+                        "serve_admission_dropped_total",
+                        labels={"reason": "shed"},
+                        help="windows dropped at the serve admission "
+                             "boundary")
+                    self._reg.counter_inc(
+                        "fleet_shed_total",
+                        labels={"stream": _base_stream(vhandle.id),
+                                "reason": "budget_burn"},
+                        help="windows shed from SLO-budget-burning "
+                             "streams under capacity pressure")
+                    return {"victim": vhandle.id, "window_id": old_idx,
+                            "trace_id": old.trace_id,
+                            "burn_ratio": burn, "ranking": ranking}
+        return None
+
     def _drop(self, handle: StreamHandle, idx: int, trace_id: str,
               reason: str, **data) -> None:
         """Count and journal one window dropped at admission (the caller
@@ -761,9 +944,22 @@ class OnlineDetectionService:
                         handle.windower.strings)
             except Exception:  # noqa: BLE001
                 pass
+            shed = None
+            if len(handle.live) >= self.cfg.stream_queue_slots \
+                    and self._shed_pressure():
+                # SLO-aware shed: under fleet-wide pressure the victim is
+                # the worst budget-burner's oldest window, not this
+                # stream's — shed BEFORE handle.cond is taken so the two
+                # streams' conds are never nested
+                shed = self._shed_one(base)
+            # when another stream paid, this stream's queue may stretch to
+            # 2x slots before its own drop-oldest bound applies — still
+            # hard-bounded memory, but a healthy stream is not robbed to
+            # admit its own next window while burners queue
+            allowed = self.cfg.stream_queue_slots * (2 if shed else 1)
             dropped_old = None
             with handle.cond:
-                if len(handle.live) >= self.cfg.stream_queue_slots:
+                if len(handle.live) >= allowed:
                     # drop-OLDEST: under sustained overload the newest
                     # evidence wins; only still-queued requests are droppable
                     for old_idx, old in handle.live.items():
@@ -774,6 +970,20 @@ class OnlineDetectionService:
                             break
                 handle.live[idx] = req
                 handle.admitted += 1
+            if shed is not None:
+                # journal OUTSIDE every cond; admission_drop keeps the drop
+                # inventory uniform, the fleet_shed record carries the
+                # ranking evidence
+                self._journal.record(
+                    "admission_drop", stream=shed["victim"],
+                    window_id=shed["window_id"],
+                    trace_id=shed["trace_id"], reason="shed")
+                self._journal.record(
+                    "fleet_shed", stream=shed["victim"],
+                    window_id=shed["window_id"],
+                    trace_id=shed["trace_id"], reason="budget_burn",
+                    burn_ratio=shed["burn_ratio"],
+                    ranking=shed["ranking"], admitting=handle.id)
             if dropped_old is not None:
                 # journal OUTSIDE handle.cond (see leave)
                 self._drop(handle, dropped_old[0], dropped_old[1],
@@ -781,6 +991,10 @@ class OnlineDetectionService:
             self._reg.counter_inc(
                 "serve_windows_admitted_total",
                 help="windows admitted into the micro-batcher")
+            if self._devtime is not None:
+                # capacity headroom: the arrival side of the model (BASE
+                # stream name — reconnect sessions are the same demand)
+                self._devtime.observe_admit(base, bucket_tag(bucket))
             self._batcher.submit(req)
 
     # -- demux ----------------------------------------------------------------

@@ -34,11 +34,14 @@ reference's draw.  The step flavors:
 ``TrainConfig.telemetry`` adds the in-step health scalars
 (``trainwatch/telemetry.py``) to each step's ``aux``; a
 ``trainwatch.TrainHealthMonitor`` passed as ``monitor`` watches the logged
-steps and halts a diverged run.  Left out: the compile cache (with CUDA
-graphs, ROADMAP B.D1), the chaos plane's fault point and the devtime
-gauges (A.6).  A mesh experiment trains on the one card, as the
-reference's does on one device; data parallelism over several cards is
-ROADMAP A.7.
+steps and halts a diverged run.  At the end of a run
+:func:`train_nerrfnet` sets the device-time plane's gauges
+(``device_mfu{program="train_step"}``, the roofline intensity) from the
+step's analytic cost (`devtime.costmodel.train_step_cost`) and the
+measured steps/s.  Left out: the compile cache (with CUDA graphs, ROADMAP
+B.D1) and the chaos plane's fault point (A.6).  A mesh experiment trains
+on the one card, as the reference's does on one device; data parallelism
+over several cards is ROADMAP A.7.
 """
 
 from __future__ import annotations
@@ -694,6 +697,18 @@ def train_nerrfnet(
             "train_data_wait_fraction", data_wait_s / elapsed,
             help="fraction of steady-state train wall spent assembling or "
                  "waiting for input batches")
+    # device-efficiency plane: analytic step FLOPs x measured steps/s →
+    # device_mfu{program="train_step"} + roofline intensity.  A meta trace
+    # (no launch), memoized per architecture and shapes, best-effort by
+    # contract; the MFU gauge stays absent off the card (null-not-fake).
+    # Spanned, so the trace's host seconds are attributed
+    with span("devtime_cost", program="train_step"):
+        from nerrf_tpu_torch.devtime import train_efficiency_gauges
+
+        eff = train_efficiency_gauges(state.model, cfg, train_ds.arrays,
+                                      steps_per_sec)
+    if eff and log:
+        log(f"device efficiency: {eff}")
     if halted is not None:
         # diverged weights: evaluating them would only fabricate metrics
         metrics = {}

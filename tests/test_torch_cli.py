@@ -32,6 +32,13 @@ JAX package's (``nerrf_tpu.cli``), on the CPU.  The reference runs with
 * Every unported subcommand and flag exits 2 naming its ROADMAP item; each
   tensor-touching subcommand raises without CUDA unless given
   ``--device cpu``.
+* The device-time plane's lifted refusals: ``profile costs --smoke
+  --no-train --json`` prints the reference's keys (the cross-check's two
+  fields named for the profiler that fills them) and its serve FLOPs, with
+  ``peaks`` and ``measured`` null on the CPU; ``profile capture`` writes a
+  trace; ``serve-detect --profiler-port`` answers ``GET /capture`` in
+  process and ``profile capture --target`` pulls from it;
+  ``--profile-on-breach-sec`` reaches the flight recorder.
 """
 
 import contextlib
@@ -445,8 +452,6 @@ REFUSED_FLAGS = {
     "--aot-cache": ["train-detector", "--aot-cache", "C"],
     "sd --tuned": ["serve-detect", "--tuned", "T"],
     "sd --chaos-plan": ["serve-detect", "--chaos-plan", "P"],
-    "sd --profiler-port": ["serve-detect", "--profiler-port", "9000"],
-    "sd --profile-on-breach-sec": ["serve-detect", "--profile-on-breach-sec", "2"],
     "sd --aot-cache": ["serve-detect", "--aot-cache", "C"],
     "models --aot": ["models", "publish", "--registry", "R", "--lineage", "l",
                      "--model-dir", "M", "--aot"],
@@ -592,6 +597,104 @@ def _lifted_serve_flight_dir(tmp_path, monkeypatch, small_trace, tiny_model_dir)
     assert (sys.excepthook, threading.excepthook) == hooks  # uninstalled
 
 
+def _lifted_profile(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    from nerrf_tpu import serve as jserve
+
+    monkeypatch.setenv("NERRF_NO_COMPILE_CACHE", "1")
+    # the reference's untrained params as shapes: its cost table is a shape
+    # trace, and its eager init would run the model op by op
+    real_init = jserve.init_untrained_params
+    monkeypatch.setattr(jserve, "init_untrained_params", lambda model, cfg, seed=0:
+                        jax.eval_shape(lambda: real_init(model, cfg, seed)))
+    rc, out, _ = _run(cli.main, ["profile", "costs", "--smoke", "--no-train", "--json",
+                                 "--device", "cpu"])
+    jrc, jout, _ = _run(jcli.main, ["profile", "costs", "--smoke", "--no-train",
+                                    "--json", "--no-probe"])
+    assert rc == jrc == 0
+    got, want = json.loads(out), json.loads(jout)
+    assert set(got) == set(want)
+    assert got["backend"] == want["backend"] == "cpu"
+    assert got["peaks"] is None and want["peaks"] is None
+    assert set(got["programs"]) == set(want["programs"]) == {"serve_eval[64n/128e/32s]"}
+    (row,), (jrow,) = got["programs"].values(), want["programs"].values()
+    # the reference's XLA cross-check fields, named for what fills the port's
+    renamed = {"xla_flops": "profiler_flops", "xla_bytes": "profiler_device_sec"}
+    assert set(row) == {renamed.get(k, k) for k in jrow}
+    assert row["flops"] == jrow["flops"] == 986497024.0
+    assert row["measured"] is None and jrow["measured"] is None
+    assert row["profiler_flops"] is None and row["profiler_device_sec"] is None
+    rc, out, _ = _run(cli.main, ["profile", "capture", "--smoke", "--seconds", "0.1",
+                                 "--device", "cpu", "--out", tmp_path / "cap"])
+    assert rc == 0 and json.loads(out)["files"] == 1
+    (trace,) = (tmp_path / "cap").iterdir()
+    assert any(e.get("name", "").startswith("aten::")
+               for e in json.loads(trace.read_text())["traceEvents"])
+
+
+def _lifted_profiler_port(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    from nerrf_tpu_torch.devtime import capture
+
+    answers = {}
+
+    class Answering(capture.ProfilerServer):
+        """The serve pod's capture server, asked for a capture while the
+        pod boots and scores (a thread of its own, joined on close)."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            answers["host"] = k.get("host")
+            self._asker = threading.Thread(target=self._ask)
+            self._asker.start()
+
+        def _ask(self):
+            answers["trace"] = capture.fetch_capture(f"127.0.0.1:{self.port}", 0.2,
+                                                     tmp_path / "pulled")
+
+        def close(self):
+            self._asker.join(timeout=60.0)
+            super().close()
+
+    monkeypatch.setattr(capture, "ProfilerServer", Answering)
+    rc, out, _ = _run(cli.main, [
+        "serve-detect", "--device", "cpu", "--model-dir", tiny_model_dir,
+        "--trace", small_trace[1] / "s5.jsonl", "--buckets", "x".join(map(str, BUCKET)),
+        "--metrics-port", "-1", "--profiler-port", "0"])
+    assert rc == 0 and json.loads(out)["windows_scored"] > 0
+    assert answers["host"] == "0.0.0.0"
+    assert json.loads(open(answers["trace"]).read())["traceEvents"]
+    # the client side: profile capture --target against a capture server
+    with capture.ProfilerServer(port=0) as srv:
+        rc, out, _ = _run(cli.main, ["profile", "capture", "--target",
+                                     f"127.0.0.1:{srv.port}", "--seconds", "0.1",
+                                     "--out", tmp_path / "target"])
+        assert rc == 0 and json.loads(out)["files"] == 1
+        rc, _, err = _run(cli.main, ["profile", "capture", "--target",
+                                     f"127.0.0.1:{srv.port}", "--seconds", "0",
+                                     "--out", tmp_path / "bad"])
+        assert rc == 1 and "HTTP Error 400" in err
+
+
+def _lifted_profile_on_breach(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    from nerrf_tpu_torch import flight
+
+    seen = []
+
+    class Spy(flight.FlightRecorder):
+        def __init__(self, cfg, *a, **k):
+            seen.append(cfg)
+            super().__init__(cfg, *a, **k)
+
+    monkeypatch.setattr(flight, "FlightRecorder", Spy)
+    rc, out, err = _run(cli.main, [
+        "serve-detect", "--device", "cpu", "--model-dir", tiny_model_dir,
+        "--trace", small_trace[1] / "s5.jsonl", "--buckets", "x".join(map(str, BUCKET)),
+        "--metrics-port", "-1", "--flight-dir", tmp_path / "flight",
+        "--profile-on-breach-sec", "0.5"])
+    assert rc == 0 and json.loads(out)["windows_scored"] > 0
+    assert [c.profile_on_p99_sec for c in seen] == [0.5]
+    assert "+0.5s profiler trace per p99 breach" in err
+
+
 LIFTED = {
     "alerts": _lifted_alerts,
     "archive --replay": _lifted_replay_export,
@@ -600,6 +703,9 @@ LIFTED = {
     "--flight-dir": _lifted_flight_dir,
     "--archive-dir": _lifted_archive_dir,
     "sd --flight-dir": _lifted_serve_flight_dir,
+    "profile": _lifted_profile,
+    "--profiler-port": _lifted_profiler_port,
+    "--profile-on-breach-sec": _lifted_profile_on_breach,
 }
 
 

@@ -2,10 +2,11 @@
 package's (nerrf_tpu.flight), on the CPU.
 
 * Host copies: ``flight/slo.py`` is the reference's source, and
-  ``flight/doctor.py`` is too but for the profiler capture's inventory in
-  `read_bundle` (a port bundle never carries one); so is
-  ``learn/replay.py``.  Each is compared as text with the reference, the
-  package name swapped back and the copy's note taken out.
+  ``flight/doctor.py`` is too but for the profiler capture's directory,
+  which the port reads from the manifest (``torch_trace``, the
+  reference's is ``jax_trace``); so is ``learn/replay.py``.  Each is
+  compared as text with the reference, the package name swapped back and
+  the copy's note taken out.
 * `SLOTracker`: the same seeded observations (five streams through a
   three-stream bound, a trailing set of 16, breaches) give the same
   snapshot, exemplars, trailing p99s, ``slo_breach`` records and metrics.
@@ -15,8 +16,12 @@ package's (nerrf_tpu.flight), on the CPU.
   packages, and the bundles left on disk (names without their time stamp,
   files, manifests without time and environment, journal tails without
   times) and the recorders' counters are equal.
-* The manifest's environment names PyTorch, not jax; the p99 bundle's
-  profiler capture is refused with its ROADMAP item.
+* The manifest's environment names PyTorch, not jax.  The p99 bundle's
+  opt-in profiler capture: a ``torch_trace/`` trace holding the scorer
+  thread's ops, taken while scoring goes on; none without the opt-in; a
+  profiler that cannot start (another session active) journals
+  ``profile_failed`` and the bundle still ships; the doctor renders the
+  inventory.
 * The doctor: one bundle rendered by both doctors, text and ``--json``,
   equal; ``quality show`` of a bundle equal between the two CLIs.
 """
@@ -50,8 +55,9 @@ PKGS = {
     "port": SimpleNamespace(flight=flight, recorder=recorder, doctor=doctor,
                             Registry=MetricsRegistry, Tracer=Tracer),
 }
-# the reference's profiler inventory in read_bundle, and the port's
-DOCTOR_REF_PROFILE = '''    # optional embedded jax.profiler capture (the flight recorder's
+# the reference's profiler inventory in read_bundle and its report line, and
+# the port's: the port reads the capture's directory from the manifest
+DOCTOR_PROFILE = (('''    # optional embedded jax.profiler capture (the flight recorder's
     # opt-in profile_on_p99_sec action): inventory only — the trace
     # itself loads in Perfetto/TensorBoard, not here.  trace_summary is
     # jax-free and devtime's package init is lazy, so the offline doctor
@@ -59,17 +65,23 @@ DOCTOR_REF_PROFILE = '''    # optional embedded jax.profiler capture (the flight
     from nerrf_tpu.devtime.capture import trace_summary
 
     out["profile"] = trace_summary(os.path.join(root, "jax_trace"))
-'''
-DOCTOR_PORT_PROFILE = '''    # the embedded profiler capture's inventory: a port bundle carries no
-    # capture until the device-time plane is ported (ROADMAP A.6), so the
-    # report renders its "not captured" branch
-    out["profile"] = None
-'''
+''', '''    # optional embedded torch.profiler capture (the flight recorder's
+    # opt-in profile_on_p99_sec action), in the dir the manifest names:
+    # inventory only — the trace itself loads in Perfetto/TensorBoard,
+    # not here.  trace_summary imports no torch and devtime's package
+    # init is lazy, so the offline doctor stays light
+    from nerrf_tpu.devtime.capture import trace_summary
+
+    pdir = (manifest.get("profile") or {}).get("dir")
+    out["profile"] = (trace_summary(os.path.join(root, pdir))
+                      if pdir else None)
+'''), ('''            f"bytes in jax_trace/"''', '''            f"bytes in {man_prof['dir']}/"'''))
 NOTES = {
     "flight/slo.py": "\nA host copy of ``nerrf_tpu/flight/slo.py``, kept identical.\n",
     "learn/replay.py": "\nA host copy of ``nerrf_tpu/learn/replay.py``, kept identical.\n",
     "flight/doctor.py": ("\nA host copy of ``nerrf_tpu/flight/doctor.py``, kept identical "
-                         "but for\nthe profiler capture's inventory in `read_bundle`.\n"),
+                         "but for\nthe profiler capture's directory, which the manifest "
+                         "names.\n"),
 }
 KNOWN_TRIGGERS = ("p99_breach", "drop_burst", "guardrail_veto",
                   "shadow_disagreement", "quality_drift", "exception")
@@ -82,8 +94,9 @@ def test_host_copies_are_the_references_source(rel):
     port = port.replace(NOTES[rel], "").replace("nerrf_tpu_torch.", "nerrf_tpu.")
     ref = (ROOT / "nerrf_tpu" / rel).read_text()
     if rel == "flight/doctor.py":
-        assert ref.count(DOCTOR_REF_PROFILE) == 1
-        ref = ref.replace(DOCTOR_REF_PROFILE, DOCTOR_PORT_PROFILE)
+        for ref_text, port_text in DOCTOR_PROFILE:
+            assert ref.count(ref_text) == 1
+            ref = ref.replace(ref_text, port_text)
     assert port == ref
 
 
@@ -306,9 +319,92 @@ def test_manifest_environment_names_the_port(tmp_path):
 
 
 def test_profile_capture_is_refused_with_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
-        flight.FlightRecorder(flight.FlightConfig(out_dir=str(tmp_path),
-                                                  profile_on_p99_sec=1.0))
+    # the refusal is lifted with the device-time plane: the opt-in builds a
+    # recorder, and the reference's default (no capture) stays
+    rec = flight.FlightRecorder(flight.FlightConfig(out_dir=str(tmp_path),
+                                                    profile_on_p99_sec=1.0))
+    rec.close()
+    assert flight.FlightConfig().profile_on_p99_sec == \
+        jflight.FlightConfig().profile_on_p99_sec == 0.0
+
+
+def _breach_while_scoring(tmp_path, profile_sec):
+    """A p99 breach fired from a scorer thread that keeps scoring (a matmul
+    a batch) until the recorder has closed; returns the one bundle."""
+    import torch
+
+    reg = MetricsRegistry(namespace="t")
+    journal = flight.EventJournal(registry=reg)
+    rec = flight.FlightRecorder(
+        flight.FlightConfig(out_dir=str(tmp_path / "bundles"), p99_breach_sec=0.1,
+                            p99_min_count=4, min_interval_sec=300.0,
+                            profile_on_p99_sec=profile_sec),
+        registry=reg, journal=journal)
+    fired, done = threading.Event(), threading.Event()
+
+    def scorer():
+        a = torch.ones(16, 16)
+        for _ in range(6):
+            rec.observe_window("s0", "tid-1", 1.0)
+        fired.set()
+        while not done.wait(0.002):
+            torch.mm(a, a)
+
+    t = threading.Thread(target=scorer, name="scorer")
+    t.start()
+    try:
+        assert fired.wait(30.0)
+        rec.close()  # waits for the capture thread's bundle
+    finally:
+        done.set()
+        t.join(timeout=30.0)
+    assert not t.is_alive()
+    bundles = sorted((tmp_path / "bundles").glob("bundle-*"))
+    assert len(bundles) == 1 and bundles[0].name.endswith("p99_breach")
+    return bundles[0], journal
+
+
+def test_p99_bundle_embeds_a_torch_trace_of_the_scoring_thread(tmp_path):
+    path, journal = _breach_while_scoring(tmp_path, 0.3)
+    bundle = doctor.read_bundle(path)
+    assert bundle["missing"] == []
+    assert bundle["profile"]["files"] == 1 and bundle["profile"]["bytes"] > 0
+    man = bundle["manifest"]["profile"]
+    assert man["dir"] == "torch_trace" and man["seconds"] == 0.3
+    (trace,) = (path / "torch_trace").iterdir()
+    assert trace.name.endswith(".pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    # the scorer kept scoring while the profiler watched: its matmuls are in
+    assert any(e.get("name") == "aten::mm" for e in events)
+    kinds = [r.kind for r in bundle["records"]]
+    assert "profile_capture" in kinds and "profile_failed" not in kinds
+    report = doctor.format_report(bundle)
+    assert "profiler trace: 1 file(s)" in report
+    assert "bytes in torch_trace/ (0.3s capture on the breach)" in report
+
+
+def test_p99_bundle_without_optin_has_no_trace(tmp_path):
+    path, _ = _breach_while_scoring(tmp_path, 0.0)
+    assert not (path / "torch_trace").exists()
+    bundle = doctor.read_bundle(path)
+    assert bundle["profile"] is None and bundle["manifest"]["profile"] is None
+    assert "profiler trace:" not in doctor.format_report(bundle)
+
+
+def test_profile_capture_failure_still_ships_the_bundle(tmp_path):
+    import torch
+
+    # another torch.profiler session is active: a second one would stop it
+    # and record nothing, so the capture refuses to start
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        path, _ = _breach_while_scoring(tmp_path, 0.2)
+    bundle = doctor.read_bundle(path)
+    assert bundle["missing"] == [] and bundle["profile"] is None
+    assert "error" in bundle["manifest"]["profile"]
+    failed = [r for r in bundle["records"] if r.kind == "profile_failed"]
+    assert len(failed) == 1 and failed[0].data["phase"] == "start"
+    assert "already active" in failed[0].data["error"]
+    assert "profiler trace: profiler capture failed" in doctor.format_report(bundle)
 
 
 # -- the doctor ----------------------------------------------------------------------

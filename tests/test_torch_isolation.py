@@ -56,6 +56,9 @@ def test_importing_the_port_loads_no_jax_module():
         "import nerrf_tpu_torch.tracing, nerrf_tpu_torch.observability\n"
         "import nerrf_tpu_torch.flight, nerrf_tpu_torch.flight.doctor\n"
         "import nerrf_tpu_torch.learn, nerrf_tpu_torch.trainwatch\n"
+        "import nerrf_tpu_torch.devtime.costmodel, nerrf_tpu_torch.devtime.accounting\n"
+        "import nerrf_tpu_torch.devtime.capture, nerrf_tpu_torch.devtime.headroom\n"
+        "import nerrf_tpu_torch.bench.flops, nerrf_tpu_torch.bench.mfu\n"
         f"bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n")

@@ -60,10 +60,6 @@ BUCKET_A = (128, 256, 32)
 BUCKET_B = (256, 512, 64)
 # probabilities, port vs JAX package (as test_torch_pipeline.py)
 SCORE_ATOL = 1e-5
-# the reference's fields of the planes the port has not taken (ROADMAP A.6)
-NOT_PORTED_FIELDS = {"slo_aware_shedding",
-                     "shed_headroom_margin", "devtime_window_sec",
-                     "devtime_accounting"}
 PARITY_CFG = dict(buckets=(BUCKET_B,), batch_size=4, window_sec=15.0,
                   stride_sec=5.0)
 
@@ -121,7 +117,7 @@ def _fake_service(cfg, registry=None, score=None, start=True):
 def test_serve_config_defaults_match_reference():
     want = {f.name: f for f in dataclasses.fields(jconfig.ServeConfig)}
     got = {f.name: f for f in dataclasses.fields(config.ServeConfig)}
-    assert set(got) == set(want) - NOT_PORTED_FIELDS
+    assert set(got) == set(want)
     ref, port = jconfig.ServeConfig(), config.ServeConfig()
     for name in got:
         assert getattr(port, name) == getattr(ref, name), name
