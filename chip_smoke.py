@@ -242,6 +242,7 @@ timed in turns in one call; one JSON line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -6724,6 +6725,722 @@ def train_mfu_reading(steps_per_sec: float) -> dict:
                 intensity=DEFAULT_REGISTRY.value("device_roofline_intensity", labels=labels),
                 steps_per_sec=steps_per_sec)
 
+# --- the chaos plane and the ladder tuner (ROADMAP A.6) ----------------------------
+
+CHAOS_STREAMS = 3               # run_chaos_bench.py --smoke: 3 streams + the drain
+CHAOS_SIM_SECONDS = 25.0
+CHAOS_DEADLINE_SEC = 2.0
+CHAOS_SLO_X = 6                 # worst stream p99 within the deadline x 6
+CHAOS_POISON_STREAM, CHAOS_WIRE_STREAM = "s1", "w0"
+CHAOS_BURST = (3, 30.0)         # drop-burst trigger: records, seconds
+# the plane disarmed and armed with an empty plan, after one warm turn (on
+# the card the first replay after the baseline's connects read half the
+# others' windows/s)
+CHAOS_TURNS = ("warm", "off", "on", "off", "on")
+CHAOS_NAN_AT = 3                # the train.nonfinite_grad leg's armed step
+CHAOS_RECORD = os.path.join(ROOT, "benchmarks", "results", "chaos_bench_cpu.json")
+TUNE_RECORD = os.path.join(ROOT, "benchmarks", "results", "tune_bench_cpu.json")
+TUNE_STATIC = ((1024, 2048, 128), (4096, 8192, 256))   # run_tune_bench.py's
+TUNE_STREAMS, TUNE_SIM_SECONDS = 2, 30.0               # its --smoke
+TUNE_MAX_RUNGS = 3
+# the three-mode boot: one rung per mode, each with one stream landing on it
+TUNE_MODES = (((256, 512, 64), "dense_adj"), ((1024, 2048, 128), "segment"),
+              ((4096, 8192, 256), "fused"))
+
+
+def chaos_plan(wire_target: str):
+    """run_chaos_bench.py's ``build_plan`` (seed 42, the full run's 0.2 s
+    latency) less its ``compilecache.corrupt_payload`` spec, which waits
+    for the compile cache (ROADMAP A.7)."""
+    from nerrf_tpu_torch import chaos
+
+    return chaos.FaultPlan(seed=42, faults=(
+        chaos.FaultSpec(site="serve.poison_window", prob=0.4,
+                        match={"stream": CHAOS_POISON_STREAM}),
+        chaos.FaultSpec(site="ingest.wire_error", every=5,
+                        match={"target": wire_target}),
+        chaos.FaultSpec(site="serve.device_latency", mode="stall", every=4,
+                        delay_sec=0.2),
+        chaos.FaultSpec(site="alerts.slow_consumer", mode="stall", at=1,
+                        delay_sec=0.3),
+        chaos.FaultSpec(site="flight.disk_full", at=1, max_fires=1),
+    ))
+
+
+def match_recoveries(records) -> dict:
+    """run_chaos_bench.py's join of every injected fault to its recovery
+    record in the same journal, per site: the poison to a terminal
+    ``device_batch_failed`` of its trace ID, a wire error to a later
+    ``reconnect`` (the final session's may have none), the disk-full dump to
+    a later ``bundle``, a stall to any later progress record."""
+    by_kind: dict = {}
+    for r in records:
+        by_kind.setdefault(r.kind, []).append(r)
+    fault_recs = by_kind.get("fault_injected", [])
+
+    def later_progress(seq):
+        return any(r.seq > seq for k in ("batch_close", "readiness", "chaos_disarmed")
+                   for r in by_kind.get(k, []))
+
+    out = {}
+    for rec in fault_recs:
+        site = rec.data.get("site")
+        entry = out.setdefault(site, {"injected": 0, "recovered": 0, "unmatched": []})
+        entry["injected"] += 1
+        ok = False
+        if site == "serve.poison_window":
+            ok = any(d.trace_id == rec.trace_id
+                     for d in by_kind.get("device_batch_failed", []))
+        elif site == "ingest.wire_error":
+            ok = any(r.seq > rec.seq for r in by_kind.get("reconnect", []))
+        elif site == "flight.disk_full":
+            ok = any(r.seq > rec.seq for r in by_kind.get("bundle", []))
+        elif site in ("serve.device_latency", "alerts.slow_consumer",
+                      "ingest.wire_stall", "serve.device_error"):
+            ok = later_progress(rec.seq)
+        if ok:
+            entry["recovered"] += 1
+        else:
+            entry["unmatched"].append({"seq": rec.seq, "trace_id": rec.trace_id,
+                                       "stream": rec.stream})
+    wire = out.get("ingest.wire_error")
+    if wire and len(wire["unmatched"]) == 1 and wire["unmatched"][0]["seq"] == max(
+            (r.seq for r in fault_recs if r.data.get("site") == "ingest.wire_error"),
+            default=-1):
+        wire["recovered"] += 1
+        wire["final_session_allowance"] = wire["unmatched"].pop()
+    out["all_recovered"] = all(v["recovered"] >= v["injected"]
+                               for v in out.values() if isinstance(v, dict))
+    return out
+
+
+def drop_bursts(records, n: int, window_sec: float) -> int:
+    """run_chaos_bench.py's count of distinct drop bursts (at least ``n``
+    loss records inside a sliding window of ``window_sec``)."""
+    from nerrf_tpu_torch.flight.recorder import DROP_KINDS
+
+    times = sorted(r.t_perf for r in records if r.kind in DROP_KINDS)
+    bursts, i, last_end = 0, 0, None
+    for j in range(len(times)):
+        while times[j] - times[i] > window_sec:
+            i += 1
+        if j - i + 1 >= n:
+            if last_end is None or times[i] > last_end:
+                bursts += 1
+            last_end = times[j]
+    return bursts
+
+
+def forward_launches(mode: str, num_layers: int) -> dict:
+    """Kernel launches of one forward of a batch in ``mode``, derived from the
+    model.  ``fused``: :func:`fused_forward_launches`.  ``dense_adj``: the same
+    precompute (four sums) and the dense adjacency's run sums (one more
+    ``segment_sum_sorted``), each layer one matmul and no kernel, the fusion
+    and the edge head as ``fused``.  ``segment``: per layer 2 ``gather_rows``
+    and 2 weighted banded segment means (2 ``segment_sum_sorted`` each), the
+    edge head's 2 ``gather_rows``, the fusion's ``segment_sum``, no
+    precompute (:func:`train_launches`'s forward)."""
+    if mode == "fused":
+        return fused_forward_launches(num_layers)
+    if mode == "dense_adj":
+        return {"sage_aggregate": 0, "gather_rows": 2, "segment_sum": 3,
+                "segment_sum_sorted": 3, "gather_rows_sorted": 0}
+    return train_launches(num_layers, 0, 1)
+
+
+@contextlib.contextmanager
+def forwards_recorded():
+    """Every serve forward's node rung and kernel launches while the block
+    runs, as [(nodes, launches)]: ``OnlineDetectionService._run_eval`` wrapped
+    on the class, so services the CLI builds are counted too (one thread
+    launches at a time: ``start()``'s warmup, then the scorer)."""
+    from nerrf_tpu_torch.ops import LAUNCHES
+    from nerrf_tpu_torch.serve import OnlineDetectionService
+
+    real, seen = OnlineDetectionService._run_eval, []
+
+    def counted(self, eval_fn, batch):
+        before = dict(LAUNCHES)
+        out = real(self, eval_fn, batch)
+        seen.append((int(batch["node_mask"].shape[1]),
+                     {k: LAUNCHES[k] - before[k] for k in LAUNCHES}))
+        return out
+
+    OnlineDetectionService._run_eval = counted
+    try:
+        yield seen
+    finally:
+        OnlineDetectionService._run_eval = real
+
+
+def _chaos_traces():
+    """run_chaos_bench.py's streams at its --smoke size: CHAOS_STREAMS of
+    CHAOS_SIM_SECONDS (attack on the even ones, 4 files, 6 Hz) and the
+    resident drain's half-length benign trace."""
+    from nerrf_tpu_torch.data import SimConfig, simulate_trace
+
+    traces = {f"s{i}": simulate_trace(SimConfig(
+        duration_sec=CHAOS_SIM_SECONDS, attack=(i % 2 == 0),
+        attack_start_sec=CHAOS_SIM_SECONDS / 3, num_target_files=4,
+        benign_rate_hz=6.0, seed=2000 + 131 * i)) for i in range(CHAOS_STREAMS)}
+    wire = simulate_trace(SimConfig(duration_sec=CHAOS_SIM_SECONDS / 2, attack=False,
+                                    benign_rate_hz=6.0, seed=9999))
+    return traces, wire
+
+
+def _chaos_accounting(records, ctl, reg, tag) -> dict:
+    """The faulted leg's figures and its launch gate: the scoring attempts
+    (each closed batch once, each bisection's two halves, each confirm
+    re-run of an isolated window: the ``device_batch_failed`` records marked
+    poison) less the failed ones (``batch_failed``: every fault in the plan
+    raises before the forward) are the forwards that ran."""
+    kinds = {}
+    for r in records:
+        kinds.setdefault(r.kind, []).append(r)
+    n = {k: len(kinds.get(k, [])) for k in ("batch_close", "batch_bisect",
+                                             "batch_failed", "device_batch_failed")}
+    confirms = sum(1 for r in kinds.get("device_batch_failed", [])
+                   if r.data.get("poison"))
+    attempts = n["batch_close"] + 2 * n["batch_bisect"] + confirms
+    forwards = attempts - n["batch_failed"]
+    fired = {}
+    for site, _, _ in ctl.fired:
+        fired[site] = fired.get(site, 0) + 1
+    return dict(counts=n, confirms=confirms, attempts=attempts, forwards=forwards,
+                faults_injected=fired,
+                poisoned=sorted({k for s, k, _ in ctl.fired
+                                 if s == "serve.poison_window"}),
+                isolated=sorted({r.trace_id for r in kinds.get("device_batch_failed", [])}),
+                foreign_failed=sorted({r.stream for r in kinds.get("device_batch_failed", [])
+                                       if r.stream != CHAOS_POISON_STREAM}),
+                bisections=int(reg.value("serve_poison_bisections_total",
+                                         labels={"bucket": tag})),
+                reconnects=int(reg.value("serve_reconnects_total",
+                                         labels={"stream": CHAOS_WIRE_STREAM})),
+                recompiles=int(reg.value("serve_recompiles_total", labels={"bucket": tag})))
+
+
+def _worst_p99(svc):
+    per = (svc.slo.snapshot().get("per_stream") or {}).values()
+    return max((s["p99_ms"] for s in per if s.get("p99_ms") is not None), default=None)
+
+
+def run_chaos_path(ds, cfg) -> dict:
+    """run_chaos_bench.py's --smoke on the card, less the compile-cache leg
+    (A.7): the full-width seeded model at the serve rung, CHAOS_STREAMS
+    streams over the wire and a resident (follow-mode) drain, first
+    unfaulted (the p99 of reference, then the plane disarmed and armed with
+    an empty plan in turns), then under the seeded plan with a flight
+    recorder; every survival gate of the reference's ``gates()`` but its
+    zero-recompile one, which the launch gate replaces; then the
+    ``train.nonfinite_grad`` leg (:func:`run_nonfinite_leg`)."""
+    import tempfile
+
+    from nerrf_tpu_torch import chaos
+    from nerrf_tpu_torch.data import Trace
+    from nerrf_tpu_torch.flight import FlightConfig, FlightRecorder
+    from nerrf_tpu_torch.flight.journal import EventJournal
+    from nerrf_tpu_torch.ingest.service import TraceReplayServer, TrackerClient
+    from nerrf_tpu_torch.models import JointConfig, build_nerrfnet
+    from nerrf_tpu_torch.observability import MetricsRegistry
+    from nerrf_tpu_torch.pipeline import model_detect
+    from nerrf_tpu_torch.serve import ServeConfig, bucket_tag
+
+    t_phase = time.perf_counter()
+    model_cfg = JointConfig()
+    L = model_cfg.gnn.num_layers
+    model = build_nerrfnet(model_cfg, seed=0, device="cuda")
+    bucket = (MAIN_N, MAIN_E, SEQ_S)
+    tag = bucket_tag(bucket)
+    per_forward = fused_forward_launches(L)
+    cfg_serve = ServeConfig(
+        buckets=(bucket,), batch_size=SERVE_BATCH, batch_close_sec=0.25,
+        window_sec=15.0, stride_sec=5.0, stream_queue_slots=512,
+        alert_queue_slots=2, window_deadline_sec=CHAOS_DEADLINE_SEC,
+        bisect_failed_batches=True, quarantine_strikes=16, scorer_wedge_sec=60.0)
+    traces, wire_tr = _chaos_traces()
+    servers = {sid: TraceReplayServer(tr.events, tr.strings, batch_size=64)
+               for sid, tr in traces.items()}
+    servers[CHAOS_WIRE_STREAM] = TraceReplayServer(wire_tr.events, wire_tr.strings,
+                                                   batch_size=32)
+    targets = {sid: f"127.0.0.1:{srv.start()}" for sid, srv in servers.items()}
+    flight_dir = tempfile.mkdtemp(prefix="nerrf-chaos-flight-")
+    if chaos.armed():
+        _fail("chaos: a plan is armed before the chaos phase")
+    try:
+        # -- unfaulted: the baseline p99, then disarmed / empty plan in turns
+        base_reg = MetricsRegistry(namespace="chaosbase")
+        base = _counting_service()(model, cfg_serve, registry=base_reg,
+                                   journal=EventJournal(capacity=8192, registry=base_reg),
+                                   device="cuda")
+        base.start()
+        runs = [base.connect(sid, targets[sid], timeout=300.0) for sid in traces]
+        for r in runs:
+            r.done.wait(timeout=600.0)
+        if any(r.error for r in runs):
+            _fail(f"chaos baseline: stream errors {[repr(r.error) for r in runs]}")
+        baseline_p99 = _worst_p99(base)
+        turns = []
+        for i, turn in enumerate(CHAOS_TURNS):
+            before = _counter_total(base_reg, "serve_windows_scored_total")
+            if turn == "on":
+                chaos.arm(chaos.FaultPlan(seed=0, faults=()), registry=base_reg)
+            try:
+                _, wall = replay(base, traces, suffix=f"-{i}")
+            finally:
+                chaos.disarm()
+            windows = _counter_total(base_reg, "serve_windows_scored_total") - before
+            turns.append({"turn": turn, "windows": int(windows), "wall_s": wall,
+                          "windows_per_s": windows / wall})
+        base.stop()
+        turns = turns[1:]
+        if any(b != per_forward for b in base.batch_launches):
+            _fail(f"chaos baseline: launches per forward {base.batch_launches} != "
+                  f"{per_forward} (disarmed and empty-plan turns)")
+        print(f"chaos baseline ({len(traces)} streams at {tag}, unfaulted): worst "
+              f"p99 {baseline_p99} ms; windows/s disarmed / armed with an empty "
+              f"plan in turns {json.dumps(turns)}; {len(base.batch_launches)} "
+              f"forwards, each {per_forward}")
+
+        # -- the faulted leg
+        reg = MetricsRegistry(namespace="chaosbench")
+        journal = EventJournal(capacity=16384, registry=reg)
+        svc = _counting_service()(model, cfg_serve, registry=reg, journal=journal,
+                                  device="cuda")
+        svc.start()
+        recorder = FlightRecorder(
+            FlightConfig(out_dir=flight_dir, p99_breach_sec=None,
+                         drop_burst_n=CHAOS_BURST[0], drop_burst_sec=CHAOS_BURST[1],
+                         min_interval_sec=300.0),
+            registry=reg, journal=journal, slo=svc.slo, info=svc.flight_info)
+        svc.attach_flight(recorder)
+        plan = chaos_plan(targets[CHAOS_WIRE_STREAM])
+        _sync()
+        ctl = chaos.arm(plan, registry=reg, journal=journal)
+        t0 = time.perf_counter()
+        try:
+            runs = {sid: svc.connect(sid, targets[sid], timeout=300.0) for sid in traces}
+            wire_run = svc.connect(CHAOS_WIRE_STREAM, targets[CHAOS_WIRE_STREAM],
+                                   timeout=300.0, follow=True, reconnect_sec=0.05,
+                                   reconnect_max_sec=1.0)
+            for r in runs.values():
+                r.done.wait(timeout=600.0)
+            # the operator console drains the alert sink once, slowly
+            drained = len(svc.sink.drain())
+            svc.stop(drain=True)
+            wire_run.done.wait(timeout=60.0)
+        finally:
+            chaos.disarm()
+            recorder.close()
+            svc.stop(drain=False)
+        wall = time.perf_counter() - t0
+        records = journal.tail()
+        acc = _chaos_accounting(records, ctl, reg, tag)
+        recoveries = match_recoveries(records)
+        bursts = drop_bursts(records, *CHAOS_BURST)
+        bundles = sorted(p for p in os.listdir(flight_dir)
+                         if p.startswith("bundle-") and not p.endswith(".tmp"))
+        worst = _worst_p99(svc)
+        errors = {sid: repr(r.error) for sid, r in runs.items() if r.error}
+        forwards_run = svc.batch_launches[1:]
+
+        # parity of an unfaulted stream with model_detect, on the wire's events
+        ref_events, ref_strings = TrackerClient(targets["s0"]).stream(timeout=60.0)
+        offline = model_detect(Trace(events=ref_events, strings=ref_strings,
+                                     ground_truth=None, labels=None, name="s0"),
+                               model, ds_cfg=cfg_serve.dataset_config(bucket),
+                               auto_capacity=False, batch_size=SERVE_BATCH,
+                               device="cuda")
+        served = runs["s0"].result
+        fields = ("file_scores", "file_window_scores", "proc_scores", "threshold")
+        parity = served is not None and all(
+            getattr(served, f) == getattr(offline, f) for f in fields)
+    finally:
+        for srv in servers.values():
+            srv.stop()
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    limit_ms = CHAOS_DEADLINE_SEC * CHAOS_SLO_X * 1e3
+    gates = {
+        "no_crash": not errors,
+        "windows_scored": _counter_total(reg, "serve_windows_scored_total") > 0,
+        "poison_injected": bool(acc["poisoned"]),
+        "bisection_isolated_exactly_injected": acc["isolated"] == acc["poisoned"],
+        "unfaulted_streams_lost_nothing": acc["foreign_failed"] == [],
+        "unfaulted_parity_bit_identical": parity,
+        "slo_bounded": worst is not None and worst <= limit_ms,
+        "reconnects_happened": acc["reconnects"] > 0,
+        "bundle_per_drop_burst": bursts > 0 and len(bundles) >= 1,
+        "disk_full_survived": acc["faults_injected"].get("flight.disk_full", 0) == 1
+        and len(bundles) >= 1,
+        "all_faults_recovered": recoveries["all_recovered"],
+        "zero_unwarmed_shapes": acc["recompiles"] == 0,
+        "launch_gate": len(forwards_run) == acc["forwards"]
+        and all(b == per_forward for b in forwards_run),
+        "every_failed_attempt_injected": acc["counts"]["batch_failed"]
+        == acc["faults_injected"].get("serve.poison_window", 0),
+    }
+    with open(CHAOS_RECORD) as f:
+        record = json.load(f)
+    out = dict(
+        streams=len(traces) + 1, wall_s=wall, drained_alerts=drained,
+        faults_injected=acc["faults_injected"],
+        recoveries={k: v for k, v in recoveries.items() if k != "all_recovered"},
+        bisections=acc["bisections"], isolated=len(acc["isolated"]),
+        reconnects=acc["reconnects"], bundles=bundles, drop_bursts=bursts,
+        slo={"worst_stream_p99_ms": worst, "baseline_unfaulted_p99_ms": baseline_p99,
+             "degradation_x": (round(worst / baseline_p99, 2)
+                               if worst and baseline_p99 else None),
+             "limit_ms": limit_ms},
+        forwards=acc["forwards"], attempts=acc["attempts"], counts=acc["counts"],
+        launches={k: sum(b[k] for b in forwards_run) for k in per_forward},
+        turns=turns, gates=gates,
+        record={k: record[k] for k in ("faults_injected", "reconnects")}
+        | {"bisections": record["bisection"]["bisections"],
+           "degradation_x": record["slo"]["degradation_x"]})
+    print(f"chaos leg ({len(traces)} streams + the resident drain at {tag}, "
+          f"{wall:.1f} s): faults injected {json.dumps(acc['faults_injected'])}, "
+          f"recoveries {json.dumps(out['recoveries'])}; {acc['bisections']} "
+          f"bisections isolated {len(acc['isolated'])} windows (injected "
+          f"{len(acc['poisoned'])}); {acc['reconnects']} reconnects; bundles "
+          f"{bundles} for {bursts} drop bursts; worst p99 {worst} ms against the "
+          f"unfaulted {baseline_p99} ms (limit {limit_ms:.0f}); forwards "
+          f"{acc['forwards']} = attempts {acc['attempts']} ({json.dumps(acc['counts'])}, "
+          f"{acc['confirms']} confirms) less failed, each {per_forward}; beside the "
+          f"record {json.dumps(out['record'])}; gates {json.dumps(gates)}")
+    bad = [k for k, ok in gates.items() if not ok]
+    if bad:
+        _fail(f"chaos leg: gates {bad} failed: {json.dumps(out, default=str)}")
+    out["nonfinite"] = run_nonfinite_leg(ds, cfg)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def run_nonfinite_leg(ds, cfg) -> dict:
+    """``train.nonfinite_grad`` on the card: armed at step CHAOS_NAN_AT of a
+    streamed ``fused`` ``train_nerrfnet`` of the training rung with a
+    ``TrainHealthMonitor`` and a flight recorder: one ``train_divergence``
+    bundle, the halt at that step, the metrics empty, and the steps run x
+    :func:`step_launches` (no evaluation after a halt)."""
+    import dataclasses
+    import tempfile
+
+    from nerrf_tpu_torch import chaos
+    from nerrf_tpu_torch.flight import FlightConfig, FlightRecorder
+    from nerrf_tpu_torch.ops import LAUNCHES
+    from nerrf_tpu_torch.train.loop import train_nerrfnet
+    from nerrf_tpu_torch.trainwatch import TrainHealthMonitor
+
+    fused = dataclasses.replace(cfg.model, gnn=dataclasses.replace(
+        cfg.model.gnn, aggregation="fused"))
+    ncfg = dataclasses.replace(cfg, model=fused, num_steps=NAN_STEPS, eval_every=1,
+                               telemetry=True)
+    out_dir = tempfile.mkdtemp(prefix="nerrf-chaos-nan-")
+    logs = []
+    monitor = TrainHealthMonitor(log=logs.append)
+    recorder = FlightRecorder(FlightConfig(out_dir=out_dir, p99_breach_sec=None))
+    monitor.attach_flight(recorder)
+    prev = os.environ.get("NERRF_RESIDENT_MAX_BYTES")
+    os.environ["NERRF_RESIDENT_MAX_BYTES"] = "0"   # the streamed flavor
+    try:
+        ctl = chaos.arm(chaos.FaultPlan(seed=0, faults=(chaos.FaultSpec(
+            site="train.nonfinite_grad", mode="corrupt",
+            match={"step": CHAOS_NAN_AT}),)))
+        _reset_counts()
+        res = train_nerrfnet(ds, cfg=ncfg, device="cuda", monitor=monitor,
+                             log=logs.append)
+        _sync()
+        launches = {k: LAUNCHES[k] for k in LAUNCHES}
+    finally:
+        chaos.disarm()
+        recorder.close()
+        if prev is None:
+            os.environ.pop("NERRF_RESIDENT_MAX_BYTES", None)
+        else:
+            os.environ["NERRF_RESIDENT_MAX_BYTES"] = prev
+    bundles = sorted(os.listdir(out_dir))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps = len(res.history)
+    want = {k: (CHAOS_NAN_AT + 1) * v
+            for k, v in step_launches("fused", fused.gnn.num_layers).items()}
+    print(f"chaos train.nonfinite_grad: armed at step {CHAOS_NAN_AT}, fired "
+          f"{[(s, k) for s, k, _ in ctl.fired]}; halted after {steps} steps "
+          f"({monitor.diverged}); bundles {bundles}; launches {launches} (derived "
+          f"{want})")
+    if ([h["step"] for h in res.history] != list(range(CHAOS_NAN_AT + 1))
+            or res.metrics != {} or monitor.diverged is None
+            or monitor.diverged[0] != CHAOS_NAN_AT or len(bundles) != 1
+            or not bundles[0].endswith("train_divergence") or launches != want
+            or len(ctl.fired) != 1):
+        _fail(f"chaos train.nonfinite_grad: history {res.history}, metrics "
+              f"{res.metrics}, diverged {monitor.diverged}, bundles {bundles}, "
+              f"launches {launches} != {want}, fired {ctl.fired}")
+    return dict(step=CHAOS_NAN_AT, steps=steps, bundles=bundles, launches=launches)
+
+
+def _tune_mix():
+    """run_tune_bench.py's skewed mix at its --smoke size: TUNE_STREAMS small
+    streams (4-24 Hz, 3-11 files), and its parity stream (1.5 Hz, 3 files)."""
+    from nerrf_tpu_torch.data import SimConfig, simulate_trace
+
+    mix = {f"p{i}": simulate_trace(SimConfig(
+        duration_sec=TUNE_SIM_SECONDS, attack=(i % 2 == 0),
+        attack_start_sec=TUNE_SIM_SECONDS / 3, num_target_files=3 + 4 * (i % 3),
+        benign_rate_hz=4.0 + 10.0 * (i % 3), seed=2000 + 131 * i))
+        for i in range(TUNE_STREAMS)}
+    parity = simulate_trace(SimConfig(duration_sec=min(TUNE_SIM_SECONDS, 45.0),
+                                      attack=False, num_target_files=3,
+                                      benign_rate_hz=1.5, seed=7))
+    return mix, parity
+
+
+def _stream_on_rung(rung, ladder, cfg, tried: list):
+    """A simulated stream every window of which serve's admission puts on
+    ``rung`` of ``ladder`` (:func:`rungs_of`), from a fixed list of rates
+    and file counts, so a served stream's windows share model_detect's
+    bucket."""
+    from nerrf_tpu_torch.data import SimConfig, simulate_trace
+    from nerrf_tpu_torch.serve import ServeConfig, bucket_tag
+
+    for rate, files in ((1.5, 3), (6.0, 4), (20.0, 8), (40.0, 12), (80.0, 16),
+                        (120.0, 24), (200.0, 48), (300.0, 48), (450.0, 48)):
+        tr = simulate_trace(SimConfig(duration_sec=TUNE_SIM_SECONDS, attack=False,
+                                      num_target_files=files, benign_rate_hz=rate,
+                                      seed=11))
+        got = rungs_of(tr, ServeConfig(buckets=ladder, window_sec=cfg.window_sec,
+                                       stride_sec=cfg.stride_sec))
+        tried.append((rate, files, {bucket_tag(b) if b else None: n
+                                    for b, n in got.items()}))
+        if set(got) == {tuple(rung)}:
+            return tr
+    return None
+
+
+def _served_equals_model_detect(out_dir, stream_file, model, ds_cfg, threshold):
+    """The CLI's detection of ``stream_file`` (``serve-detect --out``) against
+    ``model_detect`` of the same file at ``ds_cfg``: file and process scores
+    and the threshold, bit for bit."""
+    from nerrf_tpu_torch.data.loaders import load_trace_jsonl
+    from nerrf_tpu_torch.pipeline import model_detect
+
+    want = model_detect(load_trace_jsonl(stream_file), model, ds_cfg=ds_cfg,
+                        auto_capacity=False, batch_size=SERVE_BATCH,
+                        threshold=threshold, device="cuda")
+    [got] = [json.loads(p.read_text()) for p in out_dir.glob("detect_*.json")
+             if p.stem.endswith(stream_file.stem)]
+    return (got["file_scores"] == want.file_scores
+            and got["proc_scores"] == {str(k): v for k, v in want.proc_scores.items()}
+            and got["threshold"] == want.threshold)
+
+
+def _routed_model(model_dir, art):
+    """The checkpoint under ``art``'s routing, as ``serve-detect --tuned``
+    builds it."""
+    import torch
+
+    from nerrf_tpu_torch import cli
+    from nerrf_tpu_torch.models import NerrfNet
+    from nerrf_tpu_torch.tune import apply_to_model_config
+
+    base = cli._load_model(model_dir, torch.device("cuda"))
+    with torch.device("cuda"):
+        routed = NerrfNet(apply_to_model_config(art, base.cfg))
+    routed.load_state_dict(base.state_dict(), strict=True)
+    return routed.eval()
+
+
+def _gate_forwards(what, seen, model_cfg, ladder) -> dict:
+    """Every recorded forward launched its routed mode's derived counts, and
+    the warmup ran one forward a rung of ``ladder``; returns {rung nodes:
+    forwards}."""
+    by = {}
+    for nodes, got in seen:
+        mode = model_cfg.gnn.resolved_aggregation(nodes)
+        want = forward_launches(mode, model_cfg.gnn.num_layers)
+        if got != want:
+            _fail(f"{what}: a forward at {nodes} nodes ({mode}) launched {got} != {want}")
+        by[nodes] = by.get(nodes, 0) + 1
+    if sorted(n for n, _ in seen[:len(ladder)]) != sorted(b[0] for b in ladder):
+        _fail(f"{what}: warmup forwards at {[n for n, _ in seen]} for rungs {ladder}")
+    return by
+
+
+def run_tune_path(model_dir: str) -> dict:
+    """run_tune_bench.py --smoke through the port's command line on the card:
+    measure (serve-detect on the coarse static ladder with --archive-dir),
+    fit (archive export --tune, tune --model-dir, no kernel bench), re-serve
+    (serve-detect --tuned, every tuned rung warmed, the parity stream bit-equal
+    to model_detect under the tuned routing), and the three-mode boot (a fixed
+    artifact routing 256 / 1024 / 4096 nodes to dense_adj / segment / fused, one
+    stream a rung, each bit-equal to model_detect at its rung).  Every forward's
+    launches are derived from its routed mode and gated."""
+    import pathlib
+    import tempfile
+
+    from nerrf_tpu_torch.devtime import serve_program_costs
+    from nerrf_tpu_torch.schema.events import events_to_jsonl
+    from nerrf_tpu_torch.serve import ServeConfig, bucket_tag
+    from nerrf_tpu_torch.train.checkpoint import load_calibration, load_checkpoint
+    from nerrf_tpu_torch.tune import build_artifact, load_artifact, save_artifact, tune
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="nerrf-tune-"))
+    _, model_cfg = load_checkpoint(model_dir)
+    threshold = load_calibration(model_dir).get("node_threshold")
+    L = model_cfg.gnn.num_layers
+    mix, parity_tr = _tune_mix()
+    files = {}
+    for sid, tr in {**mix, "parity": parity_tr}.items():
+        files[sid] = root / f"{sid}.jsonl"
+        files[sid].write_text(events_to_jsonl(tr.events, tr.strings))
+    try:
+        # 1. measure: the skewed mix on the coarse static ladder, archived
+        with forwards_recorded() as seen:
+            rc, out, log = _cli_run(
+                "serve-detect", "--model-dir", model_dir,
+                *[a for sid in mix for a in ("--trace", files[sid])],
+                "--buckets", *["x".join(map(str, b)) for b in TUNE_STATIC],
+                "--batch-size", SERVE_BATCH, "--close-ms", 100, "--deadline-sec", 5,
+                "--metrics-port", -1, "--archive-dir", root / "archive")
+        if rc != 0 or not json.loads(out)["windows_scored"]:
+            _fail(f"tune measure: serve-detect exit {rc}: {out[-2000:]} {log[-2000:]}")
+        measured = _gate_forwards("tune measure", seen, model_cfg, TUNE_STATIC)
+        # 2. fit: the corpus, then the tool, no kernel bench
+        rc, _, log = _cli_run("archive", "export", root / "archive", "--tune",
+                              "--out", root / "corpus.json")
+        if rc != 0:
+            _fail(f"tune: archive export --tune exit {rc}: {log[-2000:]}")
+        corpus = json.loads((root / "corpus.json").read_text())
+        t0 = time.perf_counter()
+        rc, _, log = _cli_run("tune", root / "corpus.json", "--model-dir", model_dir,
+                              "--max-rungs", TUNE_MAX_RUNGS, "--out", root / "tuned.json")
+        fit_s = time.perf_counter() - t0
+        if rc != 0:
+            _fail(f"tune: exit {rc}: {log[-2000:]}")
+        art = load_artifact(root / "tuned.json")
+        # the same fit against the coarse static ladder it measured (the
+        # reference bench's comparison; the analytic surface is memoized)
+        import torch
+
+        from nerrf_tpu_torch.models import NerrfNet
+
+        with torch.device("meta"):
+            analytic = {t: c.flops for t, c in serve_program_costs(
+                NerrfNet(model_cfg), ServeConfig()).items()}
+        vs_static = tune(corpus, model_cfg=model_cfg, analytic=analytic,
+                         max_rungs=TUNE_MAX_RUNGS, static_buckets=TUNE_STATIC)
+        exp, exp_s = art["expected"], vs_static["expected"]
+        if not (exp_s["tuned_device_seconds_per_window"]
+                < exp_s["static_device_seconds_per_window"]) \
+                or exp["improvement"] < 0:
+            _fail(f"tune: the tuned ladder does not beat the static one: {exp_s}, "
+                  f"against the default ladder {exp}")
+        # 3. re-serve on the tool's artifact
+        tuned = tuple(tuple(b) for b in art["buckets"])
+        routed = _routed_model(model_dir, art)
+        cfg_t = ServeConfig(buckets=tuned)
+        # the parity stream: the first whose windows all land on one tuned
+        # rung (model_detect pads every window to one bucket)
+        landing = {sid: rungs_of(tr, cfg_t) for sid, tr in
+                   (("parity", parity_tr), *mix.items())}
+        single = [sid for sid, got in landing.items()
+                  if len(got) == 1 and None not in got]
+        if not single:
+            _fail(f"tune re-serve: no stream lands on one tuned rung: {landing}")
+        parity_sid = single[0]
+        [parity_rung] = landing[parity_sid]
+        serve_sids = ["p0"] + ([parity_sid] if parity_sid != "p0" else [])
+        with forwards_recorded() as seen:
+            rc, out, log = _cli_run(
+                "serve-detect", "--model-dir", model_dir, "--tuned", root / "tuned.json",
+                *[a for sid in serve_sids for a in ("--trace", files[sid])],
+                "--batch-size", SERVE_BATCH, "--metrics-port", -1,
+                "--out", root / "reserve")
+        if rc != 0 or not json.loads(out)["windows_scored"]:
+            _fail(f"tune re-serve: serve-detect exit {rc}: {out[-2000:]} {log[-2000:]}")
+        reserved = _gate_forwards("tune re-serve", seen, routed.cfg, tuned)
+        if not _served_equals_model_detect(root / "reserve", files[parity_sid], routed,
+                                           cfg_t.dataset_config(parity_rung), threshold):
+            _fail(f"tune re-serve: stream {parity_sid} differs from model_detect")
+        # 4. the three-mode boot
+        ladder = tuple(b for b, _ in TUNE_MODES)
+        art3 = build_artifact(ladder, tuple((b[0], m) for b, m in TUNE_MODES), {}, {})
+        save_artifact(root / "modes.json", art3)
+        routed3 = _routed_model(model_dir, art3)
+        cfg3 = ServeConfig(buckets=ladder)
+        tried, streams = [], {}
+        for rung, mode in TUNE_MODES:
+            tr = _stream_on_rung(rung, ladder, cfg3, tried)
+            if tr is None:
+                _fail(f"tune three-mode boot: no stream lands on {bucket_tag(rung)} "
+                      f"alone: {tried}")
+            streams[mode] = root / f"mode-{mode}.jsonl"
+            streams[mode].write_text(events_to_jsonl(tr.events, tr.strings))
+        with forwards_recorded() as seen:
+            rc, out, log = _cli_run(
+                "serve-detect", "--model-dir", model_dir, "--tuned", root / "modes.json",
+                *[a for f in streams.values() for a in ("--trace", f)],
+                "--batch-size", SERVE_BATCH, "--metrics-port", -1,
+                "--out", root / "modes")
+        if rc != 0:
+            _fail(f"tune three-mode boot: serve-detect exit {rc}: {log[-2000:]}")
+        modes = _gate_forwards("tune three-mode boot", seen, routed3.cfg, ladder)
+        if sorted(modes) != sorted(b[0] for b in ladder) or any(
+                modes[b[0]] < 2 for b in ladder):
+            _fail(f"tune three-mode boot: forwards by rung {modes}")
+        for rung, mode in TUNE_MODES:
+            if not _served_equals_model_detect(root / "modes", streams[mode], routed3,
+                                               cfg3.dataset_config(rung), threshold):
+                _fail(f"tune three-mode boot: the {mode} stream differs from "
+                      f"model_detect at {bucket_tag(rung)}")
+        # the rung gate's verdict on every rung that launched here
+        from nerrf_tpu_torch.graph.builder import NODE_FEATURE_DIM
+        from nerrf_tpu_torch.ops.kernels import rung_limits
+
+        width = max(model_cfg.gnn.hidden, NODE_FEATURE_DIM)
+        refused = {bucket_tag(b): rung_limits(b[0], b[1], width, SERVE_BATCH)
+                   for b in {*TUNE_STATIC, *tuned, *ladder}}
+        refused = {t: v["refusals"] for t, v in refused.items() if not v["ok"]}
+        if refused:
+            _fail(f"tune: the rung gate refuses rungs that launched: {refused}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    with open(TUNE_RECORD) as f:
+        record = json.load(f)
+    per_rung = {tag: {k: row.get(k) for k in ("windows", "batches",
+                                             "device_seconds_mean",
+                                             "device_seconds_p99")}
+                for tag, row in (corpus.get("bucket_cost") or {}).items()}
+    out = dict(
+        seconds=time.perf_counter() - t_phase, fit_s=fit_s,
+        windows_measured=corpus.get("windows_observed"), bucket_cost=per_rung,
+        fit={k: art["fit"][k] for k in ("alpha", "beta", "dense_gamma",
+                                        "analytic_alpha", "measured_points",
+                                        "demand_points", "candidates_scored")},
+        tuned_ladder=[bucket_tag(b) for b in tuned], routing=art["routing"],
+        expected=exp, vs_static={"static_ladder": [bucket_tag(b) for b in TUNE_STATIC],
+                                 "tuned_ladder": vs_static["buckets"],
+                                 "routing": vs_static["routing"], "expected": exp_s},
+        forwards={"measure": measured, "reserve": reserved, "modes": modes},
+        parity=(parity_sid, bucket_tag(parity_rung)),
+        mode_launches={m: forward_launches(m, L) for _, m in TUNE_MODES},
+        record={k: record[k] for k in ("static_ladder", "tuned_ladder", "routing",
+                                       "expected")} | {"fit": {
+                                           k: record["fit"][k] for k in (
+                                               "alpha", "beta", "dense_gamma")}})
+    print(f"tune leg ({out['seconds']:.1f} s): measured {out['windows_measured']} "
+          f"windows on {[bucket_tag(b) for b in TUNE_STATIC]}, device seconds by "
+          f"rung {json.dumps(per_rung)}; fit {json.dumps(out['fit'])} in {fit_s:.1f} s; "
+          f"tuned ladder {out['tuned_ladder']} routing {art['routing']}, expected "
+          f"{json.dumps(exp)} against the default ladder, {json.dumps(exp_s)} against "
+          f"the static one (tuned {vs_static['buckets']}, routing "
+          f"{vs_static['routing']}); forwards by rung {json.dumps(out['forwards'])}, "
+          f"launches a forward by mode {json.dumps(out['mode_launches'])}; {parity_sid} "
+          f"at {out['parity'][1]} and each mode's stream on its rung bit-equal to "
+          f"model_detect; beside the record "
+          f"{json.dumps(out['record'])}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6857,6 +7574,30 @@ def main() -> int:
             k: lifecycle[k] for k in ("seconds", "profile", "score_ms", "decisions",
                                       "archive", "launches")}}))
         return 0
+    if sys.argv[1:2] in (["--chaos"], ["--tune"]):
+        # only the chaos phase (the training rung's dataset for its
+        # train.nonfinite_grad leg) or the tune phase (on a seeded
+        # full-width checkpoint)
+        import tempfile
+
+        from nerrf_tpu_torch.models import JointConfig, build_nerrfnet
+        from nerrf_tpu_torch.train.checkpoint import save_checkpoint
+
+        kernels.build()
+        if sys.argv[1] == "--chaos":
+            _, ds, cfg = train_rung()
+            res = run_chaos_path(ds, cfg)
+        else:
+            model_dir = tempfile.mkdtemp(prefix="nerrf-tune-model-")
+            try:
+                model = build_nerrfnet(JointConfig(), seed=0, device="cuda")
+                save_checkpoint(model_dir, model.state_dict(), model.cfg)
+                del model
+                res = run_tune_path(model_dir)
+            finally:
+                shutil.rmtree(model_dir, ignore_errors=True)
+        print(json.dumps({"card": smi, sys.argv[1][2:]: res}, default=str))
+        return 0
     if sys.argv[1:2] == ["--stream-probe"]:
         kernels.build()
         keep = ("init_seed", "event_auc", "event_f1_at_threshold",
@@ -6920,6 +7661,8 @@ def main() -> int:
             lifecycle = P("lifecycle", run_lifecycle_path, experiment["model_dir"])
             learn = P("learn", run_learn_path, experiment["model_dir"])
             devtime = P("devtime", run_devtime_path, experiment["model_dir"], train_mfu)
+            chaos_leg = P("chaos", run_chaos_path, train_ds, train_cfg)
+            tune_leg = P("tune", run_tune_path, experiment["model_dir"])
         finally:
             shutil.rmtree(experiment["model_dir"], ignore_errors=True)
         stream = P("stream", run_stream_path)
@@ -6977,7 +7720,11 @@ def main() -> int:
          "learn_serve_batch_launches": learn["launches"]["serve_batch"][name],
          "learn_shadow_batch_launches": learn["launches"]["shadow_batch"][name],
          "learn_retrain_step_launches": learn["launches"]["retrain_step"][name],
-         "learn_leg_b_with_retrain_launches": learn["leg_B"]["launches"][name]}
+         "learn_leg_b_with_retrain_launches": learn["leg_B"]["launches"][name],
+         "chaos_serve_launches": chaos_leg["launches"][name],
+         "chaos_nonfinite_train_launches": chaos_leg["nonfinite"]["launches"][name],
+         "tune_forward_launches_by_mode": {
+             m: v[name] for m, v in tune_leg["mode_launches"].items()}}
         for name in segment_kernels]}
     # the search: per plan of 800 simulations (ms: CUDA events around the
     # plan's launches and syncs; plain_ms: the plain version's plan on the
@@ -7153,6 +7900,23 @@ def main() -> int:
           f"captures p99 {dt['p99_bundle']['kernel_events']}, local "
           f"{dt['capture_events']}, --target {dt['target_events']}; shed "
           f"{json.dumps(dt['shed'])}; on {smi}")
+    ch, tn = chaos_leg, tune_leg
+    print(f"chaos ({ch['seconds']:.1f} s): {ch['streams']} streams, faults injected "
+          f"{json.dumps(ch['faults_injected'])}, {ch['bisections']} bisections isolating "
+          f"{ch['isolated']} windows, {ch['reconnects']} reconnects, {len(ch['bundles'])} "
+          f"bundle(s), worst p99 {ch['slo']['worst_stream_p99_ms']} ms (unfaulted "
+          f"{ch['slo']['baseline_unfaulted_p99_ms']}, x{ch['slo']['degradation_x']}, limit "
+          f"{ch['slo']['limit_ms']:.0f}); {ch['forwards']} forwards of "
+          f"{ch['attempts']} attempts; windows/s disarmed / empty plan "
+          f"{' / '.join(f'{t['turn']} {t['windows_per_s']:.3f}' for t in ch['turns'])}; "
+          f"train.nonfinite_grad halt at step {ch['nonfinite']['step']}, bundle "
+          f"{ch['nonfinite']['bundles']}; the record {json.dumps(ch['record'])}; on {smi}")
+    print(f"tune ({tn['seconds']:.1f} s): device seconds by rung "
+          f"{json.dumps(tn['bucket_cost'])}; fit {json.dumps(tn['fit'])}; tuned "
+          f"{tn['tuned_ladder']} routing {tn['routing']}, expected "
+          f"{json.dumps(tn['expected'])}; against the static ladder "
+          f"{json.dumps(tn['vs_static'])}; forwards {json.dumps(tn['forwards'])}; "
+          f"the record {json.dumps(tn['record'])}; on {smi}")
     leg, probe = stream["leg"], stream["probe"]
     print(f"stream ({stream['seconds']:.1f} s): bench.py's leg {leg['B']} x {leg['T']}, "
           f"{leg['ms_per_step']:.2f} ms a step, {leg['events_per_s']:.1f} events/s, "

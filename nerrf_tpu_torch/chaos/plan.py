@@ -3,9 +3,8 @@
 The port's host copy of ``nerrf_tpu/chaos/plan.py`` (stdlib only), kept
 identical below this docstring: the respond tier's scenario schedules draw
 their coins from `hash01`, and a plan's JSON parses alike in both packages.
-The fault points that a plan arms (``chaos/points.py``) and their wiring
-into serve, ingest and training come with the operating planes (ROADMAP
-A.6); nothing here arms anything.
+The fault points that a plan arms live in ``chaos/points.py``; nothing
+here arms anything.
 
 A `FaultPlan` is a seed plus a list of `FaultSpec`s, each naming one
 **fault point** (a site threaded through the real code path — see

@@ -14,6 +14,9 @@ artifacts and exit codes over the port's paths.  Usage:
     python -m nerrf_tpu_torch.cli report         DIR
     python -m nerrf_tpu_torch.cli doctor         BUNDLE|ARCHIVE
     python -m nerrf_tpu_torch.cli alerts label   TRACE_ID tp|fp --replay-dir DIR
+    python -m nerrf_tpu_torch.cli chaos          sites|validate PLAN|example
+    python -m nerrf_tpu_torch.cli tune           CORPUS|ARCHIVE --out FILE
+                                                 [--model-dir DIR]
 
 An *incident directory* is the unit of state: victim files under ``victim/``,
 the snapshot store under ``store/``, the captured trace, and every stage's
@@ -895,6 +898,130 @@ def cmd_doctor(args) -> int:
 
 
 # --------------------------------------------------------------------------
+def cmd_chaos(args) -> int:
+    """Chaos plane (docs/chaos.md): the fault-point catalog, plan
+    validation, and an example schedule — the game-day front door.  A plan
+    is armed on a pod via ``NERRF_CHAOS_PLAN=<plan.json>`` (serve-detect
+    reads it at boot) or ``serve-detect --chaos-plan``; this subcommand
+    never arms anything itself.  The example is the reference's less its
+    ``compilecache.corrupt_payload`` spec, which the port refuses until it
+    has a compile cache (ROADMAP A.7)."""
+    from nerrf_tpu_torch import chaos
+
+    if args.chaos_cmd == "sites":
+        rows = sorted(chaos.SITES.items())
+        if args.json:
+            print(json.dumps(dict(rows), indent=2))
+        else:
+            for site, desc in rows:
+                print(f"{site:<32} {desc}")
+        return 0
+    if args.chaos_cmd == "example":
+        plan = chaos.FaultPlan(seed=7, faults=(
+            chaos.FaultSpec(site="serve.poison_window", prob=0.05,
+                            match={"stream": "s1"}),
+            chaos.FaultSpec(site="ingest.wire_error", every=40),
+            chaos.FaultSpec(site="serve.device_latency", every=9,
+                            mode="stall", delay_sec=0.2,
+                            after_sec=5.0, for_sec=20.0),
+        ))
+        print(json.dumps(plan.to_dict(), indent=2))
+        return 0
+    # validate
+    try:
+        plan = chaos.load_plan(args.plan)
+        chaos.validate_plan(plan)
+    except (OSError, ValueError, TypeError) as e:
+        _log(f"chaos plan {args.plan}: INVALID — {e}")
+        return 1
+    sites = sorted({s.site for s in plan.faults})
+    print(json.dumps({"plan": args.plan, "valid": True, "seed": plan.seed,
+                      "faults": len(plan.faults), "sites": sites},
+                     indent=2))
+    return 0
+
+
+def cmd_tune(args) -> int:
+    """Fit the learned bucket ladder + per-rung kernel routing from an
+    archived cost corpus and emit the versioned tuned-ladder artifact
+    (docs/tuning.md).  Deterministic: same corpus → same artifact, so the
+    tuned-vs-static comparison inside is reproducible evidence, not a
+    wall-clock sample.  ``--kernel-bench`` has no default in the port: the
+    reference's, a CPU record, says nothing of the card's crossover, and
+    without one the fit cites the reference's authored constant."""
+    from nerrf_tpu_torch.tune import (
+        TuneError,
+        load_kernel_bench_crossover,
+        save_artifact,
+        tune,
+    )
+
+    src = Path(args.corpus)
+    try:
+        if src.is_dir():
+            # convenience: point at an archive dir and we export inline
+            from nerrf_tpu_torch.archive import export_tune
+
+            corpus = export_tune(src)
+        else:
+            try:
+                corpus = json.loads(src.read_text())
+            except FileNotFoundError:
+                _log(f"no such corpus file or archive directory: {src}")
+                return 1
+            except ValueError as e:
+                _log(f"corpus {src} is not JSON ({e})")
+                return 1
+
+        model_cfg = None
+        analytic = None
+        if args.model_dir:
+            # the checkpoint's real architecture sizes the cost model's
+            # work terms, and its analytic devtime surface (traced on
+            # `meta`, no card needed) anchors thin/missing buckets — both
+            # optional, both fail-open
+            from nerrf_tpu_torch.train.checkpoint import load_checkpoint
+
+            _state, model_cfg = load_checkpoint(args.model_dir)
+            try:
+                import torch
+
+                from nerrf_tpu_torch.devtime.costmodel import (
+                    serve_program_costs,
+                )
+                from nerrf_tpu_torch.models import NerrfNet
+                from nerrf_tpu_torch.serve.config import ServeConfig
+
+                with torch.device("meta"):
+                    on_meta = NerrfNet(model_cfg)
+                costs = serve_program_costs(on_meta, ServeConfig())
+                analytic = {tag: c.flops for tag, c in costs.items()}
+            except Exception as e:  # noqa: BLE001 — prior, not gate
+                _log(f"analytic cost surface unavailable ({e}); fitting "
+                     f"from measurements alone")
+
+        kb = (load_kernel_bench_crossover(args.kernel_bench)
+              if args.kernel_bench else None)
+        art = tune(corpus, model_cfg=model_cfg, analytic=analytic,
+                   kernel_bench=kb, max_rungs=args.max_rungs)
+    except TuneError as e:
+        _log(f"refusing to tune: {e}")
+        return 1
+
+    exp = art["expected"]
+    if args.out:
+        save_artifact(args.out, art)
+        _log(f"tuned ladder written to {args.out}: "
+             f"{len(art['buckets'])} rung(s), expected "
+             f"{exp['static_device_seconds_per_window']:.3g}s → "
+             f"{exp['tuned_device_seconds_per_window']:.3g}s per window "
+             f"({exp['improvement']:.1%} improvement)")
+    if args.json or not args.out:
+        print(json.dumps(art, indent=2))
+    return 0
+
+
+# --------------------------------------------------------------------------
 def cmd_serve(args) -> int:
     """Serve a trace over the Tracker wire protocol (+ /metrics endpoint):
     the replay flavor of the tracker daemon."""
@@ -932,6 +1059,19 @@ def cmd_serve(args) -> int:
 
 
 def cmd_serve_detect(args) -> int:
+    """`serve-detect` (:func:`_serve_detect`); a chaos plan it armed is
+    disarmed when it returns, so an in-process caller inherits none."""
+    from nerrf_tpu_torch import chaos
+
+    before = chaos.controller()
+    try:
+        return _serve_detect(args)
+    finally:
+        if chaos.controller() is not before:
+            chaos.disarm()
+
+
+def _serve_detect(args) -> int:
     """The online detection pod: admit N concurrent Tracker streams, window
     each, and score cross-stream micro-batches through one warmed forward a
     capacity bucket on the card (nerrf_tpu_torch/serve).  Streams come from
@@ -943,7 +1083,9 @@ def cmd_serve_detect(args) -> int:
     versions published into the lineage shadow-score on the live batches
     and hot-swap in when the guardrails pass, promotions and rollbacks from
     any process land without a restart.  --archive-dir spools the telemetry
-    to a durable archive that `report` reads offline."""
+    to a durable archive that `report` reads offline.  --tuned serves a
+    tuned-ladder artifact's rungs with its per-rung kernel routing;
+    --chaos-plan (else $NERRF_CHAOS_PLAN) arms a fault plan."""
     import dataclasses as _dc
 
     from nerrf_tpu_torch.device import resolve_device
@@ -966,6 +1108,47 @@ def cmd_serve_detect(args) -> int:
     if args.buckets:
         cfg_kwargs["buckets"] = _buckets(args.buckets)
     cfg = ServeConfig(**cfg_kwargs)
+
+    tuned_art = None
+    if args.tuned:
+        # tuned-ladder boot (docs/tuning.md): the artifact's rung set
+        # replaces the ladder (including any --buckets) and its routing
+        # table rides into the model config below — warmup then runs
+        # exactly the tuned rungs and admission admits exactly their
+        # reachable shapes
+        from nerrf_tpu_torch.tune import (
+            TuneError,
+            apply_to_serve_config,
+            load_artifact,
+        )
+
+        try:
+            tuned_art = load_artifact(args.tuned)
+        except TuneError as e:
+            _log(str(e))
+            return 2
+        cfg = apply_to_serve_config(tuned_art, cfg)
+        _log(f"tuned ladder from {args.tuned}: {len(cfg.buckets)} rung(s), "
+             f"routing {tuned_art.get('routing')}")
+
+    # chaos plane (docs/chaos.md): arm a fault plan for a game day —
+    # --chaos-plan wins, else $NERRF_CHAOS_PLAN (one env var on the pod).
+    # Neither set → every fault point stays a free no-op.  A bad plan is
+    # a one-line refusal to boot (the operator asked for faults the pod
+    # cannot inject — serving WITHOUT them would fake the game day)
+    from nerrf_tpu_torch import chaos
+
+    try:
+        if args.chaos_plan:
+            ctl = chaos.arm(chaos.load_plan(args.chaos_plan))
+            _log(f"chaos: armed {len(ctl.plan.faults)} fault spec(s) "
+                 f"from {args.chaos_plan} (seed {ctl.plan.seed})")
+        else:
+            chaos.arm_from_env(log=_log)
+    except (OSError, ValueError, TypeError) as e:
+        _log(f"chaos plan INVALID — {e} "
+             f"(check it with `chaos validate`)")
+        return 2
 
     manager = None
     quality_profile = None
@@ -1015,6 +1198,17 @@ def cmd_serve_detect(args) -> int:
         _log("no --model-dir: serving an UNTRAINED small detector "
              "(load testing only — scores carry no meaning)")
         model = init_untrained_model(JointConfig().small, cfg, device=dev)
+
+    if tuned_art is not None:
+        import torch
+
+        from nerrf_tpu_torch.models import NerrfNet
+        from nerrf_tpu_torch.tune import apply_to_model_config
+
+        with torch.device(dev):
+            tuned = NerrfNet(apply_to_model_config(tuned_art, model.cfg))
+        tuned.load_state_dict(model.state_dict(), strict=True)
+        model = tuned.eval()
 
     service = OnlineDetectionService(model, cfg=cfg, device=dev)
     if quality_profile is not None:
@@ -1361,32 +1555,18 @@ def cmd_ingest(args) -> int:
 
 # subcommand → (the reference's help text, what it needs, ROADMAP item)
 UNPORTED_COMMANDS = {
-    "chaos": ("chaos plane: fault-point catalog, plan validation, example "
-              "schedule (docs/chaos.md)", "the chaos plane's fault points",
-              "A.6"),
     "cache": ("persistent compile cache: list, prune, verify, pre-warm",
               "the compile cache (a capture cache of CUDA graphs)", "A.7"),
     "lint": ("static analysis over nerrf_tpu's own ASTs (purity, recompile, "
              "sync, lock discipline, the concurrency tier, metrics "
              "contract); --deep adds the jaxpr-level program contracts",
              "the analysis rules over the port", "A.7"),
-    "tune": ("fit a learned bucket ladder + per-rung kernel routing from an "
-             "archived cost corpus; emits the tuned-ladder artifact "
-             "serve-detect --tuned and the AOT re-export consume "
-             "(docs/tuning.md)", "the ladder tuner", "A.6"),
 }
 
 # (subcommand, flag, is it asked for?, what it needs, ROADMAP item)
 UNPORTED_FLAGS = (
     ("train-detector", "--aot-cache", lambda a: a.aot_cache is not None,
      "the compile cache", "A.7"),
-    ("serve-detect", "--tuned", lambda a: a.tuned is not None,
-     "the ladder tuner", "A.6"),
-    ("serve-detect", "--chaos-plan", lambda a: a.chaos_plan is not None,
-     "the chaos plane's fault points", "A.6"),
-    ("serve-detect", "$NERRF_CHAOS_PLAN",
-     lambda a: bool(os.environ.get("NERRF_CHAOS_PLAN")),
-     "the chaos plane's fault points", "A.6"),
     ("serve-detect", "--aot-cache", lambda a: a.aot_cache is not None,
      "the compile cache", "A.7"),
     ("models", "publish --aot",
@@ -1601,8 +1781,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="capacity-bucket ladder, e.g. 256x512x128 "
                         "1024x2048x128 (default: the warmup ladder)")
     p.add_argument("--tuned", default=None, metavar="FILE",
-                   help="tuned-ladder artifact: not ported yet (ROADMAP "
-                        "A.6), exits 2")
+                   help="tuned-ladder artifact from `tune`: serve on its "
+                        "fitted bucket ladder + per-rung kernel routing "
+                        "table (overrides --buckets; docs/tuning.md)")
     p.add_argument("--batch-size", type=int, default=8,
                    help="padded device batch slots per launch")
     p.add_argument("--close-ms", type=float, default=50.0,
@@ -1654,8 +1835,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a Chrome-trace JSON of the serve session's "
                         "host spans on exit")
     p.add_argument("--chaos-plan", default=None, metavar="FILE",
-                   help="arm a chaos fault plan: not ported yet (ROADMAP "
-                        "A.6), exits 2, as does $NERRF_CHAOS_PLAN when set")
+                   help="arm a chaos fault plan for this run (game day: "
+                        "seeded fault injection at the named points, every "
+                        "firing journaled; docs/chaos.md).  Default: "
+                        "$NERRF_CHAOS_PLAN when set, else disarmed")
     p.add_argument("--profiler-port", type=int, default=-1,
                    help="serve GET /capture?seconds=S on this port (a "
                         "torch.profiler trace of the live pod, pulled by "
@@ -1711,7 +1894,23 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(p)
     p.set_defaults(fn=cmd_respond)
 
-    _unported_parser(sub, "chaos")
+    p = sub.add_parser("chaos", help="chaos plane: fault-point catalog, "
+                                     "plan validation, example schedule "
+                                     "(docs/chaos.md)")
+    chsub = p.add_subparsers(dest="chaos_cmd", required=True)
+    chp = chsub.add_parser("sites", help="list every armed-able fault "
+                                         "point and what it simulates")
+    chp.add_argument("--json", action="store_true",
+                     help="machine-readable catalog")
+    chp.set_defaults(fn=cmd_chaos)
+    chp = chsub.add_parser("validate", help="parse + validate a plan "
+                                            "file; exit 1 when invalid")
+    chp.add_argument("plan", help="fault plan JSON "
+                                  "(see `chaos example`)")
+    chp.set_defaults(fn=cmd_chaos)
+    chp = chsub.add_parser("example", help="print a commented-by-shape "
+                                           "example plan to stdout")
+    chp.set_defaults(fn=cmd_chaos)
 
     p = sub.add_parser("quality", help="detection-quality plane: reference "
                                        "profiles and drift tables "
@@ -1900,7 +2099,33 @@ def build_parser() -> argparse.ArgumentParser:
                          "label (default: ./replay-buffer)")
     al.set_defaults(fn=cmd_alerts)
 
-    _unported_parser(sub, "tune")
+    p = sub.add_parser("tune", help="fit a learned bucket ladder + "
+                                    "per-rung kernel routing from an "
+                                    "archived cost corpus; emits the "
+                                    "tuned-ladder artifact serve-detect "
+                                    "--tuned consumes (docs/tuning.md)")
+    p.add_argument("corpus", help="tune corpus JSON (`archive export "
+                                  "--tune --out`) or an archive directory "
+                                  "to export inline")
+    p.add_argument("--out", default=None, metavar="FILE",
+                   help="write the tuned-ladder artifact here (default: "
+                        "print to stdout)")
+    p.add_argument("--model-dir", default=None, metavar="DIR",
+                   help="checkpoint whose architecture sizes the cost "
+                        "model and whose analytic devtime surface anchors "
+                        "thin buckets (default: the stock detector "
+                        "config, measurements only)")
+    p.add_argument("--max-rungs", type=int, default=None,
+                   help="rung-count bound for the ladder search "
+                        "(default: the static ladder's graph-rung count)")
+    p.add_argument("--kernel-bench", default=None, metavar="FILE",
+                   help="kernel microbenchmark artifact whose measured "
+                        "dense/fused crossover calibrates the routing "
+                        "prior (default: none; the reference's authored "
+                        "constant, named in the artifact's provenance)")
+    p.add_argument("--json", action="store_true",
+                   help="print the artifact JSON even with --out")
+    p.set_defaults(fn=cmd_tune)
 
     p = sub.add_parser("report", help="offline fleet report over archived "
                                       "telemetry: SLO/capacity/drift/"

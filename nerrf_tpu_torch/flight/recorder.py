@@ -1,9 +1,8 @@
 """Anomaly-triggered flight recorder: dump the evidence while it exists.
 
-The port of ``nerrf_tpu/flight/recorder.py``: a copy but in three places.
+The port of ``nerrf_tpu/flight/recorder.py``: a copy but in two places.
 `env_fingerprint` reports PyTorch, its CUDA and the card instead of jax;
-the chaos plane's ``flight.disk_full`` fault point waits for
-``chaos/points`` (ROADMAP A.6); and the p99 bundle's profiler capture
+and the p99 bundle's profiler capture
 (``profile_on_p99_sec > 0``) is a torch.profiler trace under
 ``torch_trace/``, taken on a capture thread of its own: the p99 trigger
 fires on the scorer's thread (demux), and a capture taken there would
@@ -354,8 +353,12 @@ class FlightRecorder:
             return self._dump_locked(trigger, reason, context)
 
     def _dump_locked(self, trigger: str, reason: str, context: dict) -> str:
-        # (the reference's chaos fault point "flight.disk_full" stood here;
-        # it comes with chaos/points, ROADMAP A.6)
+        from nerrf_tpu_torch import chaos
+
+        # chaos fault point (no-op disarmed): the bundle volume filling up
+        # mid-dump — the caller's fail-open (trigger() rolls back the
+        # rate-limit stamp, no .tmp orphan) is what survives
+        chaos.inject("flight.disk_full", trigger=trigger)
         out_root = os.fspath(self.cfg.out_dir)
         # nerrflint: ok[blocking-under-lock] serializing bundle IO is the dump lock's entire purpose: concurrent triggers and the retention sweep must never interleave half-written dirs; only other dumps wait here
         os.makedirs(out_root, exist_ok=True)

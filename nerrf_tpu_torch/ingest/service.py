@@ -3,9 +3,9 @@
 The port of ``nerrf_tpu/ingest/service.py``: the same service and frames
 (the port's ``trace_pb2`` is a byte-for-byte copy of the reference's, so
 the two packages' servers and clients interoperate), its spans through the
-port's ``tracing``.  The chaos fault points in ``iter_blocks`` come with
-ROADMAP A.6; ``spawn_trackerd`` builds the native daemon into the port's
-``ops/_build/native/``.
+port's ``tracing``, the chaos fault points in ``iter_blocks`` through the
+port's ``chaos``; ``spawn_trackerd`` builds the native daemon into the
+port's ``ops/_build/native/``.
 
 Speaks the same service upstream NERRF's Go tracker daemon (the
 "reference daemon" below) serves —
@@ -284,11 +284,17 @@ class TrackerClient:
 
     def iter_blocks(
         self, max_events: Optional[int] = None, timeout: float = 30.0,
+        stream: Optional[str] = None,
     ) -> Iterator[tuple[EventArrays, StringTable]]:
         """Yield (block, string-table) per decoded frame as it arrives, so
         callers can persist incrementally — a dropped stream loses only the
         frame in flight, not the whole session.  The string table is the
-        bridge's cumulative view (ids stable for the client's lifetime)."""
+        bridge's cumulative view (ids stable for the client's lifetime).
+        ``stream`` is the caller's stream label, carried only into the
+        chaos fault-point context so an injected wire fault is joinable to
+        the stream it hit."""
+        from nerrf_tpu_torch import chaos
+
         total = 0
         with grpc.insecure_channel(self._target) as channel:
             call = channel.unary_stream(
@@ -299,6 +305,13 @@ class TrackerClient:
             from nerrf_tpu_torch.observability import DEFAULT_REGISTRY
 
             for frame in call:
+                # chaos fault points (no-ops while disarmed): a mid-stream
+                # wire reset / producer stall, exactly where a flaky
+                # tracker or a congested link would deliver one
+                chaos.inject("ingest.wire_stall", stream=stream,
+                             target=self._target)
+                chaos.inject("ingest.wire_error", stream=stream,
+                             target=self._target)
                 # one instrumentation point: the span dual-writes the
                 # stage_latency_seconds{stage="ingest_decode"} histogram,
                 # so the Prometheus series and the trace stay consistent

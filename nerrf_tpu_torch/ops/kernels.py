@@ -255,6 +255,14 @@ def launch_sage_aggregate(msg, ptr_f, gidx_f, w_f, ptr_r, gidx_r, w_r, out) -> N
             B, N, E, F, *scratch, out.data_ptr(), stream=stream)
 
 
+def _check_gather(name: str, B: int, N: int, E: int, F: int) -> None:
+    if max(N, E) * B * F >= 2 ** 31:
+        raise ValueError(f"{name}: [{B}, {N}, {F}] by [{B}, {E}] ids is past the "
+                         "kernel's 32-bit indexing")
+    if B > 65535:
+        raise ValueError(f"{name}: {B} windows; the kernel takes at most 65535")
+
+
 def launch_gather(name: str, table, idx, out) -> None:
     """``gather_rows`` or ``gather_rows_sorted`` (``name``, one row-copy
     kernel, csrc/gather_rows.cuh) of ``table`` [B, N, F] by ``idx`` [B, E]
@@ -262,11 +270,7 @@ def launch_gather(name: str, table, idx, out) -> None:
     windows as its grid's y index: larger operands are refused."""
     B, N, F = table.shape
     E = idx.shape[1]
-    if max(N, E) * B * F >= 2 ** 31:
-        raise ValueError(f"{name}: [{B}, {N}, {F}] by [{B}, {E}] ids is past the "
-                         "kernel's 32-bit indexing")
-    if B > 65535:
-        raise ValueError(f"{name}: {B} windows; the kernel takes at most 65535")
+    _check_gather(name, B, N, E, F)
     _launch(name, table.device, table.data_ptr(), dtype_code(table),
             idx.data_ptr(), B, N, E, F, out.data_ptr())
 
@@ -287,6 +291,60 @@ def launch_segment_sum(name: str, data, plan, out) -> None:
             plan.ptr.data_ptr(), B, N, S, F, *scratch, out.data_ptr(),
             stream=stream)
 
+
+
+# the card the port targets (an H100 80GB, as NVIDIA states its memory) and
+# the share of it the chunked reductions' scratch may take at one rung: the
+# rest holds the model, the batch and the activations
+CARD_MEMORY_BYTES = 80 * 10 ** 9
+SCRATCH_SHARE = 1 / 8
+
+
+def sage_scratch_bytes(B: int, N: int, E: int, F: int) -> int:
+    """Bytes of :func:`launch_sage_aggregate`'s scratch for msg [B, N, F]
+    over E edges a view: B·K·F f32 partials, B·K live flags and B·N
+    counters, K = N + ceil(2E / 32) chunk slots."""
+    K = N + -(-2 * E // CHUNK_ROWS)
+    return B * K * F * 4 + B * K + B * N * 4
+
+
+def segment_scratch_bytes(B: int, N: int, S: int, F: int) -> int:
+    """Bytes of :func:`launch_segment_sum`'s scratch for data [B, S, F] over N
+    segments: B·(N + ceil(S / 32))·F f32 partials and B·N counters."""
+    return B * (N + -(-S // CHUNK_ROWS)) * F * 4 + B * N * 4
+
+
+def rung_limits(n: int, e: int, width: int, batch: int) -> dict:
+    """Whether the segment kernels launch at a serve rung of ``n`` nodes and
+    ``e`` edges, rows up to ``width`` features wide, ``batch`` windows a
+    forward: pure arithmetic over the launchers' own checks, for the ladder
+    search's rung gate.  The shapes are those of the forward in every mode:
+    the gathers of [B, n, F] rows by [B, e] ids, ``sage_aggregate`` over
+    [B, n, F] and e edges a view, the segment sums of [B, e, F] rows over n
+    segments and, for ``dense_adj``'s runs, over e.  Returns ``{"ok",
+    "refusals", "scratch_bytes", "scratch_limit_bytes"}``: ``refusals`` the
+    launchers' messages, ``scratch_bytes`` the largest scratch one launch
+    grows (one buffer of each type per stream, reused across launches)
+    against ``SCRATCH_SHARE`` of ``CARD_MEMORY_BYTES``."""
+    refusals = []
+    for check in (lambda: _check_gather("gather_rows", batch, n, e, width),
+                  lambda: _check_row_width("sage_aggregate", width),
+                  lambda: _check_row_width("segment_sum", width)):
+        try:
+            check()
+        except ValueError as exc:
+            refusals.append(str(exc))
+    scratch = max(sage_scratch_bytes(batch, n, e, width),
+                  segment_scratch_bytes(batch, n, e, width),
+                  segment_scratch_bytes(batch, e, e, 1))
+    limit = int(CARD_MEMORY_BYTES * SCRATCH_SHARE)
+    if scratch > limit:
+        refusals.append(f"the chunked reductions' scratch at {n}n/{e}e, "
+                        f"{batch} windows of width {width}, is {scratch} bytes, "
+                        f"past {limit} ({SCRATCH_SHARE:g} of the card's "
+                        f"{CARD_MEMORY_BYTES} bytes)")
+    return {"ok": not refusals, "refusals": refusals, "scratch_bytes": scratch,
+            "scratch_limit_bytes": limit}
 
 
 # head widths the attention kernels are instantiated for (csrc/flash_attention.cu)

@@ -7,10 +7,8 @@ checkpoint it holds.  A version is a checkpoint of the port
 registry written by the port holds the port's checkpoints and is not
 interchangeable with one written by the reference (whose versions hold an
 orbax ``params/`` directory); the pointer files and the layout above them
-are the same.  Two parts wait for other planes: `executables_dir` returns
-None (the AOT sidecar comes with the compile cache, ROADMAP A.7), and
-`publish` has no chaos fault points (``registry.store_io``,
-``registry.corrupt_sidecar``) until ``chaos/points`` is ported (A.6).
+are the same.  One part waits for another plane: `executables_dir` returns
+None (the AOT sidecar comes with the compile cache, ROADMAP A.7).
 
 Layout (one directory tree, shareable as a ReadWriteMany volume between
 the trainer that publishes and the serve pods that poll):
@@ -197,18 +195,29 @@ class ModelRegistry:
         validate_checkpoint_dir(src)
         import errno
 
+        from nerrf_tpu_torch import chaos
+
         ldir = self.lineage_dir(lineage)
         ldir.mkdir(parents=True, exist_ok=True)
         tmp = ldir / f".publish.tmp-{os.getpid()}-{time.monotonic_ns()}"
         try:
             shutil.copytree(src, tmp)
+            # chaos fault point (no-op disarmed): the store volume failing
+            # mid-publish — the BaseException sweep below must leave no
+            # tmp dir and no partial version behind
+            chaos.inject("registry.store_io", lineage=lineage)
             # stamp provenance into the *copy*'s sidecar (the source
             # checkpoint stays untouched)
             sidecar = tmp / "model_config.json"
             meta = json.loads(sidecar.read_text())
             meta["published_at"] = time.time()
             meta["published_from"] = source or str(src)
-            sidecar.write_text(json.dumps(meta, indent=2))
+            # chaos fault point (no-op disarmed): a torn/bit-rotted
+            # sidecar in the published copy — every later load must fail
+            # with the one-line corrupt-sidecar error, never a traceback
+            sidecar.write_bytes(chaos.mangle(
+                "registry.corrupt_sidecar",
+                json.dumps(meta, indent=2).encode(), lineage=lineage))
             while True:
                 version = (max(self.versions(lineage), default=0)) + 1
                 try:

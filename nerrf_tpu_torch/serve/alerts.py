@@ -1,7 +1,6 @@
 """Alert fan-out for the online detection service.
 
-A host copy of ``nerrf_tpu/serve/alerts.py``, without the chaos plane's
-fault point in ``drain``.
+A host copy of ``nerrf_tpu/serve/alerts.py``.
 
 Two granularities leave the demux stage:
 
@@ -124,6 +123,13 @@ class AlertSink:
             self.detections[stream] = detection
 
     def drain(self, max_n: Optional[int] = None) -> List[WindowAlert]:
+        from nerrf_tpu_torch import chaos
+
+        # chaos fault point (no-op disarmed): a slow alert consumer — the
+        # stall happens on the CONSUMER side, outside the lock, so the
+        # demux thread keeps emitting and the bounded deque sheds (counted
+        # demux_drop records), exactly the isolation the sink promises
+        chaos.inject("alerts.slow_consumer")
         out: List[WindowAlert] = []
         with self._lock:
             while self._alerts and (max_n is None or len(out) < max_n):

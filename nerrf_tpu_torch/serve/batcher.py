@@ -1,7 +1,7 @@
 """Continuous cross-stream micro-batcher: many streams, one scorer.
 
 The port of ``nerrf_tpu/serve/batcher.py``, model-free as the reference's
-is, without the chaos plane's fault points.  The Podracer/Sebulba shape
+is.  The Podracer/Sebulba shape
 (arXiv:2104.06272) applied to detection: any number of independent stream
 actors funnel window requests into per-bucket pending queues, and a central
 scheduler packs same-bucket windows — from *different* streams — into one
@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from nerrf_tpu_torch import chaos
 from nerrf_tpu_torch.flight.journal import DEFAULT_JOURNAL
 from nerrf_tpu_torch.pipeline import pad_batch
 from nerrf_tpu_torch.serve.config import Bucket, ServeConfig, bucket_tag
@@ -352,6 +353,19 @@ class MicroBatcher:
         try:
             with trace_span("serve_device_score", device=True, bucket=tag,
                             windows=len(reqs)):
+                # chaos fault points (no-ops disarmed): a whole-batch
+                # device fault / latency spike, and the per-window poison
+                # (keyed by trace ID so bisection retries fire the same
+                # way the first score did — that is what lets the split
+                # isolate exactly the injected window)
+                chaos.inject("serve.device_latency", bucket=tag,
+                             windows=len(reqs))
+                chaos.inject("serve.device_error", bucket=tag,
+                             windows=len(reqs))
+                for r in reqs:
+                    chaos.inject("serve.poison_window", key=r.trace_id,
+                                 stream=r.stream, window_idx=r.window_idx,
+                                 bucket=tag)
                 out = self._score_fn(batch)
                 # a version-stamping score_fn (the service's) returns
                 # (probs, model_version); plain score_fns return the bare

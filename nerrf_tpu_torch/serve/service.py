@@ -691,7 +691,8 @@ class OnlineDetectionService:
                         joined = True
                         client = TrackerClient(target)
                         for events, strings in client.iter_blocks(
-                                max_events=max_events, timeout=timeout):
+                                max_events=max_events, timeout=timeout,
+                                stream=sid):
                             self.feed(sid, events, strings)
                             blocks += 1
                         run.result = self.leave(sid)

@@ -38,8 +38,9 @@ steps and halts a diverged run.  At the end of a run
 :func:`train_nerrfnet` sets the device-time plane's gauges
 (``device_mfu{program="train_step"}``, the roofline intensity) from the
 step's analytic cost (`devtime.costmodel.train_step_cost`) and the
-measured steps/s.  Left out: the compile cache (with CUDA graphs, ROADMAP
-B.D1) and the chaos plane's fault point (A.6).  A mesh experiment trains
+measured steps/s.  The streamed flavor carries the chaos plane's
+``train.nonfinite_grad`` fault point.  Left out: the compile cache (with
+CUDA graphs, ROADMAP B.D1).  A mesh experiment trains
 on the one card, as the reference's does on one device; data parallelism
 over several cards is ROADMAP A.7.
 """
@@ -59,7 +60,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nerrf_tpu_torch import tracing
+from nerrf_tpu_torch import chaos, tracing
 from nerrf_tpu_torch.device import resolve_device
 from nerrf_tpu_torch.models.joint import JointConfig, NerrfNet, build_nerrfnet
 from nerrf_tpu_torch.observability import DEFAULT_REGISTRY
@@ -646,6 +647,16 @@ def train_nerrfnet(
                     dw_accum += time.perf_counter() - t_dw
                     if dw is not None:
                         data_wait_s += dw.dur
+                # chaos fault point (disarmed = one global None read):
+                # poison this step's input with NaN — the non-finite
+                # value propagates through loss and gradients, so the
+                # in-step nonfinite telemetry must fire and the monitor
+                # must dump exactly one train_divergence bundle.  Same
+                # shapes, same kernels
+                if chaos.check("train.nonfinite_grad", key=str(step),
+                               step=step) is not None:
+                    batch = dict(batch,
+                                 node_feat=batch["node_feat"] * float("nan"))
                 args = (state, batch, dropout_gen)
             if trace_steps:
                 # the span lasts until the loss is on the host, so its

@@ -39,6 +39,14 @@ JAX package's (``nerrf_tpu.cli``), on the CPU.  The reference runs with
   trace; ``serve-detect --profiler-port`` answers ``GET /capture`` in
   process and ``profile capture --target`` pulls from it;
   ``--profile-on-breach-sec`` reaches the flight recorder.
+* The chaos and tune planes' lifted refusals: ``chaos sites`` prints the
+  reference's catalog, ``chaos example`` the reference's plan less its
+  compile-cache spec, ``chaos validate`` refuses that spec naming A.7;
+  ``tune`` writes a loadable artifact and refuses an empty corpus;
+  ``serve-detect --tuned`` serves the artifact's rung with its routing, bit
+  for bit ``model_detect`` in the routed mode; ``--chaos-plan`` (over
+  ``$NERRF_CHAOS_PLAN``) and ``$NERRF_CHAOS_PLAN`` arm a plan whose point
+  fires, and disarm it when the command returns.
 """
 
 import contextlib
@@ -450,8 +458,6 @@ def test_unported_subcommands_exit_2_naming_their_item(name):
 
 REFUSED_FLAGS = {
     "--aot-cache": ["train-detector", "--aot-cache", "C"],
-    "sd --tuned": ["serve-detect", "--tuned", "T"],
-    "sd --chaos-plan": ["serve-detect", "--chaos-plan", "P"],
     "sd --aot-cache": ["serve-detect", "--aot-cache", "C"],
     "models --aot": ["models", "publish", "--registry", "R", "--lineage", "l",
                      "--model-dir", "M", "--aot"],
@@ -695,8 +701,131 @@ def _lifted_profile_on_breach(tmp_path, monkeypatch, small_trace, tiny_model_dir
     assert "+0.5s profiler trace per p99 breach" in err
 
 
+def _lifted_chaos(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    rc, out, _ = _run(cli.main, ["chaos", "sites", "--json"])
+    jrc, jout, _ = _run(jcli.main, ["chaos", "sites", "--json"])
+    assert rc == jrc == 0 and out == jout and len(json.loads(out)) == 11
+    rc, out, _ = _run(cli.main, ["chaos", "sites"])
+    assert rc == 0 and out == _run(jcli.main, ["chaos", "sites"])[1]
+    # the example is the reference's less its compile-cache spec (A.7)
+    rc, out, _ = _run(cli.main, ["chaos", "example"])
+    want = json.loads(_run(jcli.main, ["chaos", "example"])[1])
+    dropped = [f for f in want["faults"] if f["site"] == "compilecache.corrupt_payload"]
+    assert rc == 0 and len(dropped) == 1
+    assert json.loads(out) == dict(want, faults=[f for f in want["faults"]
+                                                 if f not in dropped])
+    (tmp_path / "ex.json").write_text(out)
+    rc, out, _ = _run(cli.main, ["chaos", "validate", tmp_path / "ex.json"])
+    assert rc == 0 and json.loads(out)["valid"] and json.loads(out)["faults"] == 3
+    (tmp_path / "ref.json").write_text(json.dumps(want))
+    rc, _, err = _run(cli.main, ["chaos", "validate", tmp_path / "ref.json"])
+    assert rc == 1 and "INVALID" in err and "ROADMAP A.7" in err and err.count("\n") == 1
+    (tmp_path / "bad.json").write_text('{"faults": [{"site": "nope", "at": 1}]}')
+    assert _run(cli.main, ["chaos", "validate", tmp_path / "bad.json"])[0] == 1
+
+
+def _golden_corpus():
+    from test_tune import golden_corpus
+
+    return golden_corpus()
+
+
+def _lifted_tune(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    from nerrf_tpu_torch.tune import load_artifact, tune
+
+    corpus = tmp_path / "corpus.json"
+    corpus.write_text(json.dumps(_golden_corpus()))
+    rc, out, _ = _run(cli.main, ["tune", corpus, "--out", tmp_path / "t.json",
+                                 "--model-dir", tiny_model_dir, "--max-rungs", "2"])
+    art = load_artifact(tmp_path / "t.json")
+    assert rc == 0 and out == "" and len(art["buckets"]) <= 2
+    assert art["fit"]["hidden"] == JointConfig().small.gnn.hidden
+    # the default ladder's four graph rungs, traced on meta
+    assert art["fit"]["analytic_points"] == 4
+    (tmp_path / "empty.json").write_text(json.dumps(dict(_golden_corpus(),
+                                                         windows_observed=0)))
+    rc, _, err = _run(cli.main, ["tune", tmp_path / "empty.json"])
+    assert rc == 1 and "refusing to tune" in err
+    rc, out, _ = _run(cli.main, ["tune", corpus])
+    assert rc == 0 and json.loads(out) == tune(_golden_corpus())
+
+
+def _lifted_tuned(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    from nerrf_tpu_torch.tune import build_artifact, save_artifact
+
+    save_artifact(tmp_path / "t.json", build_artifact(
+        (BUCKET,), ((BUCKET[0], "segment"),), {}, {}))
+    rc, out, err = _run(cli.main, [
+        "serve-detect", "--device", "cpu", "--model-dir", tiny_model_dir,
+        "--trace", small_trace[1] / "s5.jsonl", "--buckets", "1024x2048x128",
+        "--metrics-port", "-1", "--tuned", tmp_path / "t.json",
+        "--out", tmp_path / "out"])
+    assert rc == 0 and json.loads(out)["windows_scored"] > 0
+    assert "tuned ladder from" in err and "[[256, 'segment']]" in err
+    # the tuned rung replaced --buckets, and the routing reached the model:
+    # the stream's detection is model_detect's at that rung in segment mode
+    model = cli._load_model(tiny_model_dir, torch.device("cpu"))
+    seg = build_nerrfnet(dataclasses.replace(model.cfg, gnn=dataclasses.replace(
+        model.cfg.gnn, aggregation="segment")), device="cpu")
+    seg.load_state_dict(model.state_dict())
+    want = model_detect(load_trace_jsonl(small_trace[1] / "s5.jsonl"), seg.eval(),
+                        ds_cfg=ServeConfig(buckets=(BUCKET,)).dataset_config(BUCKET),
+                        auto_capacity=False, batch_size=8, device="cpu")
+    [got] = (tmp_path / "out").glob("detect_*.json")
+    assert json.loads(got.read_text())["file_scores"] == want.file_scores
+    (tmp_path / "bad.json").write_text("{}")
+    rc, _, err = _run(cli.main, ["serve-detect", "--device", "cpu", "--tuned",
+                                 tmp_path / "bad.json", "--metrics-port", "-1"])
+    assert rc == 2 and "not a tuned-ladder artifact" in err
+
+
+def _chaos_serve(tmp_path, small_trace, tiny_model_dir, *extra):
+    from nerrf_tpu_torch import chaos
+    from nerrf_tpu_torch.observability import DEFAULT_REGISTRY
+
+    site = {"site": "serve.device_latency"}
+    before = DEFAULT_REGISTRY.value("chaos_faults_injected_total", labels=site)
+    rc, out, err = _run(cli.main, [
+        "serve-detect", "--device", "cpu", "--model-dir", tiny_model_dir,
+        "--trace", small_trace[1] / "s5.jsonl", "--buckets", "x".join(map(str, BUCKET)),
+        "--metrics-port", "-1", *extra])
+    assert rc == 0 and json.loads(out)["windows_scored"] > 0
+    assert "chaos: armed 1 fault spec(s)" in err
+    assert DEFAULT_REGISTRY.value("chaos_faults_injected_total", labels=site) > before
+    assert not chaos.armed()  # disarmed when the command returned
+
+
+def _latency_plan(path):
+    path.write_text(json.dumps({"seed": 3, "faults": [
+        {"site": "serve.device_latency", "mode": "stall", "every": 1,
+         "delay_sec": 0.01}]}))
+    return path
+
+
+def _lifted_chaos_plan(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    # --chaos-plan wins over the environment's plan
+    monkeypatch.setenv("NERRF_CHAOS_PLAN", str(tmp_path / "missing.json"))
+    _chaos_serve(tmp_path, small_trace, tiny_model_dir,
+                 "--chaos-plan", _latency_plan(tmp_path / "p.json"))
+    (tmp_path / "bad.json").write_text('{"faults": [{"site": "serve.device_latency", '
+                                       '"at": 1}]}')
+    rc, _, err = _run(cli.main, ["serve-detect", "--device", "cpu", "--chaos-plan",
+                                 tmp_path / "bad.json", "--metrics-port", "-1"])
+    assert rc == 2 and "INVALID" in err and err.count("\n") == 1
+
+
+def _lifted_chaos_env(tmp_path, monkeypatch, small_trace, tiny_model_dir):
+    monkeypatch.setenv("NERRF_CHAOS_PLAN", str(_latency_plan(tmp_path / "p.json")))
+    _chaos_serve(tmp_path, small_trace, tiny_model_dir)
+
+
 LIFTED = {
     "alerts": _lifted_alerts,
+    "chaos": _lifted_chaos,
+    "tune": _lifted_tune,
+    "sd --tuned": _lifted_tuned,
+    "sd --chaos-plan": _lifted_chaos_plan,
+    "$NERRF_CHAOS_PLAN": _lifted_chaos_env,
     "archive --replay": _lifted_replay_export,
     "doctor": _lifted_doctor,
     "--metrics-port": _lifted_metrics_port,
@@ -711,18 +840,15 @@ LIFTED = {
 
 @pytest.mark.parametrize("name", sorted(LIFTED))
 def test_lifted_commands_run(name, tmp_path, monkeypatch, small_trace, tiny_model_dir):
-    """The subcommands and flags the flight and learn planes lifted from the
-    refusal tables run and exit as the reference's do."""
+    """The subcommands and flags the flight, learn, device-time, chaos and
+    tune planes lifted from the refusal tables run and exit as the
+    reference's do."""
     assert name not in cli.UNPORTED_COMMANDS
     assert not [f for c, f, *_ in cli.UNPORTED_FLAGS if f"{c} {f}".endswith(name)]
     LIFTED[name](tmp_path, monkeypatch, small_trace, tiny_model_dir)
 
 
-def test_chaos_plan_from_the_environment_is_refused(monkeypatch):
-    monkeypatch.setenv("NERRF_CHAOS_PLAN", "plan.json")
-    rc, _, err = _run(cli.main, ["serve-detect", "--device", "cpu"])
-    assert rc == 2 and "$NERRF_CHAOS_PLAN" in err and "(ROADMAP A.6)" in err
-    # unknown arguments of a ported subcommand stay an error
+def test_unknown_arguments_of_a_ported_subcommand_stay_an_error():
     with pytest.raises(SystemExit):
         cli.main(["status", "--incident", "x", "--bogus"])
 

@@ -31,6 +31,7 @@ import io
 import json
 import os
 import pathlib
+import re
 import threading
 from types import SimpleNamespace
 
@@ -262,7 +263,9 @@ SCENARIOS = {
 def _bundle_summary(root: pathlib.Path) -> list:
     """Every entry under ``root``: a bundle's name without its time stamp,
     its files, its manifest without time and environment, its journal tail
-    without times (paths under ``root`` written relative to it)."""
+    without times (paths under ``root`` written relative to it, a bundle's
+    UTC stamp in a path written as ``<utc>``: the two packages' dumps may
+    fall in two seconds)."""
     out = []
     for name in sorted(os.listdir(root)) if root.exists() else []:
         path = root / name
@@ -279,7 +282,8 @@ def _bundle_summary(root: pathlib.Path) -> list:
                     "files": sorted(os.listdir(path)), "manifest": man,
                     "records": records,
                     "quality": json.loads(quality.read_text()) if quality.exists() else None})
-    return json.loads(json.dumps(out).replace(str(root), "<root>"))
+    text = json.dumps(out).replace(str(root), "<root>")
+    return json.loads(re.sub(r"bundle-\d{8}T\d{6}-", "bundle-<utc>-", text))
 
 
 def _scenario(name, pkg_name, tmp):

@@ -51,6 +51,7 @@ def test_importing_the_port_loads_no_jax_module():
         "import nerrf_tpu_torch.train.run, nerrf_tpu_torch.train.corpus\n"
         "import nerrf_tpu_torch.train.elastic, nerrf_tpu_torch.trainwatch\n"
         "import nerrf_tpu_torch.respond, nerrf_tpu_torch.chaos\n"
+        "import nerrf_tpu_torch.tune, nerrf_tpu_torch.chaos.points\n"
         "import nerrf_tpu_torch.ingest.service, nerrf_tpu_torch.graph.store\n"
         "import nerrf_tpu_torch.cli, nerrf_tpu_torch.data.datasets\n"
         "import nerrf_tpu_torch.tracing, nerrf_tpu_torch.observability\n"

@@ -12,6 +12,15 @@ the CPU.
 * Its arithmetic, modelled in numpy: the warp's halving sums (lane l holds
   elements l + 32k) add as ``_halve`` does, bit for bit; the warp argmax
   by ordered keys picks what ``argmax`` picks.
+* A search in chunks of at most 128 simulations, each resuming the last
+  one's tree, equals one whole search, bit for bit: through ``plan()`` at 96
+  (one chunk) and 300 (two resumed chunks) simulations on a seeded
+  12-file domain, and through ``search_chunk`` (128 + 128 + 44) against
+  ``DeviceMCTS._search`` on ``bench.py``'s 45-file domain.
+
+The plain search is thousands of small tensor ops; each test runs it on one
+intra-op thread, so that the CPU's other test processes do not make each op
+wait on a thread pool.
 """
 
 import importlib.util
@@ -26,6 +35,14 @@ from nerrf_tpu_torch.planner import DeviceMCTS, MCTSConfig, UndoDomain
 
 ROOT = Path(__file__).resolve().parents[1]
 ROUTE_AT = {96: "resident", 800: "resident", 5000: "global"}
+
+
+@pytest.fixture(autouse=True)
+def one_intra_op_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _chip_smoke():
@@ -70,20 +87,32 @@ def test_resident_layout_and_the_global_case():
     assert ops_mcts.search_route(65, 512, 16, 0) == "resident"
 
 
-@pytest.mark.parametrize("sims", [96, 300])
-def test_plan_chunks_resume_to_the_whole_search(sims):
+@pytest.mark.parametrize("case", ["96", "300", "bench-300"])
+def test_plan_chunks_resume_to_the_whole_search(case):
     # DeviceMCTS.plan searches in chunks of 128 simulations, each resuming
     # the last one's tree; on the plain version the plan's tree equals one
     # whole search (the card holds the kernel's chunks to the same tree),
-    # and the planner names the entry its shape takes
-    dm = DeviceMCTS(_domain(sims), MCTSConfig(num_simulations=sims), device="cpu")
-    assert dm.route == ops_mcts.search_route(sims + 1, 256, 16, 0) == "resident"
-    dm.plan()
-    whole = dm.init_tree()
-    ops_mcts.search_chunk_plain(whole, sims, dm._ctx, dm._weights)
+    # and the planner names the entry its shape takes.  "bench-300" resumes
+    # by hand through search_chunk (the dispatching wrapper) on bench.py's
+    # domain, against one _search call of all 300
+    if case == "bench-300":
+        sims, d = 300, _chip_smoke().bench_domain()
+        dm = DeviceMCTS(d, MCTSConfig(num_simulations=sims), device="cpu")
+        whole = dm._search(d.initial_state())
+        chunked = dm.init_tree()
+        for n in (128, 128, 44):
+            ops_mcts.search_chunk(chunked, n, dm._ctx)
+    else:
+        sims = int(case)
+        dm = DeviceMCTS(_domain(sims), MCTSConfig(num_simulations=sims), device="cpu")
+        assert dm.route == ops_mcts.search_route(sims + 1, 256, 16, 0) == "resident"
+        dm.plan()
+        chunked = dm.last_tree
+        whole = dm.init_tree()
+        ops_mcts.search_chunk_plain(whole, sims, dm._ctx, dm._weights)
     for f in whole._fields:
-        assert torch.equal(getattr(dm.last_tree, f), getattr(whole, f)), f
-    assert int(dm.last_tree.visits[0, 0]) == sims
+        assert torch.equal(getattr(chunked, f), getattr(whole, f)), f
+    assert int(chunked.visits[0, 0]) == sims
 
 
 def _domain(seed, F=12, P=3):

@@ -191,19 +191,6 @@ def test_bench_domain_plan_matches_reference():
     _close(got.expected_reward, want.expected_reward, "expected_reward", atol=64 * ATOL)
 
 
-def test_chunked_plan_tree_equals_one_launch():
-    """plan()'s schedule (≤128 simulations a call) continues one tree: the
-    same bits as one call of all the simulations."""
-    d = bench_domain(UndoDomain)
-    dm = DeviceMCTS(d, MCTSConfig(num_simulations=300), device="cpu")
-    whole = dm._search(d.initial_state())
-    parts = dm.init_tree()
-    for n in (128, 128, 44):
-        ops_mcts.search_chunk(parts, n, dm._ctx)
-    for a, b in zip(whole, parts):
-        assert torch.equal(a, b)
-
-
 def test_terminal_root_and_determinism():
     d = _domain(UndoDomain, 0)
     dm = DeviceMCTS(d, MCTSConfig(num_simulations=20), device="cpu")
