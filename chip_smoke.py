@@ -6010,8 +6010,10 @@ def lstm_times(iters: int = 10) -> dict:
 
 # the phase's legs: serve windows/s with the plane on and off in turns, two
 # of the serve cell's streams a leg (s5, s6), then one profiled leg for the
-# busy share and one for the p99 capture
-DEVTIME_TURNS = ("on", "off", "on", "off")
+# busy share and one for the p99 capture.  One turn each (two each until the
+# fleet phase needed the smoke's time: their spread, ±10% between turns,
+# was wider than the plane's cost, so the second pair resolved nothing)
+DEVTIME_TURNS = ("on", "off")
 DEVTIME_STREAMS = ("s5", "s6")
 # the p99 leg's breach threshold (the serve cell's admit→demux p50 is about
 # 2.5 s) and its capture's seconds
@@ -7441,6 +7443,476 @@ def run_tune_path(model_dir: str) -> dict:
     return out
 
 
+# --- the fleet control plane (run_fleet_bench.py --smoke on the card) -----------
+
+FLEET_COST = 0.05               # run_fleet_bench.py's known-cost leg: 0.05 s a window,
+FLEET_RATE = 6.0                # 6 Hz a stream: analytic saturation 1/(6 x 0.05) = 3.33
+FLEET_DEVTIME_WINDOW = 8.0
+FLEET_BUCKET = "256x512x64"
+FLEET_PROBE_SEC = 5.0           # its --smoke probes and soaks
+FLEET_SHED_SEC = 10.0
+FLEET_ARCHIVE_SEC = 8.0
+FLEET_MAX_STREAMS = 6
+FLEET_DAEMON = ("--duration-sec", "8", "--synthetic-cost", "0.02", "--stream", "a=1")
+FLEET_REAL_LAYERS = 4           # JointConfig().small, the fleet replicas' fixed model
+
+
+class _FleetBoots:
+    """The fleet phase's children: ``boot(name, **spec)`` starts a replica
+    (``python -m nerrf_tpu_torch.fleet.replica`` on the card) in the
+    background, ``take(name)`` waits for it, ``stop_later(rep)`` drains and
+    stops one in the background; every child's final stats (its ``stop``
+    reply) are kept in ``finals``.  The daemon (`fleet_daemon_start`) is
+    started with the first boots.  ``close()`` stops whatever is still up."""
+
+    def __init__(self):
+        import pathlib
+        import tempfile
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._pool = ThreadPoolExecutor(max_workers=16, thread_name_prefix="fleet")
+        self._futures = {}
+        self._stops = []
+        self.reps = []
+        self.finals = {}
+        self.boot_s = {}
+        self.work = pathlib.Path(tempfile.mkdtemp(prefix="nerrf-fleet-"))
+        self.daemon = None
+
+    def _boot(self, name, spec):
+        import threading
+
+        from nerrf_tpu_torch.fleet import ReplicaProcess, replica_args
+
+        spec = {"buckets": FLEET_BUCKET, "devtime_window_sec": FLEET_DEVTIME_WINDOW, **spec}
+        t0 = time.perf_counter()
+        rep = ReplicaProcess(name, args=replica_args(device="cuda", **spec), log=_console)
+        self.boot_s[name] = round(time.perf_counter() - t0, 2)
+        stop, once = rep.stop, threading.Lock()
+
+        def kept_stop(*a, **kw):
+            with once:  # a second caller waits and gets the same reply
+                if name not in self.finals:
+                    self.finals[name] = stop(*a, **kw)
+            return self.finals[name]
+
+        rep.stop = kept_stop
+        self.reps.append(rep)
+        return rep
+
+    def boot(self, name, **spec):
+        self._futures[name] = self._pool.submit(self._boot, name, spec)
+
+    def take(self, name):
+        return self._futures[name].result(timeout=300)
+
+    def submit(self, fn, *args):
+        return self._pool.submit(fn, *args)
+
+    def stop_later(self, stop):
+        """Run ``stop()`` (a replica's, a set's) in the background."""
+        self._stops.append(self._pool.submit(stop))
+
+    def join_stops(self):
+        for fut in self._stops:
+            fut.result(timeout=300)
+
+    def close(self):
+        for fut in list(self._futures.values()) + self._stops:
+            try:
+                fut.result(timeout=300)
+            except Exception:  # noqa: BLE001 — a failed boot has nothing to stop
+                pass
+        for rep in self.reps:
+            if rep.proc.poll() is None:
+                rep.stop()
+        if self.daemon is not None:
+            fleet_daemon_close(self.daemon)
+        self._pool.shutdown(wait=True)
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def _scored(stats: dict) -> int:
+    return int(stats.get("windows_scored") or 0)
+
+
+def _scraped_total(text: str, name: str) -> float:
+    """A counter summed over its label series, from a /metrics scrape."""
+    total = 0.0
+    for line in (text or "").splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def _card_free_gib() -> float:
+    import torch
+
+    free, _total = torch.cuda.mem_get_info()
+    return round(free / 2 ** 30, 2)
+
+
+FLEET_KNOWN = dict(synthetic_cost=FLEET_COST, queue_slots=64, deadline_sec=2.0)
+
+
+def fleet_preboot() -> _FleetBoots:
+    """Start the first legs' replicas (A's, B's two, C's) and the daemon; the
+    full smoke calls this before the tune phase, so that they boot while it
+    runs."""
+    boots = _FleetBoots()
+    boots.boot("sat", **FLEET_KNOWN)
+    boots.boot("b-r0", **FLEET_KNOWN)
+    boots.boot("b-r1", **FLEET_KNOWN)
+    boots.boot("shed", synthetic_cost=FLEET_COST, queue_slots=4, deadline_sec=1.0,
+               shed_margin=1.0, buckets="160x320x64,1024x2048x64")
+    boots.daemon = fleet_daemon_start(boots.work)
+    return boots
+
+
+def fleet_leg_a(boots) -> dict:
+    """Measured saturation: one known-cost replica, 6 Hz streams added until
+    the delivered/offered ratio falls under 0.85."""
+    rep = boots.take("sat")
+    ratios, k_star = [], None
+    try:
+        for k in range(1, FLEET_MAX_STREAMS + 1):
+            rep.cmd("assign", stream=f"probe{k}", rate_hz=FLEET_RATE)
+            time.sleep(2.0)  # settle: feeder up, first windows closing
+            before = _scored(rep.cmd("stats"))
+            time.sleep(FLEET_PROBE_SEC)
+            delivered = _scored(rep.cmd("stats")) - before
+            ratio = delivered / (k * FLEET_RATE * FLEET_PROBE_SEC)
+            ratios.append(round(ratio, 3))
+            _console(f"fleet A: k={k} {delivered} windows ({ratio:.3f})")
+            if ratio < 0.85:
+                k_star = k
+                break
+    finally:
+        boots.stop_later(rep.stop)
+    if k_star is None:
+        _fail(f"fleet A: no saturation up to {FLEET_MAX_STREAMS} streams: {ratios}")
+    return {"delivered_ratio_by_streams": ratios,
+            "analytic_saturation_streams": round(1.0 / (FLEET_RATE * FLEET_COST), 2),
+            "measured_saturation_streams": k_star}
+
+
+def fleet_leg_b(boots, k_star: int) -> dict:
+    """Two 6 Hz streams under the real controller over a ReplicaSet (both
+    replicas booted ahead, so a scale-out adopts a warm one): out strictly
+    below k*, a rebalance whose moved stream keeps scoring on its new
+    replica, in on sustained slack."""
+    from nerrf_tpu_torch.fleet import FleetConfig, FleetController, ReplicaSet
+    from nerrf_tpu_torch.flight.journal import EventJournal
+    from nerrf_tpu_torch.observability import MetricsRegistry
+
+    reg = MetricsRegistry()
+    jrn = EventJournal(registry=reg)
+    rs = ReplicaSet(lambda name: boots.take(f"b-{name}"), max_replicas=2, log=_console)
+    rs.scale_out()
+    ctl = FleetController(
+        rs, FleetConfig(poll_sec=0.5, scale_out_below=1.5, scale_in_above=4.0,
+                        scale_out_sustain=2, scale_in_sustain=4, cooldown_sec=4.0,
+                        max_replicas=2),
+        registry=reg, journal=jrn, log=_console)
+    out = {"streams_at_scale_out": None, "scale_in": False, "rebalance_moved": [],
+           "moved_stream_scoring": False}
+    t0 = time.perf_counter()
+
+    def scale_events(direction):
+        return [d for d in ctl.decisions
+                if d["kind"] == "fleet_scale" and d["direction"] == direction]
+
+    def rebalances():
+        return [d for d in ctl.decisions if d["kind"] == "fleet_rebalance"]
+
+    rs.add_stream("load0", FLEET_RATE)
+    rs.add_stream("load1", FLEET_RATE)
+    ctl.poll_once()  # manual reconciliation: place both on r0
+    ctl.start()
+    try:
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline and not scale_events("out"):
+            time.sleep(0.25)
+        if scale_events("out"):
+            out["streams_at_scale_out"] = 2
+            out["scale_out_s"] = round(time.perf_counter() - t0, 2)
+        deadline = time.monotonic() + 12.0
+        while time.monotonic() < deadline and not rebalances():
+            time.sleep(0.25)
+        if rebalances():
+            out["rebalance_moved"] = rebalances()[-1]["moved"]
+        if out["rebalance_moved"]:
+            moved = out["rebalance_moved"][0]
+            rep = rs.replicas().get(rebalances()[-1]["slots"][moved])
+            if rep is not None:
+                def moved_count():
+                    stats = rep.cmd("stats")
+                    out["moved_to_launches"] = stats["launches"]
+                    per = stats["slo"].get("per_stream") or {}
+                    return sum(v.get("count", 0) for k, v in per.items()
+                               if k.split("#", 1)[0] == moved)
+
+                base = moved_count()
+                deadline = time.monotonic() + 20.0
+                while time.monotonic() < deadline:
+                    if moved_count() > base:
+                        out["moved_stream_scoring"] = True
+                        break
+                    time.sleep(0.5)
+        # slack: drop the load, keep a trickle on r0; r1 goes idle (its
+        # stale gauge read as slack) and must be retired
+        rs.remove_stream("load0")
+        rs.remove_stream("load1")
+        rs.add_stream("cool", 1.0)
+        t_in = time.perf_counter()
+        deadline = time.monotonic() + 45.0
+        while time.monotonic() < deadline and not scale_events("in"):
+            time.sleep(0.5)
+        if scale_events("in"):
+            out["scale_in"] = True
+            out["scale_in_s"] = round(time.perf_counter() - t_in, 2)
+    finally:
+        ctl.stop()
+        boots.stop_later(rs.stop_all)
+    out["decisions"] = [{k: v for k, v in d.items() if k != "evidence"}
+                        for d in ctl.decisions if d["kind"] == "fleet_scale"]
+    out["scale_out_evidence"] = next(
+        (d["evidence"] for d in ctl.decisions if d["kind"] == "fleet_scale"), None)
+    n_out = out["streams_at_scale_out"]
+    if n_out is None or not n_out < k_star:
+        _fail(f"fleet B: scale-out at {n_out} streams, not strictly below k* = {k_star}")
+    if not out["rebalance_moved"] or not out["moved_stream_scoring"]:
+        _fail(f"fleet B: rebalance {out['rebalance_moved']}, moved stream scoring "
+              f"{out['moved_stream_scoring']}")
+    if not out["scale_in"]:
+        _fail(f"fleet B: no scale-in on sustained slack: {out['decisions']}")
+    return out
+
+
+def fleet_leg_c(boots) -> dict:
+    """A 30 Hz dense burner (120 events/s, on the 1024 rung: 4x the device
+    cost a window) beside an 8 Hz healthy stream on an overloaded replica:
+    every shed victim the burner, every ranking topped by it, the healthy
+    stream still scoring."""
+    rep = boots.take("shed")
+    try:
+        rep.cmd("assign", stream="burn", rate_hz=30.0, events_hz=120.0)
+        rep.cmd("assign", stream="heal", rate_hz=8.0)
+        time.sleep(FLEET_SHED_SEC)
+        stats = rep.cmd("stats")
+    finally:
+        boots.stop_later(rep.stop)
+    sheds = stats.get("shed_records") or []
+    victims = sorted({r["stream"].split("#", 1)[0] for r in sheds})
+    tops = sorted({(r["data"].get("ranking") or [["?"]])[0][0] for r in sheds})
+    per = stats["slo"].get("per_stream") or {}
+    heal = sum(v.get("count", 0) for k, v in per.items() if k.split("#", 1)[0] == "heal")
+    out = {"shed_records": len(sheds), "victims": victims, "ranking_tops": tops,
+           "healthy_windows_scored": int(heal), "dropped": stats.get("dropped"),
+           "windows_scored": _scored(stats)}
+    _console(f"fleet C: {json.dumps(out)}")
+    if not sheds or victims != ["burn"] or tops != ["burn"] or heal <= 0:
+        _fail(f"fleet C: shedding {out}")
+    return out
+
+
+def fleet_leg_d(boots) -> dict:
+    """Two real-model replicas (JointConfig().small on the card, fused),
+    booted at once: each replica's parity reply bit-equal to model_detect,
+    zero recompiles after warmup, every bucket warmed live, and its kernel
+    launches = (warmup forwards + served batches + model_detect's batches)
+    x one fused forward's."""
+    from nerrf_tpu_torch.fleet.replica import parity_trace
+    from nerrf_tpu_torch.serve import ServeConfig
+    from nerrf_tpu_torch.train.data import windows_of_trace
+
+    bucket = tuple(int(x) for x in FLEET_BUCKET.split("x"))
+    cfg = ServeConfig(buckets=(bucket,), batch_size=8, window_sec=15.0, stride_sec=5.0)
+    offline_batches = math.ceil(
+        len(windows_of_trace(parity_trace(), cfg.dataset_config(bucket))) / cfg.batch_size)
+    per_forward = fused_forward_launches(FLEET_REAL_LAYERS)
+    out = {}
+    reps = {name: boots.take(name) for name in ("d-r0", "d-r1")}
+    replies = {name: boots.submit(rep.cmd, "parity", 300.0) for name, rep in reps.items()}
+    for name, rep in reps.items():
+        try:
+            parity = replies[name].result(timeout=330)
+            stats = rep.cmd("stats")
+            served = int(_scraped_total(rep.scrape(), "nerrf_serve_batches_total"))
+        finally:
+            boots.stop_later(rep.stop)
+        forwards = len(stats["warmup_source"]) + served + offline_batches
+        want = {k: forwards * v for k, v in per_forward.items()}
+        out[name] = {"parity": parity.get("parity"), "parity_windows": parity.get("windows"),
+                     "recompiles_after_warmup": stats["recompiles_after_warmup"],
+                     "warmup_source": stats["warmup_source"],
+                     "forwards": {"warmup": len(stats["warmup_source"]), "served": served,
+                                  "model_detect": offline_batches},
+                     "launches": stats["launches"], "boot_s": boots.boot_s[name]}
+        if parity.get("parity") is not True:
+            _fail(f"fleet D {name}: parity reply {parity}")
+        if stats["recompiles_after_warmup"] != 0:
+            _fail(f"fleet D {name}: {stats['recompiles_after_warmup']} recompiles")
+        if not stats["warmup_source"] or set(stats["warmup_source"].values()) != {"live"}:
+            _fail(f"fleet D {name}: warmup source {stats['warmup_source']}")
+        if stats["launches"] != want:
+            _fail(f"fleet D {name}: launches {stats['launches']} != {forwards} forwards "
+                  f"x {per_forward}")
+    out["per_forward"] = per_forward
+    out["warm_boot_from_cache"] = "left out: waits for the compile cache (ROADMAP A.7)"
+    return out
+
+
+def fleet_leg_e_start(boots) -> tuple:
+    """Two archived known-cost runs (0.02 and 0.06 s a window): two 5 Hz
+    streams each, from now until `fleet_leg_e_finish`."""
+    reps = {name: boots.take(f"e-{name}") for name in ("base", "cand")}
+    for rep in reps.values():
+        rep.cmd("assign", stream="a0", rate_hz=5.0)
+        rep.cmd("assign", stream="a1", rate_hz=5.0)
+    return reps, time.perf_counter()
+
+
+def fleet_leg_e_finish(boots, started) -> dict:
+    """After FLEET_ARCHIVE_SEC of soak, both replicas stopped (their archives
+    closed): `report --compare --gate` exits 1 on the regression, 0 on
+    self-compare, 0 with --cost-ratio 10 --p99-ratio 10."""
+    reps, t0 = started
+    time.sleep(max(0.0, FLEET_ARCHIVE_SEC - (time.perf_counter() - t0)))
+    for rep in reps.values():
+        rep.stop()
+    base, cand = str(boots.work / "archive_base"), str(boots.work / "archive_cand")
+    rcs = {"soak_s": round(time.perf_counter() - t0, 2),
+           "rc_regression": _cli_run("report", cand, "--compare", base, cand, "--gate")[0],
+           "rc_self_compare": _cli_run("report", base, "--compare", base, base, "--gate")[0],
+           "rc_loose_knobs": _cli_run("report", cand, "--compare", base, cand, "--gate",
+                                      "--cost-ratio", "10", "--p99-ratio", "10")[0]}
+    if (rcs["rc_regression"], rcs["rc_self_compare"], rcs["rc_loose_knobs"]) != (1, 0, 0):
+        _fail(f"fleet E: compare gate exit codes {rcs}, want 1/0/0")
+    return rcs
+
+
+def fleet_daemon_start(work) -> dict:
+    """Start the daemon and a thread that scrapes its /metrics while it runs
+    (``seen``: the nerrf_fleet_* names of the first scrape that has any)."""
+    import threading
+    import urllib.request
+
+    port = _free_port()
+    log = open(work / "daemon.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nerrf_tpu_torch.fleet.controller", *FLEET_DAEMON,
+         "--metrics-port", str(port)], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    daemon = {"proc": proc, "log": log, "t0": time.perf_counter(), "seen": None,
+              "seen_s": None}
+
+    def watch():
+        while proc.poll() is None and daemon["seen"] is None:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                            timeout=5) as resp:
+                    text = resp.read().decode()
+                names = sorted({ln.split("{")[0].split(" ")[0] for ln in text.splitlines()
+                                if ln.startswith("nerrf_fleet_")})
+                if names:
+                    daemon["seen"] = names
+                    daemon["seen_s"] = round(time.perf_counter() - daemon["t0"], 2)
+            except OSError:
+                pass
+            time.sleep(0.25)
+
+    daemon["watch"] = threading.Thread(target=watch, name="fleet-daemon-watch")
+    daemon["watch"].start()
+    return daemon
+
+
+def fleet_daemon_close(daemon) -> None:
+    proc = daemon["proc"]
+    try:
+        daemon["rc"] = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        daemon["watch"].join(timeout=30)
+        daemon["log"].close()
+
+
+def fleet_daemon_finish(boots) -> dict:
+    """While the daemon ran its /metrics carried nerrf_fleet_*; it exits 0."""
+    daemon, boots.daemon = boots.daemon, None
+    fleet_daemon_close(daemon)
+    rc = daemon["rc"]
+    tail = (boots.work / "daemon.log").read_text()[-2000:]
+    if rc != 0 or not daemon["seen"]:
+        _fail(f"fleet daemon: exit {rc}, nerrf_fleet_* seen {daemon['seen']}: {tail}")
+    return {"rc": rc, "fleet_metrics": daemon["seen"], "seen_s": daemon["seen_s"],
+            "seconds": round(time.perf_counter() - daemon["t0"], 2)}
+
+
+def run_fleet_path(boots=None) -> dict:
+    """run_fleet_bench.py --smoke against the port's replicas on the card
+    (every child ``--device cuda``; the bench's constants: 0.05 s a window,
+    6 Hz a stream, an 8 s devtime window, the 256x512x64 bucket).  Legs:
+    A saturation alone; B autoscale and C shedding at once; D two
+    real-model replicas and E's two archived runs at once, then E's compare
+    gate; the daemon (``python -m nerrf_tpu_torch.fleet.controller``)
+    started with the first boots (`fleet_preboot`, which the full smoke
+    calls before the tune phase).  D's and E's replicas boot while A
+    measures.  Every known-cost replica launches no kernel."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    boots = boots or fleet_preboot()
+    out = {"card": _smi(), "card_free_gib": {"start": _card_free_gib()}, "legs_s": {}}
+    try:
+        t = time.perf_counter()
+        boots.take("sat")
+        out["wait_for_A"] = round(time.perf_counter() - t, 2)
+        for name in ("d-r0", "d-r1"):
+            boots.boot(name, synthetic_cost=0.0, queue_slots=64, deadline_sec=5.0)
+        for name, cost in (("base", 0.02), ("cand", 0.06)):
+            boots.boot(f"e-{name}", synthetic_cost=cost, queue_slots=64, deadline_sec=2.0,
+                       archive_dir=str(boots.work / f"archive_{name}"), snapshot_sec=1.0)
+        t = time.perf_counter()
+        out["saturation"] = fleet_leg_a(boots)
+        out["legs_s"]["A"] = round(time.perf_counter() - t, 2)
+        out["card_free_gib"]["A"] = _card_free_gib()
+        t = time.perf_counter()
+        shed = boots.submit(fleet_leg_c, boots)
+        out["autoscale"] = fleet_leg_b(boots, out["saturation"]["measured_saturation_streams"])
+        out["shed"] = shed.result(timeout=300)
+        out["legs_s"]["B_C"] = round(time.perf_counter() - t, 2)
+        out["card_free_gib"]["B_C"] = _card_free_gib()
+        t = time.perf_counter()
+        e_run = fleet_leg_e_start(boots)
+        out["real_model"] = fleet_leg_d(boots)
+        out["compare_gate"] = fleet_leg_e_finish(boots, e_run)
+        out["legs_s"]["D_E"] = round(time.perf_counter() - t, 2)
+        out["card_free_gib"]["D_E"] = _card_free_gib()
+        t = time.perf_counter()
+        out["daemon"] = fleet_daemon_finish(boots)
+        boots.join_stops()
+        out["legs_s"]["daemon_and_stops"] = round(time.perf_counter() - t, 2)
+        out["card_free_gib"]["end"] = _card_free_gib()
+    finally:
+        boots.close()
+    zero = {k: 0 for k in fused_forward_launches(FLEET_REAL_LAYERS)}
+    known_names = [n for n in boots.finals if not n.startswith("d-")]
+    out["known_cost_launches"] = {n: boots.finals[n]["launches"] for n in known_names}
+    if len(known_names) != 6 or any(
+            boots.finals[n]["launches"] != zero for n in known_names):
+        _fail(f"fleet: known-cost replicas launched kernels: {out['known_cost_launches']}")
+    moved = out["autoscale"].get("moved_to_launches")
+    if moved != zero:
+        _fail(f"fleet B: the moved-to replica launched {moved}")
+    out["boot_s"] = boots.boot_s
+    out["seconds"] = round(time.perf_counter() - t_phase, 2)
+    print("fleet " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -7598,6 +8070,13 @@ def main() -> int:
                 shutil.rmtree(model_dir, ignore_errors=True)
         print(json.dumps({"card": smi, sys.argv[1][2:]: res}, default=str))
         return 0
+    if sys.argv[1:2] == ["--fleet"]:
+        # only the fleet phase: its replicas load the kernels built here
+        kernels.build()
+        res = run_fleet_path()
+        print(json.dumps({"card": smi, "fleet": {
+            k: res[k] for k in ("seconds", "legs_s", "saturation", "real_model")}}))
+        return 0
     if sys.argv[1:2] == ["--stream-probe"]:
         kernels.build()
         keep = ("init_seed", "event_auc", "event_f1_at_threshold",
@@ -7607,6 +8086,7 @@ def main() -> int:
             {k: probe[k] for k in keep} for probe in probes]}))
         return 0
     run_t0 = time.perf_counter()
+    fleet_pre = None
     try:
         t0 = time.perf_counter()
         built = kernels.build()
@@ -7662,7 +8142,10 @@ def main() -> int:
             learn = P("learn", run_learn_path, experiment["model_dir"])
             devtime = P("devtime", run_devtime_path, experiment["model_dir"], train_mfu)
             chaos_leg = P("chaos", run_chaos_path, train_ds, train_cfg)
+            # the fleet phase's first replicas and its daemon boot during tune
+            fleet_pre = fleet_preboot()
             tune_leg = P("tune", run_tune_path, experiment["model_dir"])
+            fleet = P("fleet", run_fleet_path, fleet_pre)
         finally:
             shutil.rmtree(experiment["model_dir"], ignore_errors=True)
         stream = P("stream", run_stream_path)
@@ -7674,6 +8157,8 @@ def main() -> int:
         import traceback
 
         traceback.print_exc()
+        if fleet_pre is not None:
+            fleet_pre.close()
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         print("phase seconds so far: " + json.dumps(
             {k: round(v, 1) for k, v in PHASE_SECONDS.items()}), file=sys.stderr)
@@ -7724,7 +8209,12 @@ def main() -> int:
          "chaos_serve_launches": chaos_leg["launches"][name],
          "chaos_nonfinite_train_launches": chaos_leg["nonfinite"]["launches"][name],
          "tune_forward_launches_by_mode": {
-             m: v[name] for m, v in tune_leg["mode_launches"].items()}}
+             m: v[name] for m, v in tune_leg["mode_launches"].items()},
+         "fleet": {"real_model_replica_launches": {
+             r: fleet["real_model"][r]["launches"][name] for r in ("d-r0", "d-r1")},
+             "per_forward": fleet["real_model"]["per_forward"][name],
+             "known_cost_replica_launches": sorted(
+                 {v[name] for v in fleet["known_cost_launches"].values()})}}
         for name in segment_kernels]}
     # the search: per plan of 800 simulations (ms: CUDA events around the
     # plan's launches and syncs; plain_ms: the plain version's plan on the
@@ -7917,6 +8407,18 @@ def main() -> int:
           f"{json.dumps(tn['expected'])}; against the static ladder "
           f"{json.dumps(tn['vs_static'])}; forwards {json.dumps(tn['forwards'])}; "
           f"the record {json.dumps(tn['record'])}; on {smi}")
+    fa, fb, fc, fd = fleet["saturation"], fleet["autoscale"], fleet["shed"], fleet["real_model"]
+    print(f"fleet ({fleet['seconds']:.1f} s, legs {json.dumps(fleet['legs_s'])}): k* "
+          f"{fa['measured_saturation_streams']} (analytic {fa['analytic_saturation_streams']}, "
+          f"ratios {fa['delivered_ratio_by_streams']}); scale-out at "
+          f"{fb['streams_at_scale_out']} streams after {fb.get('scale_out_s')} s, moved "
+          f"{fb['rebalance_moved']} still scoring, scale-in after {fb.get('scale_in_s')} s; "
+          f"shed {fc['shed_records']} (victims {fc['victims']}, healthy scored "
+          f"{fc['healthy_windows_scored']}, dropped {json.dumps(fc['dropped'])}); real-model "
+          f"replicas parity {[fd[r]['parity'] for r in ('d-r0', 'd-r1')]}, forwards "
+          f"{json.dumps({r: fd[r]['forwards'] for r in ('d-r0', 'd-r1')})}; compare gate "
+          f"{json.dumps(fleet['compare_gate'])}; daemon exit {fleet['daemon']['rc']}; card "
+          f"free GiB {json.dumps(fleet['card_free_gib'])}; on {smi}")
     leg, probe = stream["leg"], stream["probe"]
     print(f"stream ({stream['seconds']:.1f} s): bench.py's leg {leg['B']} x {leg['T']}, "
           f"{leg['ms_per_step']:.2f} ms a step, {leg['events_per_s']:.1f} events/s, "

@@ -18,7 +18,9 @@ Implementation notes vs the reference daemon
 (`tracker/cmd/tracker/main.go:184-267`):
   * real batching (64 events/frame default) instead of one event per frame;
   * a replay source: gRPC's flow control paces each subscriber, so no frame
-    is dropped (the live-capture drop-on-full queues come with live capture);
+    is dropped; live-capture sources fan out through `subscriber_queue`'s
+    bounded drop-on-full queues (100 frames by default, the reference
+    daemon's), counting what they drop in ``frames_dropped``;
   * decode on the client side lands in the native C++ bridge when built.
 
 No generated service stubs: grpcio's generic-handler API binds the method
@@ -28,6 +30,7 @@ stubs (trace_pb2.py).
 
 from __future__ import annotations
 
+import queue
 import threading
 from typing import Iterator, Optional
 
@@ -182,7 +185,9 @@ class TraceReplayServer:
 
     The role the reference fills with its Go daemon: this is the replay/test
     flavor (trace in, stream out), the production flavor being the native
-    capture agent feeding the same frames.
+    capture agent feeding the same frames.  Fan-out policy matches the
+    reference: per-subscriber bounded queue (default 100 frames), drop on
+    overflow so one slow consumer cannot stall the rest.
     """
 
     def __init__(
@@ -191,9 +196,12 @@ class TraceReplayServer:
         strings: StringTable,
         address: str = "127.0.0.1:0",
         batch_size: int = 64,
+        queue_slots: int = 100,
     ) -> None:
         self._frames = events_to_batch_frames(events, strings, batch_size)
         self._address = address
+        self._queue_slots = queue_slots
+        self.frames_dropped = 0
         self._lock = threading.Lock()
         self._server: Optional[grpc.Server] = None
         self.port: Optional[int] = None
@@ -203,6 +211,9 @@ class TraceReplayServer:
     def _stream_events(self, request: bytes, context) -> Iterator[bytes]:
         # Replay source: frames are pre-serialized once and yielded directly —
         # gRPC's own flow control paces each subscriber, so nothing is dropped.
+        # (The bounded drop-on-full queue policy applies to *live* capture
+        # sources, where a producer thread feeds subscriber queues and a slow
+        # consumer must not stall the ring-buffer drain; see subscriber_queue.)
         from nerrf_tpu_torch.observability import DEFAULT_REGISTRY
 
         DEFAULT_REGISTRY.counter_inc(
@@ -232,6 +243,13 @@ class TraceReplayServer:
             except (ValueError, IndexError) as e:
                 # IndexError = truncated varint/length in a malformed frame
                 yield _error_response(3, str(e))  # INVALID_ARGUMENT
+
+    def subscriber_queue(self) -> "queue.Queue[Optional[bytes]]":
+        """Bounded frame queue with the live-source overflow policy: callers
+        pushing with put_nowait should count queue.Full as a dropped frame
+        (mirrors the reference daemon's 100-slot drop-on-full channels,
+        tracker/cmd/tracker/main.go:255-265)."""
+        return queue.Queue(maxsize=self._queue_slots)
 
     def start(self) -> int:
         from concurrent import futures

@@ -250,12 +250,42 @@ class FirecrackerDriver:
 
     def boot_clone(self, rootfs_image: str, vcpus: int = 1, mem_mib: int = 256,
                    socket_wait_sec: float = 5.0):  # pragma: no cover - requires KVM host
-        """The reference spawns firecracker here and drives its API through
-        the native C++ transport (``nerrf_tpu/rollback/fc.py``), which the
-        port does not carry yet: it raises."""
-        raise NotImplementedError(
-            "FirecrackerDriver.boot_clone needs the native Firecracker binding "
-            "(rollback/fc.py), which nerrf_tpu_torch does not carry yet")
+        """Spawn firecracker and drive its API (native C++ transport,
+        nerrf_tpu_torch/rollback/fc.py) through the spec's replay sequence:
+        machine-config → boot-source → rootfs drive → InstanceStart."""
+        import os
+        import subprocess
+        import time
+
+        from nerrf_tpu_torch.rollback.fc import FirecrackerAPI
+
+        if self.kernel_image is None:
+            raise ValueError("FirecrackerDriver needs kernel_image to boot")
+        # firecracker refuses to start over a stale socket from a prior run
+        Path(self.api_socket).unlink(missing_ok=True)
+        proc = subprocess.Popen([self.bin, "--api-sock", self.api_socket])
+        try:
+            deadline = time.monotonic() + socket_wait_sec
+            while not os.path.exists(self.api_socket):
+                if proc.poll() is not None:
+                    raise RuntimeError(
+                        f"firecracker exited (rc={proc.returncode}) before "
+                        "creating its API socket")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"firecracker API socket {self.api_socket} not "
+                        f"created within {socket_wait_sec}s")
+                time.sleep(0.05)
+            api = FirecrackerAPI(self.api_socket)
+            api.configure_machine(vcpus=vcpus, mem_mib=mem_mib)
+            api.set_boot_source(self.kernel_image)
+            api.add_drive("rootfs", rootfs_image, root=True)
+            api.start()
+        except BaseException:
+            proc.kill()
+            proc.wait()
+            raise
+        return proc, api
 
     def rehearse(self, *a, **kw):  # pragma: no cover - requires KVM host
         raise RuntimeError(

@@ -209,6 +209,36 @@ def test_wire_is_bit_equal_both_ways(trace, servers):
     assert [len(b) for b, _ in blocks] == [50, 50, 50]
 
 
+@pytest.mark.parametrize("slots", [None, 3])
+def test_subscriber_queue_drops_on_full_as_the_references(trace, slots):
+    """The live-source fan-out queue: bounded at ``queue_slots`` (100 by
+    default, the reference daemon's), ``put_nowait`` on a full one raises
+    ``queue.Full`` (the caller counts it in ``frames_dropped``), and a
+    replay drains through gRPC's flow control with nothing dropped."""
+    import queue
+
+    jev, jst = _jax(trace)
+    kw = {} if slots is None else {"queue_slots": slots}
+    srv = service.TraceReplayServer(trace.events, trace.strings, batch_size=50, **kw)
+    ref = jservice.TraceReplayServer(jev, jst, batch_size=50, **kw)
+    q = srv.subscriber_queue()
+    assert q.maxsize == ref.subscriber_queue().maxsize == (slots or 100)
+    assert srv.frames_dropped == ref.frames_dropped == 0
+    for frame in srv._frames[:q.maxsize]:
+        q.put_nowait(frame)
+    if len(srv._frames) > q.maxsize:
+        with pytest.raises(queue.Full):
+            q.put_nowait(srv._frames[q.maxsize])
+    srv.start()
+    try:
+        got = service.TrackerClient(f"127.0.0.1:{srv.port}",
+                                    bridge=_bridge("python")).stream(timeout=30.0)
+    finally:
+        srv.stop()
+    _assert_same(_resolved(*got), _resolved(trace.events, trace.strings))
+    assert srv.frames_dropped == 0
+
+
 def test_reflection_answers_are_the_references():
     reqs = [service._ld(7, b""), service._ld(4, b"nerrf.trace.Tracker"),
             service._ld(4, b"google.protobuf.Timestamp"),

@@ -60,6 +60,8 @@ def test_importing_the_port_loads_no_jax_module():
         "import nerrf_tpu_torch.devtime.costmodel, nerrf_tpu_torch.devtime.accounting\n"
         "import nerrf_tpu_torch.devtime.capture, nerrf_tpu_torch.devtime.headroom\n"
         "import nerrf_tpu_torch.bench.flops, nerrf_tpu_torch.bench.mfu\n"
+        "import nerrf_tpu_torch.fleet.controller, nerrf_tpu_torch.fleet.replica\n"
+        "import nerrf_tpu_torch.rollback.fc, nerrf_tpu_torch.rollback.sandbox\n"
         f"bad = sorted(m for m in set(sys.modules) - before\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n")
@@ -91,6 +93,23 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_experiment("toy-graphsage", tmp_path / "run")
     assert not (tmp_path / "run").exists()
+
+
+@pytest.mark.parametrize("entry", ["replica", "daemon"])
+def test_fleet_entry_points_raise_without_cuda(monkeypatch, entry):
+    """A replica (``python -m nerrf_tpu_torch.fleet.replica``) and the fleet
+    daemon (``python -m nerrf_tpu_torch.fleet.controller``) run on the card
+    by default: without CUDA they raise before serving or spawning."""
+    from nerrf_tpu_torch.fleet import controller, replica
+
+    spawned = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(replica, "ReplicaProcess",
+                        lambda *a, **k: spawned.append(a) or None)
+    main = {"replica": replica.main, "daemon": controller.main}[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--duration-sec", "0.1"] if entry == "daemon" else [])
+    assert not spawned
 
 
 def test_training_raises_without_cuda(monkeypatch):

@@ -12,6 +12,7 @@ the executor's report (durations aside) are the same.  The port's undo run
 is verified, loses no byte and reverts no clean file.
 """
 
+import pathlib
 import shutil
 
 import numpy as np
@@ -130,12 +131,81 @@ def test_port_undo_run_verified_without_loss(runs):
     assert all(p.rsplit("/", 1)[-1] in attacked for p in restored)
 
 
-def test_firecracker_driver_gated():
+_STUB_FIRECRACKER = """#!{python}
+import http.server, json, socketserver, sys
+
+sock = sys.argv[sys.argv.index("--api-sock") + 1]
+log = open({log!r}, "a")
+
+
+class Handler(http.server.BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+
+    def _answer(self):
+        n = int(self.headers.get("Content-Length", 0))
+        body = self.rfile.read(n).decode() if n else ""
+        log.write(json.dumps([self.command, self.path,
+                              json.loads(body) if body else None]) + "\\n")
+        log.flush()
+        self.send_response(204)
+        self.send_header("Content-Length", "0")
+        self.send_header("Connection", "close")
+        self.end_headers()
+
+    do_GET = do_PUT = do_PATCH = _answer
+
+    def log_message(self, *a):
+        pass
+
+
+class Server(socketserver.ThreadingMixIn, socketserver.UnixStreamServer):
+    def get_request(self):
+        return super().get_request()[0], ("127.0.0.1", 0)
+
+
+Server(sock, Handler).serve_forever()
+"""
+
+
+def test_firecracker_driver_gated(tmp_path):
+    import json
+    import sys
+
     assert not FirecrackerDriver.available()
     with pytest.raises(RuntimeError):
         FirecrackerDriver().rehearse()
-    with pytest.raises(NotImplementedError, match="rollback/fc.py"):
-        FirecrackerDriver(kernel_image="k").boot_clone("rootfs.img")
+    # boot_clone against a stub `firecracker` that serves the API on
+    # --api-sock: the reference's sequence (machine-config, boot-source, the
+    # rootfs drive, InstanceStart), and its bodies
+    stub, log = tmp_path / "firecracker", tmp_path / "calls.jsonl"
+    stub.write_text(_STUB_FIRECRACKER.format(python=sys.executable, log=str(log)))
+    stub.chmod(0o755)
+    driver = FirecrackerDriver(firecracker_bin=str(stub), kernel_image="/img/vmlinux",
+                               api_socket=str(tmp_path / "fc.sock"))
+    proc, api = driver.boot_clone("/img/rootfs.ext4", vcpus=2, mem_mib=512,
+                                  socket_wait_sec=30.0)
+    try:
+        calls = [tuple(json.loads(line)) for line in log.read_text().splitlines()]
+    finally:
+        proc.kill()
+        proc.wait()
+    assert calls == [
+        ("PUT", "/machine-config", {"vcpu_count": 2, "mem_size_mib": 512}),
+        ("PUT", "/boot-source", {"kernel_image_path": "/img/vmlinux",
+                                 "boot_args": "console=ttyS0 reboot=k panic=1"}),
+        ("PUT", "/drives/rootfs", {"drive_id": "rootfs", "path_on_host": "/img/rootfs.ext4",
+                                   "is_root_device": True, "is_read_only": False}),
+        ("PUT", "/actions", {"action_type": "InstanceStart"}),
+    ]
+    assert api.socket_path == str(tmp_path / "fc.sock")
+    # the driver is the reference's, the package name aside
+    port_src = pathlib.Path(rollback.sandbox.__file__).read_text()
+    ref_src = pathlib.Path(jrollback.sandbox.__file__).read_text()
+    tail = "class FirecrackerDriver"
+    assert (port_src[port_src.index(tail):].replace("nerrf_tpu_torch", "nerrf_tpu")
+            == ref_src[ref_src.index(tail):])
+    with pytest.raises(ValueError, match="kernel_image"):
+        FirecrackerDriver().boot_clone("rootfs.img")
 
 
 def test_gate_replay_catches_untraced_side_effect(tmp_path):
